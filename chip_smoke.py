@@ -16,7 +16,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    planned q1 (accumulate kernel), fused q1 (q1 kernel), and the row
    round trip (row transpose kernel); results checked against the numpy
    oracle, against each other and against the input;
-5. one ``{"kernels": [...]}`` line, the card line, and the final
+5. the general (sort-based) q1 on the same lineitem, whose first six
+   rows must equal the planned q1's;
+6. TPC-H q3 at scale factor 10 (1,500,000 customers, 15,000,000 orders,
+   59,986,052 lineitem rows) after the q1 lineitem is freed: the join
+   probe kernel at the second join's shapes (and on int32 and uint64
+   keys) against its plain version, then ``tpch_q3`` with the counts
+   reset (the probe kernel launched exactly twice, no fallback, the join
+   within its capacity, the result equal to a vectorized numpy oracle)
+   and ``tpch_q3_planned`` (no probe launch, no PK violation, the same
+   result);
+7. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -25,6 +35,7 @@ A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import sys
 import time
@@ -34,6 +45,8 @@ import torch
 
 SF10_ROWS = 59_986_052     # TPC-H SF10 lineitem
 ROWS = SF10_ROWS
+Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
+Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
 REPS = 7                   # timed runs per measurement, after one warm-up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
@@ -320,6 +333,170 @@ def path_phases(li):
     return launches, {"q1_planned_s": s_planned, "q1_fused_s": s_fused}
 
 
+def general_q1_phase(li) -> dict:
+    """The general sort-based q1 on the SF10 lineitem: its first six rows
+    equal the planned q1's bit for bit, and the checked wrapper passes."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    general = tpch.tpch_q1(li)
+    torch.cuda.synchronize()
+    require(not kernels.fallbacks(), f"q1 fell back: {kernels.fallbacks()}")
+    planned = tpch.tpch_q1_planned(li)
+    for a, b in zip(general.columns, planned.columns):
+        require(a.dtype == b.dtype and torch.equal(a.data[:6], b.data[:6])
+                and torch.equal(a.validity[:6], b.validity[:6]),
+                f"general q1 column {a.dtype} differs from planned")
+    tpch.tpch_q1_checked(li)
+    s = host_median_s(lambda: tpch.tpch_q1(li))
+    log(f"general q1: first 6 rows bit-identical to planned; "
+        f"{s * 1e3:.3f} ms, {li.num_rows / s:.4g} rows/s")
+    return {"q1_general_s": s}
+
+
+def q3_tables():
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    t0 = time.perf_counter()
+    tables = (tpch.customer_table(Q3_CUSTOMERS),
+              tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS),
+              tpch.lineitem_q3_table(ROWS, Q3_ORDERS))
+    torch.cuda.synchronize()
+    log(f"q3 tables: {Q3_CUSTOMERS} customers, {Q3_ORDERS} orders, {ROWS} "
+        f"lineitem rows on the card in {time.perf_counter() - t0:.1f} s")
+    return tables
+
+
+def _probe_row(build, probe, what: str) -> tuple:
+    """Kernel D against its plain version on keys already in the
+    kernel's type; returns (max_abs_err, bound_ms, bound_by)."""
+    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+
+    got = khp._probe_cuda(build, probe)
+    want = khp.probe_lo_hi_plain(build, probe)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"probe kernel != plain version ({what})")
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    steps = math.ceil(math.log2(build.shape[0] + 1))
+    b_ms, b_by = bound(build.nbytes + probe.nbytes + 2 * got[0].nbytes,
+                       2 * steps * probe.shape[0])
+    return err, b_ms, b_by
+
+
+def probe_phase(customer, orders, li3, dev) -> dict:
+    """Kernel D at the shapes of q3's second join: the orders-side build
+    keys after ``_sorted_valid_keys`` and the filtered lineitem probe;
+    then one int32 case (rank-encoded keys) and one uint64 case."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import join
+    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+
+    cust, ord_t, probe_t = tpch._q3_inputs(customer, orders, li3, 0,
+                                           tpch._Q3_CUTOFF_DAYS)
+    maps1 = join.join(ord_t, cust, [0], [0], orders.num_rows)
+    build_t = tpch._q3_build_fn(join.apply_join_maps(ord_t, cust, maps1))
+    key = build_t.column(0)
+    build, n_valid, _ = join._sorted_valid_keys(key.data, key.valid_mask())
+    probe = probe_t.column(0).data
+    del maps1, build_t, cust, ord_t, probe_t
+    err, b_ms, b_by = _probe_row(build, probe, "q3 join 2")
+    row = dict(
+        name=khp.NAME, route="cuda",
+        source="spark_rapids_jni_tpu_torch/csrc/hash_probe.cu",
+        replaces="spark_rapids_jni_tpu/ops/pallas/hash_probe.py:114",
+        max_abs_err=err,
+        ms=median_ms(lambda: khp._probe_cuda(build, probe)),
+        plain_ms=median_ms(lambda: khp.probe_lo_hi_plain(build, probe)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: (
+            torch.searchsorted(build, probe),
+            torch.searchsorted(build, probe, right=True))))
+    log(f"kernel D {khp.NAME}: build {build.shape[0]} int64 keys "
+        f"({int(n_valid)} valid), probe {probe.shape[0]}, exact; "
+        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, searchsorted "
+        f"pair {row['library_ms']:.3f}, bound {b_ms:.3f} by {b_by})")
+    del build, probe
+
+    rng = np.random.default_rng(3)
+    for np_dt, m, n in ((np.int32, 1 << 20, 1 << 22),
+                        (np.uint64, 1 << 20, 1 << 22)):
+        info = np.iinfo(np_dt)
+        b = np.sort(rng.integers(0, 1 << 24, m).astype(np_dt))
+        b[-m // 8:] = info.max
+        p = rng.integers(0, 1 << 24, n).astype(np_dt)
+        p[:2] = [info.min, info.max]
+        kb, kp = khp.kernel_keys(torch.from_numpy(b).to(dev),
+                                 torch.from_numpy(p).to(dev))
+        e, _, _ = _probe_row(kb, kp, np.dtype(np_dt).name)
+        require(e == 0.0, "probe error")
+        log(f"kernel D on {np.dtype(np_dt).name} keys ({m} build, {n} "
+            f"probe): exact")
+    return row
+
+
+def q3_path_phase(customer, orders, li3) -> tuple:
+    """``tpch_q3`` and ``tpch_q3_planned`` at SF10 through the entry
+    points, each with the counts set to 0 just before it."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    res = tpch.tpch_q3(customer, orders, li3)
+    torch.cuda.synchronize()
+    launches = kernels.launches(khp.NAME)
+    require(launches == 2, f"q3 launched the probe kernel {launches} times")
+    require(not kernels.fallbacks(), f"q3 fell back: {kernels.fallbacks()}")
+    total, groups = int(res.join_total), int(res.result.num_groups)
+    require(total <= res.out_cap, f"join 2 total {total} > {res.out_cap}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = res.result.compact()
+
+    t0 = time.perf_counter()
+    want = tpch.tpch_q3_oracle(customer, orders, li3)
+    log(f"q3 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    k = len(want["orderkey"])
+    # the real groups, then the null-key group of the join's padding rows
+    require(groups in (k, k + 1), f"q3 groups {groups} vs oracle {k}")
+    for col, name in enumerate(("orderkey", "orderdate", "shippriority",
+                                "revenue")):
+        c = got.column(col)
+        require(bool(c.validity[:k].all()), f"q3 {name}: null in a group")
+        require(torch.equal(c.data[:k].cpu(), torch.from_numpy(want[name])),
+                f"q3 {name} differs from the numpy oracle")
+        if groups == k + 1:
+            require(not bool(c.validity[k]), f"q3 {name}: null group")
+    log(f"q3: {total} matched rows, {groups} groups ({k} real); equal to "
+        f"the numpy oracle in value and order; probe launches {launches}, "
+        f"no fallback; peak device memory {peak:.2f} GiB")
+
+    kernels.reset_counts()
+    planned = tpch.tpch_q3_planned(customer, orders, li3)
+    torch.cuda.synchronize()
+    require(kernels.launches(khp.NAME) == 0, "planned q3 launched the probe")
+    require(not bool(planned.pk_violation), "planned q3: PK violation")
+    require(int(planned.join_total) == total, "planned q3 match count")
+    require(planned.result.compact().equals(got),
+            "planned q3 differs from q3")
+    log("planned q3: no probe launch, no PK violation, result equal to q3")
+    del res, planned, got
+
+    s = host_median_s(lambda: tpch.tpch_q3(customer, orders, li3))
+    s_planned = host_median_s(
+        lambda: tpch.tpch_q3_planned(customer, orders, li3))
+    log(f"q3: {s * 1e3:.3f} ms, {li3.num_rows / s:.4g} lineitem rows/s; "
+        f"planned q3: {s_planned * 1e3:.3f} ms, "
+        f"{li3.num_rows / s_planned:.4g} rows/s")
+    return launches, {"q3_s": s, "q3_planned_s": s_planned,
+                      "q3_matched_rows": total, "q3_groups": groups,
+                      "q3_peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -338,17 +515,27 @@ def main() -> int:
     (OUT_DIR / "kernels_build.log").write_text(
         (_build.BUILD_DIR / "build.log").read_text())
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     li = tpch.lineitem_table(ROWS, seed=0)
+    dev = li.columns[0].device
     torch.cuda.synchronize()
     log(f"lineitem: {ROWS} rows on {dev} in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
     kernel_rows = kernel_phases(li, dev)
     launches, path_times = path_phases(li)
+    path_times.update(general_q1_phase(li))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"peak device memory {peak:.2f} GiB")
+    log(f"peak device memory of the q1 and row phases {peak:.2f} GiB")
+    del li
+    torch.cuda.empty_cache()
+
+    q3 = q3_tables()
+    kernel_rows["D"] = probe_phase(*q3, dev)
+    q3_launches, q3_numbers = q3_path_phase(*q3)
+    launches[kernel_rows["D"]["name"]] = q3_launches
+    path_times.update(q3_numbers)
+    del q3
 
     report = {"kernels": []}
     for row in kernel_rows.values():

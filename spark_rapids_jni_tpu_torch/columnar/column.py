@@ -34,6 +34,23 @@ def _indexable(x: torch.Tensor) -> torch.Tensor:
     return x if view is None else x.view(view)
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for every storage dtype: unsigned types gather through
+    a same-width signed view and come back in their own dtype."""
+    return _indexable(x)[idx].view(x.dtype)
+
+
+def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.zeros`` for every storage dtype (through the signed view)."""
+    return torch.zeros(shape, dtype=_SIGNED_VIEW.get(dtype, dtype),
+                       device=device).view(dtype)
+
+
+def cat(xs) -> torch.Tensor:
+    """``torch.cat`` for every storage dtype (through the signed view)."""
+    return torch.cat([_indexable(x) for x in xs]).view(xs[0].dtype)
+
+
 @dataclass
 class Column:
     dtype: DType

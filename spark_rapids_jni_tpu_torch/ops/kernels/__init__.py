@@ -8,7 +8,9 @@ Each module here replaces one Pallas kernel of the JAX package:
 - ``q1.py`` replaces ``ops/pallas/q1.py`` (``_q1_partials_fn`` behind
   ``tpch_q1_pallas``): the whole of TPC-H q1 in one pass;
 - ``row_transpose.py`` replaces ``ops/pallas/row_transpose.py``
-  (``assemble_rows``): the column->row byte interleave.
+  (``assemble_rows``): the column->row byte interleave;
+- ``hash_probe.py`` replaces ``ops/pallas/hash_probe.py``
+  (``probe_lo_hi``): the join probe's match-run bounds.
 
 The kernels are CUDA C++ under ``spark_rapids_jni_tpu_torch/csrc/``, built
 for ``sm_90a`` by ``_build.py`` at first use and bound through a plain C
@@ -118,5 +120,6 @@ def reset_counts() -> None:
 # constants) registers when ops.kernels.q1 loads, as in the reference
 from spark_rapids_jni_tpu_torch.ops.kernels import (  # noqa: E402
     groupby_accumulate as groupby_accumulate,
+    hash_probe as hash_probe,
     row_transpose as row_transpose,
 )

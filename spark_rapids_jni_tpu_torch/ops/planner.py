@@ -1,15 +1,17 @@
-"""Bounded-domain groupby planning (counterpart of the bounded part of
+"""Planner-declared plans (counterpart of part of
 ``spark_rapids_jni_tpu/ops/planner.py``).
 
-When every key column's candidate values are known at plan time (DDL
-facts such as TPC-H's CHAR(1) flag domains), ``plan_groupby`` lowers the
-groupby to ``groupby_aggregate_bounded``: no sort, no gather, one
-streaming pass. ``domain_miss`` is the runtime escape hatch: out-of-domain
-data must re-plan, it is never silently dropped.
-
-Only the bounded lowering is ported. The general sort-based lowering
-raises ``NotImplementedError`` until the sort and the general groupby are
-ported (ROADMAP.md, Queue 1 item 6).
+- Bounded groupby: when every key column's candidate values are known at
+  plan time (DDL facts such as TPC-H's CHAR(1) flag domains),
+  ``plan_groupby`` lowers the groupby to ``groupby_aggregate_bounded``:
+  no sort, no gather, one streaming pass. ``domain_miss`` is the runtime
+  escape hatch: out-of-domain data must re-plan, it is never silently
+  dropped. The general sort-based lowering of ``plan_groupby`` is not
+  ported yet (ROADMAP.md Queue 1 item 6).
+- Dense primary-key join (``dense_pk_join``): a LEFT join against a
+  build side whose keys are declared unique in [key_lo, key_hi] — a
+  gather (clustered) or one sort plus a search, never the join kernel.
+  ``pk_violation`` is its escape hatch.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from spark_rapids_jni_tpu_torch.columnar import Table
+from spark_rapids_jni_tpu_torch.columnar import Column, Table
+from spark_rapids_jni_tpu_torch.columnar.column import take, zeros
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate_bounded
+from spark_rapids_jni_tpu_torch.ops.sort import gather, int64_value
 
 
 class Domain(NamedTuple):
@@ -91,3 +95,97 @@ def plan_groupby(
         key_domains=[d.values for d in domains], row_valid=row_valid)
     return PlannedGroupBy(res.table, res.present, res.domain_miss,
                           "bounded")
+
+
+class DensePkJoinResult(NamedTuple):
+    """LEFT PK-join result: one output row per probe row (PK fanout is at
+    most 1). Probe columns first, then build columns; unmatched probe
+    rows carry null build columns."""
+
+    table: Table
+    matched: torch.Tensor       # bool[n] probe rows with a build match
+    total: torch.Tensor         # 0-d int64 match count
+    # True when the declared layout lied: a clustered slot held a
+    # different valid key, or (sorted mode) the build side held duplicate
+    # or out-of-range keys. The caller re-plans on the general join.
+    pk_violation: torch.Tensor
+
+
+def dense_pk_join(
+    probe: Table,
+    build: Table,
+    probe_key: int,
+    build_key: int,
+    key_lo: int,
+    key_hi: int,
+    clustered: bool = False,
+) -> DensePkJoinResult:
+    """LEFT join against a DECLARED dense primary-key build side: the
+    build key column holds unique keys from [key_lo, key_hi].
+
+    - ``clustered=True``: build row i holds key ``key_lo + i``; the join
+      is arithmetic plus one row gather, and each gathered key is checked
+      against the probe key (``pk_violation`` if a slot holds another
+      valid key).
+    - ``clustered=False``: one stable sort of the build side, a binary
+      search per probe key; duplicate or out-of-range build keys raise
+      ``pk_violation``.
+
+    Build rows with null keys are filtered rows: probes pointing at them
+    are unmatched, not violations."""
+    nb = build.num_rows
+    pk = probe.column(probe_key)
+    bk = build.column(build_key)
+    if not (pk.dtype.is_fixed_width and bk.dtype.is_fixed_width) \
+            or pk.dtype.storage_dtype.kind not in ("i", "u") \
+            or bk.dtype.storage_dtype.kind not in ("i", "u"):
+        raise NotImplementedError(
+            "dense PK keys are integers (dictionary-encode first)")
+    pdata = int64_value(pk.data)
+    in_range = pk.valid_mask() & (pdata >= key_lo) & (pdata <= key_hi)
+    if clustered:
+        if key_hi - key_lo + 1 != nb:
+            raise ValueError(
+                f"clustered dense PK needs build rows == key range "
+                f"({nb} != {key_hi - key_lo + 1})")
+        pos = (pdata - key_lo).clamp(0, max(nb - 1, 0))
+        bkey_at = int64_value(take(bk.data, pos))
+        bvalid_at = bk.valid_mask()[pos]
+        matched = in_range & bvalid_at & (bkey_at == pdata)
+        pk_violation = (in_range & bvalid_at & (bkey_at != pdata)).any()
+    else:
+        # null keys become the dtype max so the sorted keys are globally
+        # monotone; a declared range reaching that max would collide
+        bvalid = bk.valid_mask()
+        np_dt = bk.dtype.storage_dtype
+        dt_max = int(np.iinfo(np_dt).max)
+        if key_hi >= dt_max:
+            raise ValueError(
+                f"dense PK range [{key_lo}, {key_hi}] reaches "
+                f"iinfo({np_dt.name}).max, the null sentinel; widen the "
+                f"key dtype or shrink the range")
+        bdata = int64_value(bk.data)
+        top = min(dt_max, (1 << 63) - 1)  # above every in-range key
+        skey, perm = torch.sort(torch.where(bvalid, bdata, top), stable=True)
+        n_valid = bvalid.to(torch.int64).sum()
+        pos0 = torch.searchsorted(skey, pdata)
+        safe = pos0.clamp(0, max(nb - 1, 0))
+        hit = (pos0 < n_valid) & (skey[safe] == pdata) if nb \
+            else torch.zeros_like(in_range)
+        pos = perm[safe] if nb else safe
+        matched = in_range & hit
+        dup = ((skey[1:] == skey[:-1]) & (
+            torch.arange(1, nb, device=bk.device) < n_valid)).any()
+        oor = (bvalid & ((bdata < key_lo) | (bdata > key_hi))).any()
+        pk_violation = dup | oor
+    out_cols = list(probe.columns)
+    if nb:
+        gathered = gather(build, pos).columns
+    else:
+        gathered = [Column(c.dtype, zeros(
+            (pos.shape[0], *c.data.shape[1:]), c.data.dtype, c.device))
+            for c in build.columns]
+    for c in gathered:
+        out_cols.append(Column(c.dtype, c.data, c.valid_mask() & matched))
+    return DensePkJoinResult(Table(out_cols), matched,
+                             matched.to(torch.int64).sum(), pk_violation)

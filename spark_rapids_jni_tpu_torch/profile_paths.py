@@ -1,14 +1,17 @@
-"""Where the time goes in the PyTorch/CUDA port's three paths, on the card.
+"""Where the time goes in the PyTorch/CUDA port's paths, on the card.
 
 Usage: python3 -m spark_rapids_jni_tpu_torch.profile_paths
 
-For planned q1, fused q1 and convert_to_rows over TPC-H lineitem at scale
-factor 10 (59,986,052 rows), after a warm-up: the wall time per run
-(host clock around work that ends in a synchronize), then one
-``torch.profiler`` window of REPS runs with the device time of each
-kernel and copy, and the device's busy share of the window (their summed
-device time over the window's wall time, profiler overhead included).
-Chrome traces go to ``chiprun_out/profile_<path>.json``.
+For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
+lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
+factor 10 (1,500,000 customers, 15,000,000 orders, 59,986,052 lineitem
+rows) as a whole, stage by stage (the joins, the groupby, the ORDER BY)
+and planned, after a warm-up: the wall time per run (host clock around
+work that ends in a synchronize), then one ``torch.profiler`` window of
+runs with the device time of each kernel and copy, and the device's busy
+share of the window (their summed device time over the window's wall
+time, profiler overhead included). Chrome traces go to
+``chiprun_out/profile_<path>.json``.
 """
 
 from __future__ import annotations
@@ -22,13 +25,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from spark_rapids_jni_tpu_torch.models import tpch
+from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
 from spark_rapids_jni_tpu_torch.utils.platform import card_line
 
 ROOT = Path(__file__).resolve().parents[1]
 ROWS = 59_986_052  # TPC-H SF10 lineitem
+CUSTOMERS, ORDERS = 1_500_000, 15_000_000  # TPC-H SF10
 REPS = 5
+Q3_REPS = 2
 
 
 def device_us(evt) -> float:
@@ -59,7 +65,7 @@ def profile_path(name, fn, reps, out_dir):
     busy_us = sum(us for us, _, _ in rows)
     print(f"== {name}: {wall_ms:.3f} ms per run (wall, no profiler); "
           f"device busy {busy_us / window_us:.3f} of the profiled window")
-    for us, count, key in rows[:12]:
+    for us, count, key in rows[:15]:
         print(f"   {us / reps / 1e3:9.3f} ms/run  x{count // reps:<3} {key[:90]}")
     prof.export_chrome_trace(str(out_dir / f"profile_{name}.json"))
 
@@ -78,6 +84,26 @@ def main() -> int:
     profile_path("q1_fused", lambda: kq1.tpch_q1_pallas(li), REPS,
                  out_dir)
     profile_path("to_rows", lambda: convert_to_rows(li), REPS, out_dir)
+    profile_path("q1_general", lambda: tpch.tpch_q1(li), REPS, out_dir)
+    del li
+    torch.cuda.empty_cache()
+
+    q3 = (tpch.customer_table(CUSTOMERS), tpch.orders_table(ORDERS, CUSTOMERS),
+          tpch.lineitem_q3_table(ROWS, ORDERS))
+    args = (0, tpch._Q3_CUTOFF_DAYS, 2)
+    profile_path("q3", lambda: tpch.tpch_q3(*q3), Q3_REPS, out_dir)
+    profile_path("q3_joins", lambda: tpch._q3_joined(*q3, *args), Q3_REPS,
+                 out_dir)
+    keyed = tpch._q3_joined(*q3, *args)[0]
+    profile_path("q3_groupby", lambda: groupby_aggregate(
+        keyed, (0, 1, 2), ((3, "sum"),)), Q3_REPS, out_dir)
+    g = groupby_aggregate(keyed, (0, 1, 2), ((3, "sum"),))
+    del keyed
+    profile_path("q3_order_by", lambda: tpch._q3_order_by(g), Q3_REPS,
+                 out_dir)
+    del g
+    profile_path("q3_planned", lambda: tpch.tpch_q3_planned(*q3), Q3_REPS,
+                 out_dir)
     return 0
 
 

@@ -18,12 +18,18 @@ from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.models import tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
-from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate_bounded
+from spark_rapids_jni_tpu_torch.ops.groupby import (
+    groupby_aggregate,
+    groupby_aggregate_bounded,
+)
+from spark_rapids_jni_tpu_torch.ops.join import join
 from spark_rapids_jni_tpu_torch.ops.kernels import (
     groupby_accumulate as kga,
+    hash_probe as khp,
     q1 as kq1,
     row_transpose as krt,
 )
+from spark_rapids_jni_tpu_torch.ops.sort import sort_order
 from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     compute_fixed_width_layout,
     convert_from_rows,
@@ -181,3 +187,117 @@ def test_empty_inputs_run_on_the_card(dev):
     assert fused.equals(kq1.tpch_q1_pallas(ref))
     assert [(b.num_rows, b.data.numel()) for b in rows] == [(0, 0)]
     assert rows[0].data.is_cuda
+
+
+_PROBE_TYPES = {torch.int32: np.int32, torch.int64: np.int64,
+                torch.uint64: np.uint64}
+
+
+def _probe_case(n, m, np_dt, rng, sentinel_tail=0.2):
+    """Sorted build keys with duplicates and a dtype-max sentinel tail;
+    probes that hit, miss, and sit at the dtype's min and max."""
+    info = np.iinfo(np_dt)
+    build = np.sort(rng.integers(-20, 20, m).astype(np_dt))
+    if m:
+        build[m - int(m * sentinel_tail):] = info.max
+    probe = rng.integers(-25, 25, n).astype(np_dt)
+    probe[:min(n, 3)] = np.asarray([info.min, info.max, 0],
+                                   dtype=np_dt)[:min(n, 3)]
+    return build, probe
+
+
+def _probe_equal(dev, build, probe):
+    b, p = khp.kernel_keys(torch.from_numpy(build).to(dev),
+                           torch.from_numpy(probe).to(dev))
+    got = khp._probe_cuda(b, p)
+    want = khp.probe_lo_hi_plain(b, p)
+    torch.cuda.synchronize()
+    assert got[0].dtype == got[1].dtype == torch.int64
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                  np.searchsorted(build, probe, "left"))
+    np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                  np.searchsorted(build, probe, "right"))
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+@pytest.mark.parametrize("dtype", list(_PROBE_TYPES), ids=str)
+def test_probe_kernel_matches_plain(dev, dtype, n):
+    rng = np.random.default_rng(n)
+    _probe_equal(dev, *_probe_case(n, max(n // 2, 1), _PROBE_TYPES[dtype],
+                                   rng))
+
+
+@pytest.mark.parametrize("case", ["empty_build", "all_sentinel",
+                                  "duplicates", "large_build"])
+def test_probe_kernel_edges(dev, case):
+    rng = np.random.default_rng(3)
+    if case == "empty_build":
+        build, probe = _probe_case(257, 0, np.int64, rng)
+    elif case == "all_sentinel":
+        build, probe = _probe_case(2049, 300, np.int64, rng, 1.0)
+    elif case == "duplicates":
+        build = np.full(1000, 7, np.int32)
+        probe = np.asarray([6, 7, 8] * 100, np.int32)
+    else:
+        build, probe = _probe_case(100_000, 70_000, np.int64, rng)
+    _probe_equal(dev, build, probe)
+
+
+def test_probe_kernel_empty_probe(dev):
+    b = torch.arange(10, dtype=torch.int64, device=dev)
+    kernels.reset_counts()
+    lo, hi = khp.probe_lo_hi(b, b[:0])
+    assert lo.shape == hi.shape == (0,) and lo.is_cuda
+    assert kernels.launches() == {}
+
+
+def test_q3_launches_the_probe_twice(dev):
+    sizes = (300, 3000, 12000)
+
+    def tables(device):
+        return (tpch.customer_table(sizes[0], device=device),
+                tpch.orders_table(sizes[1], sizes[0], device=device),
+                tpch.lineitem_q3_table(sizes[2], sizes[1], device=device))
+
+    card, cpu = tables(dev), tables("cpu")
+    kernels.reset_counts()
+    got = tpch.tpch_q3(*card)
+    torch.cuda.synchronize()
+    assert kernels.launches() == {khp.NAME: 2}
+    assert kernels.fallbacks() == {}
+    want = tpch.tpch_q3(*cpu)
+    assert int(got.join_total) == int(want.join_total)
+    assert int(got.result.num_groups) == int(want.result.num_groups)
+    assert got.result.compact().equals(want.result.compact())
+    kernels.reset_counts()
+    planned = tpch.tpch_q3_planned(*card)
+    assert kernels.launches() == {} and not bool(planned.pk_violation)
+    assert planned.result.compact().equals(want.result.compact())
+
+
+def test_sort_groupby_join_on_the_card_match_cpu(dev):
+    # every fixed-width family through the sort, the general groupby and
+    # the rank-encoded join on CUDA tensors, against the CPU run
+    n = 2049
+    card = _mixed_table(n, dev, np.random.default_rng(5))
+    cpu = _mixed_table(n, "cpu", np.random.default_rng(5))
+    keys = [1, 3, 6, 8, 7]
+    assert torch.equal(sort_order(card, keys, [True, False, True, False,
+                                               True]).cpu(),
+                       sort_order(cpu, keys, [True, False, True, False,
+                                              True]))
+    aggs = [(0, "sum"), (4, "mean"), (0, "min"), (4, "max"), (8, "min"),
+            (3, "max"), (6, "count"), (7, "min"), (7, "max")]
+    got = groupby_aggregate(card, [1, 3], aggs)
+    want = groupby_aggregate(cpu, [1, 3], aggs)
+    assert int(got.num_groups) == int(want.num_groups)
+    assert got.compact().equals(want.compact())
+    kernels.reset_counts()
+    maps = join(card, card, [1, 5, 2], [1, 5, 2], 4 * n, how="full")
+    torch.cuda.synchronize()
+    assert kernels.launches() == {khp.NAME: 2}
+    ref = join(cpu, cpu, [1, 5, 2], [1, 5, 2], 4 * n, how="full")
+    assert int(maps.total) == int(ref.total)
+    for f in ("row_valid", "left_valid", "right_valid"):
+        assert torch.equal(getattr(maps, f).cpu(), getattr(ref, f))

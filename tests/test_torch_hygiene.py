@@ -17,6 +17,7 @@ from spark_rapids_jni_tpu_torch.models import tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.kernels import (
     groupby_accumulate as kga,
+    hash_probe as khp,
     q1 as kq1,
     row_transpose as krt,
 )
@@ -50,6 +51,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, spark_rapids_jni_tpu_torch.models.tpch, "
             "spark_rapids_jni_tpu_torch.ops.kernels.q1, "
             "spark_rapids_jni_tpu_torch.ops.row_conversion, "
+            "spark_rapids_jni_tpu_torch.ops.join, "
+            "spark_rapids_jni_tpu_torch.profile_paths, "
             "spark_rapids_jni_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spark_rapids_jni_tpu')]; "
@@ -68,7 +71,8 @@ def test_entry_point_refuses_quiet_cpu_fallback():
 
 def test_registered_kernels_declare_oracle_and_source():
     specs = kernels.registered()
-    assert set(specs) == {kga.NAME, kq1.NAME, krt.NAME}
+    # every Pallas kernel of the reference has its counterpart
+    assert set(specs) == {kga.NAME, kq1.NAME, krt.NAME, khp.NAME}
     for spec in specs.values():
         module, _, fn = spec.oracle.rpartition(".")
         assert callable(getattr(sys.modules[module], fn)), spec.oracle
@@ -85,6 +89,9 @@ def test_cpu_wrappers_take_the_plain_path():
     kq1.tpch_q1_pallas(li)
     from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
     convert_to_rows(li)
+    tpch.tpch_q3(tpch.customer_table(20, device="cpu"),
+                 tpch.orders_table(200, 20, device="cpu"),
+                 tpch.lineitem_q3_table(300, 200, device="cpu"))
     assert kernels.launches() == {}
     assert kernels.fallbacks() == {}
 

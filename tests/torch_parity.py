@@ -57,6 +57,22 @@ def assert_same_table(port_table, jtable: JTable) -> None:
             assert_same_array(g[3], w[3], f"column {i} validity")
 
 
+def assert_same_valid_table(port_table, jtable: JTable) -> None:
+    """Identical types and validity masks, and identical data bytes
+    wherever a value is valid. For results of the reference's fused,
+    bucket-padded plans, whose null slots hold bytes of padding rows."""
+    got = table_to_numpy(port_table)
+    want = host_columns(jtable)
+    assert len(got) == len(want), "column count"
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g[:2] == w[:2], f"column {i}: type {g[:2]} != {w[:2]}"
+        n = len(w[2])
+        gv = np.ones(n, bool) if g[3] is None else g[3]
+        wv = np.ones(n, bool) if w[3] is None else w[3]
+        assert_same_array(gv, wv, f"column {i} validity")
+        assert_same_array(g[2][gv], w[2][wv], f"column {i} valid data")
+
+
 def random_host_columns(n: int, seed: int) -> list:
     """Every fixed-width family the slice ports, with null tails on every
     other column: int8/16/32/64, float32/64, TIMESTAMP_DAYS, DECIMAL64,

@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. TPC-H lineitem at scale factor 10 (59,986,052 rows) on the card;
 3. each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (exact equality), with median times over
-   REPS runs after a warm-up, CUDA events around each run;
+   7 runs after a warm-up, CUDA events around each run
+   (``spark_rapids_jni_tpu_torch/utils/timing.py``);
 4. the three paths through the entry points a user calls, each with the
    launch counts set to 0 just before it and read just after:
    planned q1 (accumulate kernel), fused q1 (q1 kernel), and the row
@@ -20,8 +21,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    rows must equal the planned q1's;
 6. TPC-H q3 at scale factor 10 (1,500,000 customers, 15,000,000 orders,
    59,986,052 lineitem rows) after the q1 lineitem is freed: the join
-   probe kernel at the second join's shapes (and on int32 and uint64
-   keys) against its plain version, then ``tpch_q3`` with the counts
+   probe kernel at both joins' shapes (and on int32 and uint64 keys)
+   against its plain version, then ``tpch_q3`` with the counts
    reset (the probe kernel launched exactly twice, no fallback, the join
    within its capacity, the result equal to a vectorized numpy oracle)
    and ``tpch_q3_planned`` (no probe launch, no PK violation, the same
@@ -47,7 +48,6 @@ SF10_ROWS = 59_986_052     # TPC-H SF10 lineitem
 ROWS = SF10_ROWS
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
-REPS = 7                   # timed runs per measurement, after one warm-up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -55,23 +55,6 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def median_ms(fn, reps: int = REPS) -> float:
-    """Median device time of ``fn()`` in ms: one warm-up, then ``reps``
-    runs, each between two CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def host_median_s(fn, reps: int = 3) -> float:
@@ -118,29 +101,23 @@ def require(cond: bool, what: str) -> None:
 
 def kernel_phases(li, dev):
     """Each kernel against its plain version at the main path's shapes."""
-    from spark_rapids_jni_tpu_torch.models import tpch
-    from spark_rapids_jni_tpu_torch.ops import groupby
+    from spark_rapids_jni_tpu_torch.models.tpch import q1_accumulate_inputs
     from spark_rapids_jni_tpu_torch.ops.bytecast import to_bytes
     from spark_rapids_jni_tpu_torch.ops.kernels import (
         groupby_accumulate as kga,
         q1 as kq1,
         row_transpose as krt,
     )
-    from spark_rapids_jni_tpu_torch.ops.planner import scalar_domain
     from spark_rapids_jni_tpu_torch.ops.row_conversion import (
         compute_fixed_width_layout,
     )
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
     n = li.num_rows
     rows = {}
 
     # A: the bounded accumulate over the q1 work table, m = 12
-    work = tpch._q1_work_table(li)
-    domains = [scalar_domain(tpch._Q1_RF_DOMAIN).values,
-               scalar_domain(tpch._Q1_LS_DOMAIN).values]
-    _, m, _, _ = groupby.bounded_group_layout([len(d) for d in domains])
-    gid, _ = groupby.dense_gid(work, (0, 1), domains, m, None)
-    lanes = groupby.bounded_lanes(work, tpch._Q1_AGGS).lanes
+    gid, lanes, m = q1_accumulate_inputs(li)
     got = kga._accumulate_cuda(gid, lanes, m)
     want = kga.accumulate_plain(gid, lanes, m)
     torch.cuda.synchronize()
@@ -167,7 +144,7 @@ def kernel_phases(li, dev):
     log(f"kernel A {kga.NAME}: m={m} lanes={len(lanes)} exact; "
         f"{rows['A']['ms']:.3f} ms (plain {rows['A']['plain_ms']:.3f}, "
         f"index_add_ {lib:.3f}, bound {b_ms:.3f})")
-    del work, gid, lanes, got, want
+    del gid, lanes, got, want
 
     # B: the fused q1 over lineitem
     cols = [li.column(i).data for i in kq1._COLUMNS]
@@ -370,7 +347,11 @@ def q3_tables():
 
 def _probe_row(build, probe, what: str) -> tuple:
     """Kernel D against its plain version on keys already in the
-    kernel's type; returns (max_abs_err, bound_ms, bound_by)."""
+    kernel's type; returns (max_abs_err, bound_ms, bound_by). The bound
+    counts what the function needs, whatever the kernel does: the build's
+    valid prefix (the sentinel tail past it is known without reading
+    it), the probes and lo/hi once, and two bisections of that prefix per
+    probe (one compare per step)."""
     from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
 
     got = khp._probe_cuda(build, probe)
@@ -379,47 +360,48 @@ def _probe_row(build, probe, what: str) -> tuple:
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
             f"probe kernel != plain version ({what})")
     err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    steps = math.ceil(math.log2(build.shape[0] + 1))
-    b_ms, b_by = bound(build.nbytes + probe.nbytes + 2 * got[0].nbytes,
-                       2 * steps * probe.shape[0])
+    s = int((build < torch.iinfo(build.dtype).max).sum())
+    b_ms, b_by = bound(s * build.element_size() + probe.nbytes
+                       + 2 * got[0].nbytes,
+                       2 * math.ceil(math.log2(s + 1)) * probe.shape[0])
     return err, b_ms, b_by
 
 
 def probe_phase(customer, orders, li3, dev) -> dict:
-    """Kernel D at the shapes of q3's second join: the orders-side build
-    keys after ``_sorted_valid_keys`` and the filtered lineitem probe;
-    then one int32 case (rank-encoded keys) and one uint64 case."""
+    """Kernel D at the shapes of q3's two joins (join 1: the order
+    custkeys into the customer build; join 2: the filtered lineitem
+    probe into the build of join 1's output, after
+    ``_sorted_valid_keys``), then one int32 case (rank-encoded keys) and
+    one uint64 case. Join 2 is the kernel's row in the report."""
     import numpy as np
 
-    from spark_rapids_jni_tpu_torch.models import tpch
-    from spark_rapids_jni_tpu_torch.ops import join
+    from spark_rapids_jni_tpu_torch.models.tpch import q3_probe_inputs
     from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
-    cust, ord_t, probe_t = tpch._q3_inputs(customer, orders, li3, 0,
-                                           tpch._Q3_CUTOFF_DAYS)
-    maps1 = join.join(ord_t, cust, [0], [0], orders.num_rows)
-    build_t = tpch._q3_build_fn(join.apply_join_maps(ord_t, cust, maps1))
-    key = build_t.column(0)
-    build, n_valid, _ = join._sorted_valid_keys(key.data, key.valid_mask())
-    probe = probe_t.column(0).data
-    del maps1, build_t, cust, ord_t, probe_t
-    err, b_ms, b_by = _probe_row(build, probe, "q3 join 2")
-    row = dict(
-        name=khp.NAME, route="cuda",
-        source="spark_rapids_jni_tpu_torch/csrc/hash_probe.cu",
-        replaces="spark_rapids_jni_tpu/ops/pallas/hash_probe.py:114",
-        max_abs_err=err,
-        ms=median_ms(lambda: khp._probe_cuda(build, probe)),
-        plain_ms=median_ms(lambda: khp.probe_lo_hi_plain(build, probe)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(lambda: (
-            torch.searchsorted(build, probe),
-            torch.searchsorted(build, probe, right=True))))
-    log(f"kernel D {khp.NAME}: build {build.shape[0]} int64 keys "
-        f"({int(n_valid)} valid), probe {probe.shape[0]}, exact; "
-        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, searchsorted "
-        f"pair {row['library_ms']:.3f}, bound {b_ms:.3f} by {b_by})")
-    del build, probe
+    joins = q3_probe_inputs(customer, orders, li3)
+    rows = {}
+    for name, (build, n_valid, probe) in zip(("join 1", "join 2"), joins):
+        err, b_ms, b_by = _probe_row(build, probe, f"q3 {name}")
+        row = dict(
+            name=khp.NAME, route="cuda",
+            source="spark_rapids_jni_tpu_torch/csrc/hash_probe.cu",
+            replaces="spark_rapids_jni_tpu/ops/pallas/hash_probe.py:114",
+            max_abs_err=err,
+            ms=median_ms(lambda: khp._probe_cuda(build, probe)),
+            plain_ms=median_ms(lambda: khp.probe_lo_hi_plain(build, probe)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=median_ms(lambda: (
+                torch.searchsorted(build, probe),
+                torch.searchsorted(build, probe, right=True))))
+        log(f"kernel D {khp.NAME} at q3 {name}: build {build.shape[0]} "
+            f"int64 keys ({int(n_valid)} valid), probe {probe.shape[0]}, "
+            f"exact; {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
+            f"searchsorted pair {row['library_ms']:.3f}, bound {b_ms:.3f} "
+            f"by {b_by})")
+        rows[name] = {**row, "build": build.shape[0],
+                      "n_valid": int(n_valid), "probe": probe.shape[0]}
+    del joins, build, probe
 
     rng = np.random.default_rng(3)
     for np_dt, m, n in ((np.int32, 1 << 20, 1 << 22),
@@ -435,7 +417,7 @@ def probe_phase(customer, orders, li3, dev) -> dict:
         require(e == 0.0, "probe error")
         log(f"kernel D on {np.dtype(np_dt).name} keys ({m} build, {n} "
             f"probe): exact")
-    return row
+    return row, rows
 
 
 def q3_path_phase(customer, orders, li3) -> tuple:
@@ -531,7 +513,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     q3 = q3_tables()
-    kernel_rows["D"] = probe_phase(*q3, dev)
+    kernel_rows["D"], probe_rows = probe_phase(*q3, dev)
+    path_times["probe_joins"] = probe_rows
     q3_launches, q3_numbers = q3_path_phase(*q3)
     launches[kernel_rows["D"]["name"]] = q3_launches
     path_times.update(q3_numbers)

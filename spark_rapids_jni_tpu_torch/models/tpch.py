@@ -32,9 +32,16 @@ from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.ops.groupby import (
     GroupByResult,
+    bounded_group_layout,
+    bounded_lanes,
+    dense_gid,
     groupby_aggregate,
 )
-from spark_rapids_jni_tpu_torch.ops.join import apply_join_maps, join
+from spark_rapids_jni_tpu_torch.ops.join import (
+    _sorted_valid_keys,
+    apply_join_maps,
+    join,
+)
 from spark_rapids_jni_tpu_torch.ops.planner import (
     PlannedGroupBy,
     dense_pk_join,
@@ -180,6 +187,17 @@ def tpch_q1_planned(lineitem: Table) -> Table:
     null-key group without signal here; callers that must detect that use
     ``tpch_q1_planned_result().domain_miss``."""
     return tpch_q1_planned_result(lineitem).table
+
+
+def q1_accumulate_inputs(lineitem: Table):
+    """(gid, lanes, m): the bounded accumulate kernel's inputs in planned
+    q1 over ``lineitem``, for timing and checking the kernel alone."""
+    work = _q1_work_table(lineitem)
+    domains = [scalar_domain(_Q1_RF_DOMAIN).values,
+               scalar_domain(_Q1_LS_DOMAIN).values]
+    _, m, _, _ = bounded_group_layout([len(d) for d in domains])
+    gid, _ = dense_gid(work, (0, 1), domains, m, None)
+    return gid, bounded_lanes(work, _Q1_AGGS).lanes, m
 
 
 def tpch_q1_numpy(lineitem: Table) -> dict:
@@ -424,6 +442,23 @@ def _q3_joined(customer: Table, orders: Table, lineitem: Table,
     maps2 = join(probe, build, [0], [0], out_cap)
     return (_q3_keyed_fn(apply_join_maps(probe, build, maps2)), maps2.total,
             out_cap)
+
+
+def q3_probe_inputs(customer: Table, orders: Table, lineitem: Table,
+                    segment: int = 0, cutoff: int = _Q3_CUTOFF_DAYS):
+    """The join probe kernel's inputs at q3's two joins, for timing and
+    checking the kernel alone: ((build, n_valid, probe) of join 1, the
+    same of join 2), each build sorted and sentinel-padded as ``join``
+    gives it to the kernel."""
+    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
+                                    cutoff)
+    key = cust.column(0)
+    build1, n_valid1, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    maps1 = join(ord_t, cust, [0], [0], orders.num_rows)
+    key = _q3_build_fn(apply_join_maps(ord_t, cust, maps1)).column(0)
+    build2, n_valid2, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    return ((build1, n_valid1, ord_t.column(0).data),
+            (build2, n_valid2, probe.column(0).data))
 
 
 def tpch_q3(customer: Table, orders: Table, lineitem: Table,

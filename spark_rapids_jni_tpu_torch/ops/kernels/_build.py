@@ -137,14 +137,16 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+def function(name: str, argtypes: list,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """Entry point ``name`` of the library, with its argument types set
-    (``c_void_p`` for every pointer and the stream) and an int status."""
+    (``c_void_p`` for every pointer and the stream) and its result type
+    (an int status unless the caller says otherwise)."""
     fn = _functions.get(name)
     if fn is None:
         fn = getattr(library(), name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[name] = fn
     return fn
 

@@ -4,9 +4,10 @@
 Replaces the Pallas kernel ``spark_rapids_jni_tpu/ops/pallas/
 groupby_accumulate.py`` (``accumulate``, body ``_make_kernel``). Source:
 ``csrc/groupby_accumulate.cu``, which says what bounds it on an H100
-(bytes, with shared-memory atomic contention as the likely limit) and how
-its design differs from the TPU kernel (native int64 lanes, no limb
-split, validity applied in the kernel).
+(bytes), how its design differs from the TPU kernel (native int64 lanes,
+no limb split, validity applied in the kernel) and how it avoids
+same-address atomics per row (per-thread partials in shared memory for
+m <= 16, warp-aggregated updates above).
 
 A lane is ``(op, values, valid, neutral)``: ``op`` is sum, min or max;
 ``values`` a tensor[n] or None for the constant 1 (row and valid
@@ -34,6 +35,7 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (
 
 NAME = "groupby.bounded_accumulate"
 _MAX_CELLS = 2048  # m*L int64 partials per block: 16 KB of shared memory
+_PARAM_LANES = 64  # lanes the kernel takes in its launch parameters
 
 register_kernel(
     NAME,
@@ -135,7 +137,10 @@ def reduce_lanes_plain(gid: torch.Tensor, lanes: Sequence[Lane],
 def accumulate_plain(gid: torch.Tensor, lanes: Sequence[Lane],
                      m: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel over integer lanes:
-    int64[m, L]."""
+    int64[m, L]. It reduces each (group, lane) as one masked whole-column
+    reduction, not in the kernel's order (tiles, per-thread partials,
+    warp folds): a wrapping int64 sum, a min and a max do not depend on
+    the order of their terms, so the two agree bit for bit."""
     return torch.stack(reduce_lanes_plain(gid, lanes, m), dim=1)
 
 
@@ -174,17 +179,25 @@ def _accumulate_cuda(gid: torch.Tensor, lanes: Sequence[Lane],
             keep.append(valid)
             mptr = valid.data_ptr()
         kind = 0 if lane.values is None else _KINDS[lane.values.dtype]
-        rows.append([vptr, mptr, kind, _OPS[lane.op], int(lane.neutral)])
-    desc = torch.tensor(rows, dtype=torch.int64).to(device)
-    out = torch.tensor([int(lane.neutral) for lane in lanes],
-                       dtype=torch.int64, device=device).repeat(m, 1)
+        rows += [vptr, mptr, kind, _OPS[lane.op], int(lane.neutral)]
     if n == 0:
-        return out  # no rows: every cell keeps its neutral, nothing to launch
+        # no rows: every cell keeps its neutral, nothing to launch
+        return torch.tensor([int(lane.neutral) for lane in lanes],
+                            dtype=torch.int64, device=device).repeat(m, 1)
+    # the descriptors go to the launch as host memory: up to _PARAM_LANES
+    # lanes ride in its parameters, more are copied to lanes_dev
+    desc = (ctypes.c_int64 * len(rows))(*rows)
+    lanes_dev = torch.empty((len(lanes), 5), dtype=torch.int64,
+                            device=device) \
+        if len(lanes) > _PARAM_LANES else None
+    out = torch.empty((m, len(lanes)), dtype=torch.int64, device=device)
     fn = _build.function("srjt_groupby_accumulate", [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p])
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p])
     count_launch(NAME)
-    status = fn(gid.data_ptr(), n, desc.data_ptr(), len(lanes), m,
+    status = fn(gid.data_ptr(), n, ctypes.addressof(desc), len(lanes), m,
+                0 if lanes_dev is None else lanes_dev.data_ptr(),
                 out.data_ptr(), _build.sm_count(device),
                 _build.stream_handle(device))
     _build.check(status, NAME)

@@ -35,10 +35,9 @@ from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     convert_from_rows,
     convert_to_rows,
 )
+from torch_parity import EDGE_ROWS, LEVEL_CASES, level_case
 
 pytestmark = pytest.mark.cuda
-
-EDGE_ROWS = [1, 255, 256, 257, 2047, 2048, 2049]
 
 
 @pytest.fixture
@@ -81,6 +80,72 @@ def test_accumulate_kernel_matches_plain(dev, n):
     got = kga._accumulate_cuda(gid, lanes, m)
     want = kga.accumulate_plain(gid, lanes, m)
     assert torch.equal(got, want)
+
+
+def _cycled_lanes(count, n, dev, rng):
+    """``count`` lanes cycling through counts, sums, mins and maxs of
+    every integer kind the kernel takes, with and without validity."""
+    cols = {np_dt: torch.from_numpy(v.astype(np_dt)).to(dev) for np_dt, v in (
+        (np.int8, rng.integers(-128, 128, n)),
+        (np.int16, rng.integers(-2**15, 2**15, n)),
+        (np.int32, rng.integers(-2**31, 2**31, n)),
+        (np.int64, rng.integers(-2**62, 2**62, n)),
+        (np.uint8, rng.integers(0, 256, n)),
+        (np.uint32, rng.integers(0, 2**32, n)),
+        (np.uint64, rng.integers(0, 2**63, n)))}
+    valid = torch.from_numpy(_null_tail(n, 0.25, rng)).to(dev)
+    kinds = list(cols)
+    lanes = []
+    for i in range(count):
+        np_dt = kinds[i % len(kinds)]
+        info = np.iinfo(np_dt)
+        pick = [kga.Lane("sum", None, None, 0),
+                kga.Lane("sum", None, valid, 0),
+                kga.Lane("sum", cols[np_dt], valid, 0),
+                kga.Lane("sum", cols[np_dt], None, 0),
+                kga.Lane("min", cols[np_dt], valid, int(info.max)),
+                kga.Lane("max", cols[np_dt], None, int(info.min))][i % 6]
+        if pick.op != "sum" and np_dt == np.uint64:
+            pick = kga.Lane("sum", cols[np_dt], valid, 0)  # minmax_width
+        lanes.append(pick)
+    return lanes
+
+
+@pytest.mark.parametrize("m,num_lanes,one_group", [
+    (1, 6, False), (12, 11, False), (16, 12, False), (17, 12, False),
+    (16, 128, False), (64, 32, False), (2048, 1, False),
+    (12, 11, True), (17, 12, True), (2048, 1, True)])
+def test_accumulate_kernel_domains(dev, m, num_lanes, one_group):
+    # m <= 16 takes the per-thread kernel, above it the warp-aggregated
+    # one; m*L = 2048 is the cap; one group is the worst contention.
+    # Three 8192-row tiles and a ragged tail.
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m + num_lanes)
+    g = np.full(n, m - 1) if one_group else rng.integers(0, m + 1, n)
+    gid = torch.from_numpy(g.astype(np.int32)).to(dev)
+    lanes = _cycled_lanes(num_lanes, n, dev, rng)
+    assert kga.unsupported_reason(lanes, m) is None
+    got = kga._accumulate_cuda(gid, lanes, m)
+    want = kga.accumulate_plain(gid, lanes, m)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [32, 2048])
+def test_accumulate_kernel_distinct_warps(dev, m):
+    # every warp's 32 rows in 32 different groups (the large-domain
+    # kernel's path without shuffles), then each group on two neighbouring
+    # rows (its exact path, one shuffle step); m * L within the cap
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m)
+    lanes = _cycled_lanes(6, n, dev, rng) if m == 32 \
+        else _cycled_lanes(3, n, dev, rng)[2:]  # one int32 sum lane
+    assert kga.unsupported_reason(lanes, m) is None
+    for pair in (1, 2):
+        g = np.arange(n) // pair % m
+        gid = torch.from_numpy(g.astype(np.int32)).to(dev)
+        got = kga._accumulate_cuda(gid, lanes, m)
+        want = kga.accumulate_plain(gid, lanes, m)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n", EDGE_ROWS)
@@ -242,6 +307,28 @@ def test_probe_kernel_edges(dev, case):
     else:
         build, probe = _probe_case(100_000, 70_000, np.int64, rng)
     _probe_equal(dev, build, probe)
+
+
+@pytest.mark.parametrize("dtype", list(_PROBE_TYPES), ids=str)
+@pytest.mark.parametrize("case", LEVEL_CASES)
+def test_probe_kernel_index_levels(dev, case, dtype):
+    # builds around the top level's capacity, a line, duplicate runs
+    # across lines, a valid key at the max, all-sentinel and empty
+    _probe_equal(dev, *level_case(case, _PROBE_TYPES[dtype], khp.TOP_KEYS))
+
+
+@pytest.mark.parametrize("case", ["below_top", "past_line",
+                                  "runs_across_lines"])
+def test_probe_kernel_unaligned_build(dev, case):
+    # a build view that starts 8 bytes into its storage is copied to a
+    # 16-byte boundary for the kernel's vector loads
+    build, probe = level_case(case, np.int64, khp.TOP_KEYS)
+    storage = torch.from_numpy(np.concatenate([build[:1], build])).to(dev)
+    b, p = storage[1:], torch.from_numpy(probe).to(dev)
+    assert b.data_ptr() % 16 == 8
+    got = khp._probe_cuda(b, p)
+    want = khp.probe_lo_hi_plain(b, p)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_probe_kernel_empty_probe(dev):

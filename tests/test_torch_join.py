@@ -4,8 +4,9 @@ DECIMAL128 key, null keys, phantom rows and ``out_size`` below the true
 total; ``total`` and the three validity masks compare exactly, and the
 indices and joined data wherever they are valid (the reference leaves
 them unspecified elsewhere). The plain join probe (kernel D's plain
-version) against the Pallas kernel in interpret mode and against
-``jnp.searchsorted``; ``join_auto``'s grow-and-retry; and the
+version, which walks the kernel's index step for step) against the
+Pallas kernel in interpret mode and against ``jnp.searchsorted``, on
+builds around each part of the index; ``join_auto``'s grow-and-retry; and the
 planner's dense primary-key join in both modes, broken declarations
 included."""
 
@@ -22,7 +23,14 @@ from spark_rapids_jni_tpu.ops.pallas import hash_probe as jhp
 from spark_rapids_jni_tpu_torch.interop import table_to_numpy
 from spark_rapids_jni_tpu_torch.ops import join, kernels
 from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
-from torch_parity import EDGE_ROWS, host_columns, jax_table, to_port
+from torch_parity import (
+    EDGE_ROWS,
+    LEVEL_CASES,
+    host_columns,
+    jax_table,
+    level_case,
+    to_port,
+)
 
 T = jt.TypeId
 HOWS = ["inner", "left", "left_semi", "left_anti", "right", "full"]
@@ -173,6 +181,36 @@ def test_plain_probe_matches_pallas_interpret(m):
 @pytest.mark.parametrize("m", [0, 3000])
 def test_plain_probe_matches_searchsorted(dtype, m):
     build, probe = _probe_inputs(dtype, m, 2049, 7)
+    got_lo, got_hi = khp.probe_lo_hi(torch.from_numpy(build),
+                                     torch.from_numpy(probe))
+    for side_, got in (("left", got_lo), ("right", got_hi)):
+        want = jnp.searchsorted(jnp.asarray(build), jnp.asarray(probe),
+                                side=side_)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            got.numpy(), np.searchsorted(build, probe, side=side_))
+
+
+@pytest.mark.parametrize("case", [c for c in LEVEL_CASES if c != "empty"])
+def test_plain_probe_levels_match_pallas_interpret(case):
+    # a top level of 16 keys puts two or three index levels under these
+    # builds of at most 2048 keys, the Pallas kernel's limit
+    build, probe = level_case(case, np.int32, 16)
+    assert build.shape[0] <= jhp.MAX_BUILD
+    lo, hi = jhp.probe_lo_hi(jnp.asarray(build), jnp.asarray(probe),
+                             interpret=True)
+    got_lo, got_hi = khp.probe_lo_hi_plain(torch.from_numpy(build),
+                                           torch.from_numpy(probe),
+                                           top_keys=16)
+    np.testing.assert_array_equal(got_lo.numpy(), np.asarray(lo))
+    np.testing.assert_array_equal(got_hi.numpy(), np.asarray(hi))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint64])
+@pytest.mark.parametrize("case", LEVEL_CASES)
+def test_plain_probe_levels_match_searchsorted(case, dtype):
+    # the kernel's own top-level capacity (khp.TOP_KEYS keys)
+    build, probe = level_case(case, dtype, khp.TOP_KEYS)
     got_lo, got_hi = khp.probe_lo_hi(torch.from_numpy(build),
                                      torch.from_numpy(probe))
     for side_, got in (("left", got_lo), ("right", got_hi)):

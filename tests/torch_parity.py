@@ -1,20 +1,21 @@
 """Helpers that hold the PyTorch port against the JAX package: tables
 cross between the two as numpy arrays (``interop``), and results compare
-byte for byte."""
+byte for byte; and input builders that the CPU tests and the card tests
+share. JAX is imported only inside the helpers that need it, so the card
+tests, which run where JAX is absent, can import this module."""
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
+import torch
 
-from spark_rapids_jni_tpu import types as jt
-from spark_rapids_jni_tpu.columnar import Column as JColumn, Table as JTable
 from spark_rapids_jni_tpu_torch.interop import table_from_numpy, table_to_numpy
+from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
 
 EDGE_ROWS = [1, 255, 256, 257, 2047, 2048, 2049]
 
 
-def host_columns(jtable: JTable) -> list:
+def host_columns(jtable) -> list:
     """A JAX table as ``[(type_id, scale, data, validity), ...]``."""
     return [
         (int(c.dtype.type_id), int(c.dtype.scale), np.asarray(c.data),
@@ -23,12 +24,17 @@ def host_columns(jtable: JTable) -> list:
     ]
 
 
-def to_port(jtable: JTable, device="cpu"):
+def to_port(jtable, device="cpu"):
     return table_from_numpy(host_columns(jtable), device=device)
 
 
-def jax_table(columns) -> JTable:
+def jax_table(columns):
     """``[(type_id, scale, data, validity), ...]`` -> JAX table."""
+    import jax.numpy as jnp
+
+    from spark_rapids_jni_tpu import types as jt
+    from spark_rapids_jni_tpu.columnar import Column as JColumn, Table as JTable
+
     return JTable([
         JColumn(jt.DType(jt.TypeId(tid), scale), jnp.asarray(data),
                 None if valid is None else jnp.asarray(valid))
@@ -43,7 +49,7 @@ def assert_same_array(got, want, what=""):
     assert got.tobytes() == want.tobytes(), f"{what}: bytes differ"
 
 
-def assert_same_table(port_table, jtable: JTable) -> None:
+def assert_same_table(port_table, jtable) -> None:
     """Bit-identical: types, every data byte (under nulls too) and the
     validity tri-state."""
     got = table_to_numpy(port_table)
@@ -57,7 +63,7 @@ def assert_same_table(port_table, jtable: JTable) -> None:
             assert_same_array(g[3], w[3], f"column {i} validity")
 
 
-def assert_same_valid_table(port_table, jtable: JTable) -> None:
+def assert_same_valid_table(port_table, jtable) -> None:
     """Identical types and validity masks, and identical data bytes
     wherever a value is valid. For results of the reference's fused,
     bucket-padded plans, whose null slots hold bytes of padding rows."""
@@ -77,6 +83,8 @@ def random_host_columns(n: int, seed: int) -> list:
     """Every fixed-width family the slice ports, with null tails on every
     other column: int8/16/32/64, float32/64, TIMESTAMP_DAYS, DECIMAL64,
     DECIMAL128."""
+    from spark_rapids_jni_tpu import types as jt
+
     rng = np.random.default_rng(seed)
 
     def tail():
@@ -100,3 +108,47 @@ def random_host_columns(n: int, seed: int) -> list:
     ]
     return [(int(tid), scale, data, tail() if i % 2 else None)
             for i, (tid, scale, data) in enumerate(specs)]
+
+
+LEVEL_CASES = ["empty", "all_sentinel", "below_top", "at_top", "past_top",
+               "past_line", "runs_across_lines", "max_key_valid"]
+
+
+def level_case(case, dtype, top_keys, seed=11):
+    """Build keys that reach one part of the kernel's index (sizes around
+    the top level's capacity ``top_keys`` and one key past a full level
+    of lines, duplicate runs across line boundaries, a valid key at the
+    dtype max, the all-sentinel and empty builds), sorted and
+    sentinel-padded, and probes that hit every build key, miss between
+    them, and sit at the dtype's min and max."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    # the kernel's line in keys: int32 keys stay, the rest widen to int64
+    line = khp.line_keys(torch.int32 if dtype == np.int32 else torch.int64)
+    if case == "empty":
+        build = np.zeros(0, dtype)
+    elif case == "all_sentinel":
+        build = np.full(300, info.max, dtype)
+    else:
+        s = {"below_top": top_keys - 1, "at_top": top_keys,
+             "past_top": top_keys + 1, "past_line": top_keys * line + 1,
+             "runs_across_lines": top_keys * 2 * line,
+             "max_key_valid": top_keys * 4}[case]
+        if case == "runs_across_lines":
+            # runs of 5..40 equal keys, most longer than a line
+            runs = rng.integers(5, 41, s)
+            keys = np.repeat(np.arange(len(runs)) * 3 - 50, runs)[:s]
+        else:
+            keys = np.sort(rng.choice(np.arange(-s, 3 * s), s)) \
+                - min(s, 100)
+        # negative keys wrap for unsigned types: sort after the cast
+        build = np.concatenate([np.sort(keys.astype(np.int64).astype(dtype)),
+                                np.full(s // 3, info.max, dtype)])
+        if case == "max_key_valid":
+            build[s - 3:s] = info.max  # valid keys equal to the sentinel
+    keys = np.unique(build)
+    probe = np.concatenate([
+        np.asarray([info.min, info.max, info.max - 1, 0], dtype), keys,
+        keys + np.asarray(1, dtype),  # the max wraps to the min
+        rng.integers(-200, 200, 513).astype(dtype)])
+    return build, probe

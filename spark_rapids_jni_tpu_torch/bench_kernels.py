@@ -1,23 +1,28 @@
-"""Device times of kernels A (bounded accumulate) and D (join probe) alone,
-for comparing two versions of their sources on one card in one call.
+"""Device times of kernels A (bounded accumulate), B (fused q1) and D
+(join probe) alone, for comparing two versions of their sources on one
+card in one call.
 
 Usage, from the root of a checkout (or of a copy of it whose ``csrc/``
 holds a variant of a kernel)::
 
     python3 -m spark_rapids_jni_tpu_torch.bench_kernels            # main path
+    python3 -m spark_rapids_jni_tpu_torch.bench_kernels --q1       # A and B
     python3 -m spark_rapids_jni_tpu_torch.bench_kernels --large    # A, m > 16
 
 Main path: A over TPC-H q1's work table at SF10 (59,986,052 lineitem rows,
-m = 12 slots, 11 lanes); D at both joins of TPC-H q3 at SF10 (join 1:
-15,000,000 order custkeys into the 1,500,000-slot customer build; join 2:
-the filtered lineitem orderkeys into the 15,000,000-slot build of join 1's
-output). ``--large``: A's warp-aggregated side, which no TPC-H path
-reaches, over 59,986,052 rows at m = 64 (8 lanes: sums, counts, a min and
-a max, with and without validity) and at m = 2048 (1 sum lane, the
-m * L cap), with group ids uniform over [0, m] (rows in no group
-included) or all in one group. Each time is the median of 7 runs between
-CUDA events after one warm-up (``utils/timing.py``). Prints one JSON line
-with the card's name and power limit.
+m = 12 slots, 11 lanes); B over the same lineitem's seven q1 columns
+(``B_exact``: its result equals ``q1_partials_plain``'s, so a variant of
+``csrc/q1.cu`` is timed beside its check); D at both joins of TPC-H q3 at
+SF10 (join 1: 15,000,000 order custkeys into the 1,500,000-slot customer
+build; join 2: the filtered lineitem orderkeys into the 15,000,000-slot
+build of join 1's output). ``--q1`` stops after A and B. ``--large``: A's
+warp-aggregated side, which no TPC-H path reaches, over 59,986,052 rows
+at m = 64 (8 lanes: sums, counts, a min and a max, with and without
+validity) and at m = 2048 (1 sum lane, the m * L cap), with group ids
+uniform over [0, m] (rows in no group included) or all in one group.
+Each time is the median of 7 runs between CUDA events after one warm-up
+(``utils/timing.py``). Prints one JSON line with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -31,19 +36,27 @@ SF10_ROWS = 59_986_052
 CUSTOMERS, ORDERS = 1_500_000, 15_000_000
 
 
-def main_path(report: dict) -> None:
+def main_path(report: dict, q1_only: bool) -> None:
     from spark_rapids_jni_tpu_torch.models import tpch
     from spark_rapids_jni_tpu_torch.ops.kernels import (
         groupby_accumulate as kga,
         hash_probe as khp,
+        q1 as kq1,
     )
     from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
     li = tpch.lineitem_table(SF10_ROWS, seed=0)
     gid, lanes, m = tpch.q1_accumulate_inputs(li)
     report["A_ms"] = median_ms(lambda: kga._accumulate_cuda(gid, lanes, m))
-    del li, gid, lanes
+    del gid, lanes
+    cols = [li.column(i).data for i in kq1._COLUMNS]
+    report["B_exact"] = torch.equal(kq1._q1_partials_cuda(*cols),
+                                    kq1.q1_partials_plain(*cols))
+    report["B_ms"] = median_ms(lambda: kq1._q1_partials_cuda(*cols))
+    del li, cols
     torch.cuda.empty_cache()
+    if q1_only:
+        return
 
     q3 = (tpch.customer_table(CUSTOMERS), tpch.orders_table(ORDERS, CUSTOMERS),
           tpch.lineitem_q3_table(SF10_ROWS, ORDERS))
@@ -91,7 +104,10 @@ def main(argv: list[str]) -> int:
     from spark_rapids_jni_tpu_torch.utils.platform import card_line
 
     report = {"card": card_line(), "package": groupby_accumulate.__file__}
-    (large_domains if "--large" in argv else main_path)(report)
+    if "--large" in argv:
+        large_domains(report)
+    else:
+        main_path(report, q1_only="--q1" in argv)
     print(json.dumps(report), flush=True)
     return 0
 

@@ -5,7 +5,7 @@ Replaces the Pallas kernel ``spark_rapids_jni_tpu/ops/pallas/q1.py``
 Source: ``csrc/q1.cu``, which says what bounds it on an H100 (bytes: 38
 read per row) and how its design differs from the TPU kernel (stored
 columns read as they are, per-row int64 charge instead of limb lanes,
-per-thread register partials instead of per-row atomics).
+per-thread partials in shared memory instead of per-row atomics).
 
 ``q1_partials`` returns int64[8, 6]: for each slot the row count and the
 sums of quantity, price, discount, disc_price and charge. Slots 0-5 are
@@ -55,8 +55,13 @@ register_kernel(
     source="csrc/q1.cu",
     replaces="spark_rapids_jni_tpu/ops/pallas/q1.py:168 _q1_partials_fn",
     doc="whole-query q1: filter + decimal derives + per-slot sums in one "
-        "pass, int64 register partials",
+        "pass, per-thread int64 partials in shared memory",
 )
+
+# the fused q1's group keys, one copy per device: each call clones them on
+# the device instead of copying from pageable host memory, which would
+# make the host wait for the kernel
+_keys: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def q1_partials(qty, price, disc, tax, rf, ls, ship) -> torch.Tensor:
@@ -121,6 +126,19 @@ def _q1_partials_cuda(*cols) -> torch.Tensor:
     return out
 
 
+def _group_keys(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(returnflag, linestatus) of the six real groups in slot order, on
+    ``device``; made once per device. Callers clone them."""
+    keys = _keys.get(device)
+    if keys is None:
+        keys = _keys[device] = (
+            torch.from_numpy(np.repeat(np.asarray(_Q1_RF_DOMAIN, np.int8),
+                                       2)).to(device),
+            torch.from_numpy(np.tile(np.asarray(_Q1_LS_DOMAIN, np.int8),
+                                     3)).to(device))
+    return keys
+
+
 def tpch_q1_pallas(lineitem: Table) -> Table:
     """q1 through the fused kernel. Same output schema and ordering as
     ``tpch_q1_planned`` restricted to its 6 real groups (keys + 8
@@ -149,11 +167,10 @@ def tpch_q1_pallas(lineitem: Table) -> Table:
     def avg(total, scale):
         return total.to(torch.float64) / denom * (10.0 ** scale)
 
-    keys_rf = np.repeat(np.asarray(_Q1_RF_DOMAIN, np.int8), 2)
-    keys_ls = np.tile(np.asarray(_Q1_LS_DOMAIN, np.int8), 3)
+    keys_rf, keys_ls = _group_keys(device)
     return Table([
-        Column(t.INT8, torch.from_numpy(keys_rf).to(device), present),
-        Column(t.INT8, torch.from_numpy(keys_ls).to(device), present),
+        Column(t.INT8, keys_rf.clone(), present),
+        Column(t.INT8, keys_ls.clone(), present),
         Column(t.decimal64(-2), sum_qty, present),
         Column(t.decimal64(-2), sum_price, present),
         Column(t.decimal64(-4), sum_dp, present),

@@ -1,6 +1,10 @@
 """Where the time goes in the PyTorch/CUDA port's paths, on the card.
 
-Usage: python3 -m spark_rapids_jni_tpu_torch.profile_paths
+Usage: python3 -m spark_rapids_jni_tpu_torch.profile_paths [path ...]
+
+With no arguments every path below is profiled; names (``q1_planned``,
+``q1_fused``, ``to_rows``, ``q1_general``, ``q3``, ``q3_joins``,
+``q3_groupby``, ``q3_order_by``, ``q3_planned``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -70,7 +74,7 @@ def profile_path(name, fn, reps, out_dir):
     prof.export_chrome_trace(str(out_dir / f"profile_{name}.json"))
 
 
-def main() -> int:
+def main(only: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_paths: no CUDA device", file=sys.stderr)
         return 1
@@ -78,34 +82,36 @@ def main() -> int:
     _build.library()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+
+    def run(name, fn, reps=REPS):
+        if not only or name in only:
+            profile_path(name, fn, reps, out_dir)
+
     li = tpch.lineitem_table(ROWS, seed=0)
-    profile_path("q1_planned", lambda: tpch.tpch_q1_planned(li), REPS,
-                 out_dir)
-    profile_path("q1_fused", lambda: kq1.tpch_q1_pallas(li), REPS,
-                 out_dir)
-    profile_path("to_rows", lambda: convert_to_rows(li), REPS, out_dir)
-    profile_path("q1_general", lambda: tpch.tpch_q1(li), REPS, out_dir)
+    run("q1_planned", lambda: tpch.tpch_q1_planned(li))
+    run("q1_fused", lambda: kq1.tpch_q1_pallas(li))
+    run("to_rows", lambda: convert_to_rows(li))
+    run("q1_general", lambda: tpch.tpch_q1(li))
     del li
     torch.cuda.empty_cache()
+    if only and not any(name.startswith("q3") for name in only):
+        return 0
 
     q3 = (tpch.customer_table(CUSTOMERS), tpch.orders_table(ORDERS, CUSTOMERS),
           tpch.lineitem_q3_table(ROWS, ORDERS))
     args = (0, tpch._Q3_CUTOFF_DAYS, 2)
-    profile_path("q3", lambda: tpch.tpch_q3(*q3), Q3_REPS, out_dir)
-    profile_path("q3_joins", lambda: tpch._q3_joined(*q3, *args), Q3_REPS,
-                 out_dir)
+    run("q3", lambda: tpch.tpch_q3(*q3), Q3_REPS)
+    run("q3_joins", lambda: tpch._q3_joined(*q3, *args), Q3_REPS)
     keyed = tpch._q3_joined(*q3, *args)[0]
-    profile_path("q3_groupby", lambda: groupby_aggregate(
-        keyed, (0, 1, 2), ((3, "sum"),)), Q3_REPS, out_dir)
+    run("q3_groupby", lambda: groupby_aggregate(
+        keyed, (0, 1, 2), ((3, "sum"),)), Q3_REPS)
     g = groupby_aggregate(keyed, (0, 1, 2), ((3, "sum"),))
     del keyed
-    profile_path("q3_order_by", lambda: tpch._q3_order_by(g), Q3_REPS,
-                 out_dir)
+    run("q3_order_by", lambda: tpch._q3_order_by(g), Q3_REPS)
     del g
-    profile_path("q3_planned", lambda: tpch.tpch_q3_planned(*q3), Q3_REPS,
-                 out_dir)
+    run("q3_planned", lambda: tpch.tpch_q3_planned(*q3), Q3_REPS)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -158,6 +158,71 @@ def test_q1_kernel_matches_plain(dev, n):
     assert torch.equal(got, want)
 
 
+_Q1_CHUNK = 128 * 4  # the kernel's rows per block step (csrc/q1.cu)
+
+
+def _q1_case_columns(case, n, dev):
+    """The seven q1 columns of a lineitem, changed as ``case`` says."""
+    li = tpch.lineitem_table(n, seed=n, device=dev)
+    cols = [li.column(i).data.clone() for i in kq1._COLUMNS]
+    qty, price, disc, tax, rf, ls, ship = cols
+    if case == "one_slot":
+        rf[:] = tpch._Q1_RF_DOMAIN[2]
+        ls[:] = tpch._Q1_LS_DOMAIN[0]
+        ship[:] = tpch._Q1_CUTOFF_DAYS
+    elif case == "all_filtered":
+        ship[:] = tpch._Q1_CUTOFF_DAYS + 1
+    elif case == "all_missed":
+        rf[:] = ord("X")
+        ship[:] = tpch._Q1_CUTOFF_DAYS
+    elif case == "int64_limits":
+        # products and sums wrap: values within 1000 of either int64 limit
+        rng = np.random.default_rng(n)
+        for c in (qty, price, disc, tax):
+            near = rng.integers(0, 1000, n)
+            v = np.where(rng.random(n) < 0.5, np.iinfo(np.int64).max - near,
+                         np.iinfo(np.int64).min + near)
+            c.copy_(torch.from_numpy(v.astype(np.int64)))
+    return cols
+
+
+@pytest.mark.parametrize("case,n", [
+    ("chunks", 3 * _Q1_CHUNK + 77),
+    ("chunks", 1_000_003),      # more chunks than the grid has blocks
+    ("one_slot", 3 * _Q1_CHUNK + 5),
+    ("all_filtered", 3 * _Q1_CHUNK + 5),
+    ("all_missed", 3 * _Q1_CHUNK + 5),
+    ("int64_limits", 5 * _Q1_CHUNK + 333),
+    ("offset_views", 3 * _Q1_CHUNK + 77),
+])
+def test_q1_kernel_cases(dev, case, n):
+    cols = _q1_case_columns(case, n, dev)
+    if case == "offset_views":
+        # every column a view at its own element offset, so no two start
+        # on the same alignment
+        cols = [c[k:] for k, c in enumerate(cols)]
+        m = min(c.shape[0] for c in cols)
+        cols = [c[:m] for c in cols]
+    got = kq1._q1_partials_cuda(*cols)
+    want = kq1.q1_partials_plain(*cols)
+    assert torch.equal(got, want)
+    if case == "one_slot":  # returnflag code 2, linestatus code 0
+        assert int(got[4, 0]) == n and int(got[:, 0].sum()) == n
+    elif case == "all_filtered":
+        assert int(got[6, 0]) == n
+    elif case == "all_missed":
+        assert int(got[7, 0]) == n
+
+
+def test_q1_kernel_empty_input(dev):
+    cols = _q1_case_columns("chunks", 0, dev)
+    kernels.reset_counts()
+    got = kq1._q1_partials_cuda(*cols)
+    assert kernels.launches() == {}
+    assert got.is_cuda and torch.equal(
+        got.cpu(), torch.zeros((8, 6), dtype=torch.int64))
+
+
 def _mixed_table(n, dev, rng):
     limbs = rng.integers(-2**62, 2**62, (n, 2)).astype(np.int64)
     cols = [

@@ -116,6 +116,21 @@ def test_fused_q1_empty_input_falls_back():
     assert not bool(got.column(0).validity.any())
 
 
+def test_fused_q1_outputs_own_their_keys():
+    # the group keys are cloned per call from one copy per device: two
+    # outputs share no storage, so writing one leaves the other as it was
+    port, _ = _lineitems(500, seed=4)
+    a, b = kq1.tpch_q1_pallas(port), kq1.tpch_q1_pallas(port)
+    for k in (0, 1):
+        ka, kb = a.column(k).data, b.column(k).data
+        assert ka.untyped_storage().data_ptr() != \
+            kb.untyped_storage().data_ptr()
+        before = kb.clone()
+        ka.fill_(0)
+        assert torch.equal(kb, before)
+    assert kq1.tpch_q1_pallas(port).equals(b)
+
+
 def test_q1_partials_slots():
     port, _ = _lineitems(4000, seed=2)
     cols = [port.column(i).data.clone() for i in kq1._COLUMNS]

@@ -27,7 +27,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    within its capacity, the result equal to a vectorized numpy oracle)
    and ``tpch_q3_planned`` (no probe launch, no PK violation, the same
    result);
-7. one ``{"kernels": [...]}`` line, the card line, and the final
+7. the TPC-DS join family at scale factor 10 (store_sales 28,800,991
+   rows, catalog_sales 14,401,261, item 102,000, customer 500,000; the
+   generators' 730-day date_dim and one-warehouse inventory, 10,710,000
+   rows) after the q3 tables are freed: the join probe kernel at q72's
+   three joins and q64's self-join against its plain version, then each
+   of ``tpcds_q72`` (the probe launched exactly 3 times),
+   ``tpcds_q72_planned`` (0), ``tpcds_q64`` (exactly 1), ``tpcds_q64_planned``
+   (0) and ``tpcds_q3`` (0) with the counts reset before it, each equal
+   to a vectorized numpy oracle and each planned plan to its general
+   twin, and their host times;
+8. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -48,6 +58,10 @@ SF10_ROWS = 59_986_052     # TPC-H SF10 lineitem
 ROWS = SF10_ROWS
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
+DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
+DS_CATALOG_SALES = 14_401_261  # TPC-DS SF10 catalog_sales
+DS_ITEMS = 102_000             # TPC-DS SF10 item
+DS_CUSTOMERS = 500_000         # TPC-DS SF10 customer
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -367,6 +381,30 @@ def _probe_row(build, probe, what: str) -> tuple:
     return err, b_ms, b_by
 
 
+def _probe_join(build, n_valid, probe, what: str) -> dict:
+    """Kernel D at one join's shape: exact against its plain version,
+    its time, the plain version's, the ``torch.searchsorted`` pair's and
+    the bound (``_probe_row``)."""
+    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    err, b_ms, b_by = _probe_row(build, probe, what)
+    row = dict(
+        build=build.shape[0], n_valid=int(n_valid), probe=probe.shape[0],
+        max_abs_err=err,
+        ms=median_ms(lambda: khp._probe_cuda(build, probe)),
+        plain_ms=median_ms(lambda: khp.probe_lo_hi_plain(build, probe)),
+        library_ms=median_ms(lambda: (
+            torch.searchsorted(build, probe),
+            torch.searchsorted(build, probe, right=True))),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel D {khp.NAME} at {what}: build {row['build']} int64 keys "
+        f"({row['n_valid']} valid), probe {row['probe']}, exact; "
+        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, searchsorted "
+        f"pair {row['library_ms']:.3f}, bound {b_ms:.3f} by {b_by})")
+    return row
+
+
 def probe_phase(customer, orders, li3, dev) -> dict:
     """Kernel D at the shapes of q3's two joins (join 1: the order
     custkeys into the customer build; join 2: the filtered lineitem
@@ -377,31 +415,18 @@ def probe_phase(customer, orders, li3, dev) -> dict:
 
     from spark_rapids_jni_tpu_torch.models.tpch import q3_probe_inputs
     from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
-    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
     joins = q3_probe_inputs(customer, orders, li3)
-    rows = {}
-    for name, (build, n_valid, probe) in zip(("join 1", "join 2"), joins):
-        err, b_ms, b_by = _probe_row(build, probe, f"q3 {name}")
-        row = dict(
-            name=khp.NAME, route="cuda",
-            source="spark_rapids_jni_tpu_torch/csrc/hash_probe.cu",
-            replaces="spark_rapids_jni_tpu/ops/pallas/hash_probe.py:114",
-            max_abs_err=err,
-            ms=median_ms(lambda: khp._probe_cuda(build, probe)),
-            plain_ms=median_ms(lambda: khp.probe_lo_hi_plain(build, probe)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=median_ms(lambda: (
-                torch.searchsorted(build, probe),
-                torch.searchsorted(build, probe, right=True))))
-        log(f"kernel D {khp.NAME} at q3 {name}: build {build.shape[0]} "
-            f"int64 keys ({int(n_valid)} valid), probe {probe.shape[0]}, "
-            f"exact; {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
-            f"searchsorted pair {row['library_ms']:.3f}, bound {b_ms:.3f} "
-            f"by {b_by})")
-        rows[name] = {**row, "build": build.shape[0],
-                      "n_valid": int(n_valid), "probe": probe.shape[0]}
-    del joins, build, probe
+    rows = {name: _probe_join(*join, f"q3 {name}")
+            for name, join in zip(("join 1", "join 2"), joins)}
+    # join 2 is the kernel's row in the report
+    row = dict(name=khp.NAME, route="cuda",
+               source="spark_rapids_jni_tpu_torch/csrc/hash_probe.cu",
+               replaces="spark_rapids_jni_tpu/ops/pallas/hash_probe.py:114",
+               **{k: rows["join 2"][k] for k in (
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")})
+    del joins
 
     rng = np.random.default_rng(3)
     for np_dt, m, n in ((np.int32, 1 << 20, 1 << 22),
@@ -420,20 +445,32 @@ def probe_phase(customer, orders, li3, dev) -> dict:
     return row, rows
 
 
+def _run_counted(name: str, fn, probes: int):
+    """``fn()`` with the counts set to 0 just before it and read just
+    after: the probe kernel launched exactly ``probes`` times, no
+    fallback."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+
+    kernels.reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launches(khp.NAME)
+    require(launches == probes,
+            f"{name} launched the probe kernel {launches} times, not {probes}")
+    require(not kernels.fallbacks(),
+            f"{name} fell back: {kernels.fallbacks()}")
+    return res, launches
+
+
 def q3_path_phase(customer, orders, li3) -> tuple:
     """``tpch_q3`` and ``tpch_q3_planned`` at SF10 through the entry
     points, each with the counts set to 0 just before it."""
     from spark_rapids_jni_tpu_torch.models import tpch
-    from spark_rapids_jni_tpu_torch.ops import kernels
-    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
-    res = tpch.tpch_q3(customer, orders, li3)
-    torch.cuda.synchronize()
-    launches = kernels.launches(khp.NAME)
-    require(launches == 2, f"q3 launched the probe kernel {launches} times")
-    require(not kernels.fallbacks(), f"q3 fell back: {kernels.fallbacks()}")
+    res, launches = _run_counted(
+        "q3", lambda: tpch.tpch_q3(customer, orders, li3), 2)
     total, groups = int(res.join_total), int(res.result.num_groups)
     require(total <= res.out_cap, f"join 2 total {total} > {res.out_cap}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -457,10 +494,8 @@ def q3_path_phase(customer, orders, li3) -> tuple:
         f"the numpy oracle in value and order; probe launches {launches}, "
         f"no fallback; peak device memory {peak:.2f} GiB")
 
-    kernels.reset_counts()
-    planned = tpch.tpch_q3_planned(customer, orders, li3)
-    torch.cuda.synchronize()
-    require(kernels.launches(khp.NAME) == 0, "planned q3 launched the probe")
+    planned, _ = _run_counted(
+        "planned q3", lambda: tpch.tpch_q3_planned(customer, orders, li3), 0)
     require(not bool(planned.pk_violation), "planned q3: PK violation")
     require(int(planned.join_total) == total, "planned q3 match count")
     require(planned.result.compact().equals(got),
@@ -477,6 +512,140 @@ def q3_path_phase(customer, orders, li3) -> tuple:
     return launches, {"q3_s": s, "q3_planned_s": s_planned,
                       "q3_matched_rows": total, "q3_groups": groups,
                       "q3_peak_gib": peak}
+
+
+def tpcds_tables() -> dict:
+    """The TPC-DS SF10 tables on the card: q72's four, q64's store_sales
+    and q3's store_sales and item (sharing q72's date_dim)."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    dd = tpcds.date_dim_table()
+    tables = dict(
+        q72=(tpcds.catalog_sales_table(DS_CATALOG_SALES, num_items=DS_ITEMS),
+             dd, tpcds.item_table(DS_ITEMS),
+             tpcds.inventory_table(num_items=DS_ITEMS)),
+        q64=(tpcds.store_sales_table(DS_STORE_SALES, num_items=DS_ITEMS,
+                                     num_customers=DS_CUSTOMERS),),
+        q3=(dd, tpcds.store_sales_q3_table(DS_STORE_SALES,
+                                           num_items=DS_ITEMS),
+            tpcds.item_q3_table(DS_ITEMS)))
+    torch.cuda.synchronize()
+    log(f"TPC-DS tables: catalog_sales {DS_CATALOG_SALES}, store_sales "
+        f"{DS_STORE_SALES} (twice: q64's and q3's), item {DS_ITEMS}, "
+        f"inventory {tables['q72'][3].num_rows}, date_dim {dd.num_rows} "
+        f"rows on the card in {time.perf_counter() - t0:.1f} s")
+    return tables
+
+
+def tpcds_probe_phase(tables) -> dict:
+    """Kernel D at q72's three joins and q64's self-join, each build
+    sorted and sentinel-padded as ``join`` gives it to the kernel."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    joins = dict(zip(("q72 join 1", "q72 join 2", "q72 join 3"),
+                     tpcds.q72_probe_inputs(*tables["q72"])))
+    joins["q64 self-join"] = tpcds.q64_probe_inputs(*tables["q64"])
+    return {name: _probe_join(*join, name) for name, join in joins.items()}
+
+
+def _require_columns(name: str, table, want: dict, k: int) -> None:
+    """The first ``k`` rows of ``table`` are valid and equal the oracle's
+    arrays (``want``, one per column, in order)."""
+    for col, (what, values) in enumerate(want.items()):
+        c = table.column(col)
+        require(len(values) == k, f"{name}: oracle {what} has {len(values)}")
+        require(bool(c.valid_mask()[:k].all()), f"{name} {what}: null")
+        require(torch.equal(c.data[:k].cpu().to(torch.int64),
+                            torch.from_numpy(values.astype("int64"))),
+                f"{name} {what} differs from the numpy oracle")
+
+
+def _require_same_rows(name: str, got, want, k: int) -> None:
+    """The first ``k`` rows of two tables are valid and equal."""
+    for a, b in zip(got.columns, want.columns):
+        require(a.dtype == b.dtype and torch.equal(a.data[:k], b.data[:k])
+                and bool(a.valid_mask()[:k].all())
+                and bool(b.valid_mask()[:k].all()),
+                f"{name} differs from its general twin")
+
+
+def tpcds_path_phase(tables) -> tuple:
+    """The five TPC-DS plans through the entry points at SF10: launch
+    counts, results against the oracles and between twins, host times,
+    and the phase's peak device memory."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    q72, q64, q3 = tables["q72"], tables["q64"], tables["q3"]
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+
+    res, launches["tpcds_q72"] = _run_counted(
+        "q72", lambda: tpcds.tpcds_q72(*q72), 3)
+    t0 = time.perf_counter()
+    want = tpcds.tpcds_q72_oracle(*q72)
+    log(f"q72 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    k, groups = len(want["item_sk"]), int(res.num_groups)
+    # the real groups, then the null-key group of the unmatched rows
+    require(groups in (k, k + 1), f"q72 groups {groups} vs oracle {k}")
+    q72_table = res.compact()
+    _require_columns("q72", q72_table, want, k)
+    log(f"q72: {groups} groups ({k} real), equal to the numpy oracle in "
+        f"value and order; probe launches 3, no fallback")
+
+    planned, launches["tpcds_q72_planned"] = _run_counted(
+        "planned q72", lambda: tpcds.tpcds_q72_planned(*q72), 0)
+    require(not bool(planned.pk_violation), "planned q72: PK violation")
+    require(int(planned.present.sum()) == k, "planned q72 group count")
+    _require_same_rows("planned q72", planned.table, q72_table, k)
+    log("planned q72: no probe launch, no PK violation, equal to q72")
+    del res, planned, q72_table
+
+    res, launches["tpcds_q64"] = _run_counted(
+        "q64", lambda: tpcds.tpcds_q64(*q64), 1)
+    total = int(res.join_total)
+    require(total <= res.out_size, f"q64 join total {total} > "
+            f"{res.out_size}")
+    want = tpcds.tpcds_q64_oracle(*q64)
+    k, groups = len(want["item_sk"]), int(res.result.num_groups)
+    require(groups in (k, k + 1), f"q64 groups {groups} vs oracle {k}")
+    require(int(want["count"].sum()) == total, "q64 join total vs oracle")
+    q64_table = res.result.compact()
+    _require_columns("q64", q64_table, want, k)
+    log(f"q64: {total} matched pairs (capacity {res.out_size}), {groups} "
+        f"groups ({k} real), equal to the numpy oracle; probe launches 1")
+
+    planned, launches["tpcds_q64_planned"] = _run_counted(
+        "planned q64", lambda: tpcds.tpcds_q64_planned(*q64), 0)
+    require(int(planned.join_total) == total, "planned q64 pair count")
+    _require_same_rows("planned q64", planned.result.table, q64_table, k)
+    log("planned q64: no probe launch, same pair count, equal to q64")
+    del res, planned, q64_table
+
+    res, launches["tpcds_q3"] = _run_counted(
+        "TPC-DS q3", lambda: tpcds.tpcds_q3(*q3), 0)
+    require(not bool(res.pk_violation), "TPC-DS q3: PK violation")
+    require(not bool(res.brand_domain_miss), "TPC-DS q3: brand domain miss")
+    want = tpcds.tpcds_q3_oracle(*q3)
+    k = len(want["year"])
+    require(int(res.present.sum()) == k, "TPC-DS q3 group count")
+    _require_columns("TPC-DS q3", res.table, want, k)
+    log(f"TPC-DS q3: {k} groups equal to the numpy oracle in value and "
+        f"order; no probe launch, no PK violation, no brand domain miss")
+    del res
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    times = {}
+    for name, args in (("tpcds_q72", q72), ("tpcds_q72_planned", q72),
+                       ("tpcds_q64", q64), ("tpcds_q64_planned", q64),
+                       ("tpcds_q3", q3)):
+        fact_rows = max(tbl.num_rows for tbl in args)  # the fact table's
+        s = host_median_s(lambda: getattr(tpcds, name)(*args))
+        times[name] = {"s": s, "fact_rows_per_s": fact_rows / s}
+        log(f"{name}: {s * 1e3:.3f} ms, {fact_rows / s:.4g} fact rows/s")
+    log(f"peak device memory of the TPC-DS plans {peak:.2f} GiB")
+    return launches, {"plans": times, "matched_pairs_q64": total,
+                      "peak_gib": peak}
 
 
 def main() -> int:
@@ -516,9 +685,19 @@ def main() -> int:
     kernel_rows["D"], probe_rows = probe_phase(*q3, dev)
     path_times["probe_joins"] = probe_rows
     q3_launches, q3_numbers = q3_path_phase(*q3)
-    launches[kernel_rows["D"]["name"]] = q3_launches
     path_times.update(q3_numbers)
     del q3
+    torch.cuda.empty_cache()
+
+    ds = tpcds_tables()
+    path_times["tpcds_probe_joins"] = tpcds_probe_phase(ds)
+    ds_launches, path_times["tpcds"] = tpcds_path_phase(ds)
+    del ds
+    # D's launches on every path that runs it, each read just after its run
+    kernel_rows["D"]["launches_by_path"] = {"tpch_q3": q3_launches,
+                                            **ds_launches}
+    launches[kernel_rows["D"]["name"]] = sum(
+        kernel_rows["D"]["launches_by_path"].values())
 
     report = {"kernels": []}
     for row in kernel_rows.values():

@@ -12,6 +12,10 @@
   build side whose keys are declared unique in [key_lo, key_hi] — a
   gather (clustered) or one sort plus a search, never the join kernel.
   ``pk_violation`` is its escape hatch.
+- Dense-id reductions (``dense_id_counts``, ``dense_id_sums``): COUNT and
+  exact int64 SUM per group when the key already is the group id in
+  [0, m) — no sort. The reference streams a one-hot compare per row block
+  (its TPU form); here they are ``bincount`` and ``index_add_``.
 """
 
 from __future__ import annotations
@@ -189,3 +193,34 @@ def dense_pk_join(
         out_cols.append(Column(c.dtype, c.data, c.valid_mask() & matched))
     return DensePkJoinResult(Table(out_cols), matched,
                              matched.to(torch.int64).sum(), pk_violation)
+
+
+def _dense_ids(gid: torch.Tensor, m: int) -> torch.Tensor:
+    """``gid`` as int64 slots with every id outside [0, m) sent to the
+    discard slot m. The range check runs in the input's own dtype before
+    any narrowing or widening, so an int64 id past 2^31 cannot wrap into
+    [0, m). (A Python scalar past the dtype's range would wrap in the
+    compare, so ``gid < m`` is only tested where m is in range.)"""
+    ok = gid >= 0
+    if m <= torch.iinfo(gid.dtype).max:
+        ok = ok & (gid < m)
+    return torch.where(ok, gid.to(torch.int64), m)
+
+
+def dense_id_counts(gid: torch.Tensor, m: int) -> torch.Tensor:
+    """COUNT(*) per dense group id: int64[m], entry g the number of rows
+    whose ``gid`` is g. Ids outside [0, m) (filtered, invalid or padding
+    rows) count nowhere."""
+    return torch.bincount(_dense_ids(gid, m), minlength=m + 1)[:m]
+
+
+def dense_id_sums(gid: torch.Tensor, values: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """SUM(values) per dense group id: int64[m], exact and wrapping like
+    any int64 sum (``index_add_`` on int64, never ``bincount``'s float64
+    weights). Rows whose id is outside [0, m) add nowhere; callers zero
+    the values of null rows first (SQL null semantics)."""
+    ids = _dense_ids(gid, m)
+    out = torch.zeros((m + 1,), dtype=torch.int64, device=gid.device)
+    out.index_add_(0, ids, values.to(torch.int64))
+    return out[:m]

@@ -4,13 +4,18 @@ Usage: python3 -m spark_rapids_jni_tpu_torch.profile_paths [path ...]
 
 With no arguments every path below is profiled; names (``q1_planned``,
 ``q1_fused``, ``to_rows``, ``q1_general``, ``q3``, ``q3_joins``,
-``q3_groupby``, ``q3_order_by``, ``q3_planned``) select some of them.
+``q3_groupby``, ``q3_order_by``, ``q3_planned``, ``tpcds_q72``,
+``tpcds_q72_planned``, ``tpcds_q64``, ``tpcds_q64_planned``,
+``tpcds_q3``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
 factor 10 (1,500,000 customers, 15,000,000 orders, 59,986,052 lineitem
 rows) as a whole, stage by stage (the joins, the groupby, the ORDER BY)
-and planned, after a warm-up: the wall time per run (host clock around
+and planned, then for the TPC-DS plans at scale factor 10 (store_sales
+28,800,991 rows, catalog_sales 14,401,261, item 102,000, customer
+500,000; the generators' 730-day date_dim and 10,710,000-row
+inventory), after a warm-up: the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
 share of the window (their summed device time over the window's wall
@@ -28,7 +33,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from spark_rapids_jni_tpu_torch.models import tpch
+from spark_rapids_jni_tpu_torch.models import tpcds, tpch
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
@@ -37,8 +42,12 @@ from spark_rapids_jni_tpu_torch.utils.platform import card_line
 ROOT = Path(__file__).resolve().parents[1]
 ROWS = 59_986_052  # TPC-H SF10 lineitem
 CUSTOMERS, ORDERS = 1_500_000, 15_000_000  # TPC-H SF10
+# TPC-DS SF10: store_sales, catalog_sales, item, customer
+DS_STORE_SALES, DS_CATALOG_SALES = 28_800_991, 14_401_261
+DS_ITEMS, DS_CUSTOMERS = 102_000, 500_000
 REPS = 5
 Q3_REPS = 2
+Q1_PATHS = ("q1_planned", "q1_fused", "to_rows", "q1_general")
 
 
 def device_us(evt) -> float:
@@ -87,16 +96,25 @@ def main(only: list[str]) -> int:
         if not only or name in only:
             profile_path(name, fn, reps, out_dir)
 
-    li = tpch.lineitem_table(ROWS, seed=0)
-    run("q1_planned", lambda: tpch.tpch_q1_planned(li))
-    run("q1_fused", lambda: kq1.tpch_q1_pallas(li))
-    run("to_rows", lambda: convert_to_rows(li))
-    run("q1_general", lambda: tpch.tpch_q1(li))
-    del li
-    torch.cuda.empty_cache()
-    if only and not any(name.startswith("q3") for name in only):
-        return 0
+    def wanted(prefix):
+        return not only or any(name.startswith(prefix) for name in only)
 
+    if not only or set(only) & set(Q1_PATHS):
+        li = tpch.lineitem_table(ROWS, seed=0)
+        run("q1_planned", lambda: tpch.tpch_q1_planned(li))
+        run("q1_fused", lambda: kq1.tpch_q1_pallas(li))
+        run("to_rows", lambda: convert_to_rows(li))
+        run("q1_general", lambda: tpch.tpch_q1(li))
+        del li
+        torch.cuda.empty_cache()
+    if wanted("q3"):
+        profile_q3(run)
+    if wanted("tpcds"):
+        profile_tpcds(run)
+    return 0
+
+
+def profile_q3(run) -> None:
     q3 = (tpch.customer_table(CUSTOMERS), tpch.orders_table(ORDERS, CUSTOMERS),
           tpch.lineitem_q3_table(ROWS, ORDERS))
     args = (0, tpch._Q3_CUTOFF_DAYS, 2)
@@ -110,7 +128,26 @@ def main(only: list[str]) -> int:
     run("q3_order_by", lambda: tpch._q3_order_by(g), Q3_REPS)
     del g
     run("q3_planned", lambda: tpch.tpch_q3_planned(*q3), Q3_REPS)
-    return 0
+    del q3
+    torch.cuda.empty_cache()
+
+
+def profile_tpcds(run) -> None:
+    dd = tpcds.date_dim_table()
+    q72 = (tpcds.catalog_sales_table(DS_CATALOG_SALES, num_items=DS_ITEMS),
+           dd, tpcds.item_table(DS_ITEMS),
+           tpcds.inventory_table(num_items=DS_ITEMS))
+    run("tpcds_q72", lambda: tpcds.tpcds_q72(*q72), Q3_REPS)
+    run("tpcds_q72_planned", lambda: tpcds.tpcds_q72_planned(*q72))
+    del q72
+    ss = tpcds.store_sales_table(DS_STORE_SALES, num_items=DS_ITEMS,
+                                 num_customers=DS_CUSTOMERS)
+    run("tpcds_q64", lambda: tpcds.tpcds_q64(ss), Q3_REPS)
+    run("tpcds_q64_planned", lambda: tpcds.tpcds_q64_planned(ss), Q3_REPS)
+    del ss
+    q3 = (dd, tpcds.store_sales_q3_table(DS_STORE_SALES, num_items=DS_ITEMS),
+          tpcds.item_q3_table(DS_ITEMS))
+    run("tpcds_q3", lambda: tpcds.tpcds_q3(*q3))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ import torch
 
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
-from spark_rapids_jni_tpu_torch.models import tpch
+from spark_rapids_jni_tpu_torch.models import tpcds, tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.groupby import (
     groupby_aggregate,
@@ -453,3 +453,86 @@ def test_sort_groupby_join_on_the_card_match_cpu(dev):
     assert int(maps.total) == int(ref.total)
     for f in ("row_valid", "left_valid", "right_valid"):
         assert torch.equal(getattr(maps, f).cpu(), getattr(ref, f))
+
+
+def _tpcds_tables(device):
+    """Small TPC-DS tables: q72's four, q64's store_sales, q3's three."""
+    return dict(
+        q72=(tpcds.catalog_sales_table(20000, num_items=300, device=device),
+             tpcds.date_dim_table(device=device),
+             tpcds.item_table(300, device=device),
+             tpcds.inventory_table(num_items=300, device=device)),
+        q64=(tpcds.store_sales_table(30000, num_items=200,
+                                     num_customers=400, device=device),),
+        q3=(tpcds.date_dim_table(device=device),
+            tpcds.store_sales_q3_table(30000, num_items=300, device=device),
+            tpcds.item_q3_table(300, device=device)))
+
+
+def _plan_result(res):
+    """The plan's output table (compacted for the general plans) and its
+    scalar results, on the CPU."""
+    if hasattr(res, "result"):  # q64, planned q64
+        scalars = [int(res.join_total), int(res.result.num_groups)]
+        return res.result.compact(), scalars
+    if hasattr(res, "num_groups"):  # q72
+        return res.compact(), [int(res.num_groups)]
+    scalars = [bool(res.pk_violation), int(res.present.sum())]
+    if hasattr(res, "brand_domain_miss"):
+        scalars.append(bool(res.brand_domain_miss))
+    return res.table, scalars
+
+
+@pytest.mark.parametrize("plan,tables,probes", [
+    ("tpcds_q72", "q72", 3), ("tpcds_q72_planned", "q72", 0),
+    ("tpcds_q64", "q64", 1), ("tpcds_q64_planned", "q64", 0),
+    ("tpcds_q3", "q3", 0)])
+def test_tpcds_plans_launch_the_probe(dev, plan, tables, probes):
+    # q72's three joins and q64's self-join launch the probe kernel once
+    # each, the planned plans and q3 never; the card equals the CPU
+    card = _tpcds_tables(dev)[tables]
+    cpu = _tpcds_tables("cpu")[tables]
+    kernels.reset_counts()
+    got = getattr(tpcds, plan)(*card)
+    torch.cuda.synchronize()
+    assert kernels.launches() == ({khp.NAME: probes} if probes else {})
+    assert kernels.fallbacks() == {}
+    got_table, got_scalars = _plan_result(got)
+    want_table, want_scalars = _plan_result(getattr(tpcds, plan)(*cpu))
+    assert got_scalars == want_scalars
+    assert got_table.equals(want_table)
+
+
+def _probe_kernel_equal(build, probe):
+    got = khp._probe_cuda(*khp.kernel_keys(build, probe))
+    want = khp.probe_lo_hi_plain(*khp.kernel_keys(build, probe))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], torch.searchsorted(build, probe))
+    assert torch.equal(got[1], torch.searchsorted(build, probe, right=True))
+
+
+def test_probe_kernel_at_q72_joins(dev):
+    # join 1: a 730-key date build, 365 keys valid (the rest the
+    # sentinel), all in the top level, against a 1M-row probe; joins 2 and
+    # 3: the item build and the packed (item, week) inventory build
+    joins = tpcds.q72_probe_inputs(
+        tpcds.catalog_sales_table(1_000_000, num_items=1000, device=dev),
+        tpcds.date_dim_table(device=dev), tpcds.item_table(1000, device=dev),
+        tpcds.inventory_table(num_items=1000, device=dev))
+    (build, n_valid, probe) = joins[0]
+    assert build.shape[0] == 730 and int(n_valid) == 365
+    assert probe.shape[0] == 1_000_000
+    for build, _, probe in joins:
+        _probe_kernel_equal(build, probe)
+
+
+def test_probe_kernel_at_q64_self_join(dev):
+    # a year's slice of the fact rows: duplicate (item, customer) keys in
+    # the valid prefix and about half the build in the sentinel tail
+    build, n_valid, probe = tpcds.q64_probe_inputs(tpcds.store_sales_table(
+        400_000, num_items=50, num_customers=40, device=dev))
+    s = int(n_valid)
+    assert 0.4 < s / build.shape[0] < 0.6
+    assert int(build[:s].unique().numel()) < s // 10
+    _probe_kernel_equal(build, probe)

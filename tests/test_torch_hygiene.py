@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from spark_rapids_jni_tpu_torch.models import tpch
+from spark_rapids_jni_tpu_torch.models import tpcds, tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.kernels import (
     groupby_accumulate as kga,
@@ -49,6 +49,7 @@ def test_no_jax_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, spark_rapids_jni_tpu_torch.models.tpch, "
+            "spark_rapids_jni_tpu_torch.models.tpcds, "
             "spark_rapids_jni_tpu_torch.ops.kernels.q1, "
             "spark_rapids_jni_tpu_torch.ops.row_conversion, "
             "spark_rapids_jni_tpu_torch.ops.join, "
@@ -67,6 +68,8 @@ def test_entry_point_refuses_quiet_cpu_fallback():
         pytest.skip("a CUDA device is present: device=None selects it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpch.lineitem_table(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpcds.store_sales_table(8)
 
 
 def test_registered_kernels_declare_oracle_and_source():
@@ -92,6 +95,11 @@ def test_cpu_wrappers_take_the_plain_path():
     tpch.tpch_q3(tpch.customer_table(20, device="cpu"),
                  tpch.orders_table(200, 20, device="cpu"),
                  tpch.lineitem_q3_table(300, 200, device="cpu"))
+    tpcds.tpcds_q72(tpcds.catalog_sales_table(300, 20, device="cpu"),
+                    tpcds.date_dim_table(device="cpu"),
+                    tpcds.item_table(20, device="cpu"),
+                    tpcds.inventory_table(20, device="cpu"))
+    tpcds.tpcds_q64(tpcds.store_sales_table(300, 20, 30, device="cpu"))
     assert kernels.launches() == {}
     assert kernels.fallbacks() == {}
 

@@ -37,7 +37,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (0) and ``tpcds_q3`` (0) with the counts reset before it, each equal
    to a vectorized numpy oracle and each planned plan to its general
    twin, and their host times;
-8. one ``{"kernels": [...]}`` line, the card line, and the final
+8. the string TPC-H plans and q6 at scale factor 10 (lineitem
+   59,986,052 rows, orders 15,000,000, part 2,000,000, customer
+   1,500,000, supplier 100,000) after the TPC-DS tables are freed, one
+   table group at a time: the accumulate kernel at the bounded groupbys
+   of planned q12 (m = 3), planned q4 (m = 6) and q5 (m = 26), the join
+   probe kernel at the joins of q12, q4 (LEFT-SEMI) and q14, each against
+   its plain version; then ``tpch_q12``, ``tpch_q12_planned_result``,
+   ``tpch_q4``, ``tpch_q4_planned_result``, ``tpch_q14``,
+   ``tpch_q14_planned``, ``tpch_q5`` and ``tpch_q6``, each with the
+   counts reset before it (the probe kernel once per general join, the
+   accumulate kernel once per bounded groupby, nothing else), each equal
+   to a vectorized numpy oracle and each planned plan to its general
+   twin, their host times and the phase's peak device memory;
+9. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -62,6 +75,8 @@ DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
 DS_CATALOG_SALES = 14_401_261  # TPC-DS SF10 catalog_sales
 DS_ITEMS = 102_000             # TPC-DS SF10 item
 DS_CUSTOMERS = 500_000         # TPC-DS SF10 customer
+Q14_PARTS = 2_000_000          # TPC-H SF10 part
+Q5_SUPPLIERS = 100_000         # TPC-H SF10 supplier
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -113,6 +128,42 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
+    """Kernel A at one bounded groupby's shape: exact against its plain
+    version, its time, the plain version's, the ``index_add_`` of the
+    sum lanes' and the bound (every lane's inputs read once, the
+    partials written once; one operation per row and lane)."""
+    from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    n = gid.shape[0]
+    got = kga._accumulate_cuda(gid, lanes, m)
+    want = kga.accumulate_plain(gid, lanes, m)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want),
+            f"accumulate kernel != plain version ({what})")
+    sum_lanes = [ln for ln in lanes if ln.op == "sum" and ln.values is not None]
+    stacked = torch.stack([kga._lane_values(ln, n, dev) for ln in sum_lanes],
+                          dim=1)
+    lib = median_ms(lambda: torch.zeros(
+        (m + 1, len(sum_lanes)), dtype=torch.int64, device=dev
+    ).index_add_(0, gid, stacked))
+    del stacked
+    nbytes = distinct_bytes(
+        [gid] + [ln.values for ln in lanes] + [ln.valid for ln in lanes]
+    ) + got.nbytes
+    b_ms, b_by = bound(nbytes, n * len(lanes))
+    row = dict(
+        m=m, lanes=len(lanes), rows=n, max_abs_err=max_abs_err(got, want),
+        ms=median_ms(lambda: kga._accumulate_cuda(gid, lanes, m)),
+        plain_ms=median_ms(lambda: kga.accumulate_plain(gid, lanes, m)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log(f"kernel A {kga.NAME} at {what}: m={m} lanes={len(lanes)} exact; "
+        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, index_add_ "
+        f"{lib:.3f}, bound {b_ms:.3f} by {b_by})")
+    return row
+
+
 def kernel_phases(li, dev):
     """Each kernel against its plain version at the main path's shapes."""
     from spark_rapids_jni_tpu_torch.models.tpch import q1_accumulate_inputs
@@ -132,33 +183,14 @@ def kernel_phases(li, dev):
 
     # A: the bounded accumulate over the q1 work table, m = 12
     gid, lanes, m = q1_accumulate_inputs(li)
-    got = kga._accumulate_cuda(gid, lanes, m)
-    want = kga.accumulate_plain(gid, lanes, m)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "accumulate kernel != plain version")
-    sum_lanes = [ln for ln in lanes if ln.op == "sum" and ln.values is not None]
-    stacked = torch.stack([kga._lane_values(ln, n, dev) for ln in sum_lanes],
-                          dim=1)
-    lib = median_ms(lambda: torch.zeros(
-        (m + 1, len(sum_lanes)), dtype=torch.int64, device=dev
-    ).index_add_(0, gid, stacked))
-    del stacked
-    nbytes = distinct_bytes(
-        [gid] + [ln.values for ln in lanes] + [ln.valid for ln in lanes]
-    ) + got.nbytes
-    b_ms, b_by = bound(nbytes, n * len(lanes))
+    row = _accumulate_row(gid, lanes, m, dev, "planned q1")
     rows["A"] = dict(
         name=kga.NAME, route="cuda",
         source="spark_rapids_jni_tpu_torch/csrc/groupby_accumulate.cu",
         replaces="spark_rapids_jni_tpu/ops/pallas/groupby_accumulate.py:178",
-        max_abs_err=max_abs_err(got, want),
-        ms=median_ms(lambda: kga._accumulate_cuda(gid, lanes, m)),
-        plain_ms=median_ms(lambda: kga.accumulate_plain(gid, lanes, m)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    log(f"kernel A {kga.NAME}: m={m} lanes={len(lanes)} exact; "
-        f"{rows['A']['ms']:.3f} ms (plain {rows['A']['plain_ms']:.3f}, "
-        f"index_add_ {lib:.3f}, bound {b_ms:.3f})")
-    del gid, lanes, got, want
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")})
+    del gid, lanes
 
     # B: the fused q1 over lineitem
     cols = [li.column(i).data for i in kq1._COLUMNS]
@@ -445,22 +477,25 @@ def probe_phase(customer, orders, li3, dev) -> dict:
     return row, rows
 
 
-def _run_counted(name: str, fn, probes: int):
+def _run_plan(name: str, fn, want: dict):
     """``fn()`` with the counts set to 0 just before it and read just
-    after: the probe kernel launched exactly ``probes`` times, no
-    fallback."""
+    after: each kernel launched exactly as often as ``want`` says
+    (``{"A": n, "D": n}``, absent = 0), no fallback."""
     from spark_rapids_jni_tpu_torch.ops import kernels
-    from spark_rapids_jni_tpu_torch.ops.kernels import hash_probe as khp
+    from spark_rapids_jni_tpu_torch.ops.kernels import (
+        groupby_accumulate as kga,
+        hash_probe as khp,
+    )
 
     kernels.reset_counts()
     res = fn()
     torch.cuda.synchronize()
-    launches = kernels.launches(khp.NAME)
-    require(launches == probes,
-            f"{name} launched the probe kernel {launches} times, not {probes}")
+    got = {"A": kernels.launches(kga.NAME), "D": kernels.launches(khp.NAME)}
+    require(got == {"A": want.get("A", 0), "D": want.get("D", 0)},
+            f"{name} launched {got}, not {want}")
     require(not kernels.fallbacks(),
             f"{name} fell back: {kernels.fallbacks()}")
-    return res, launches
+    return res, got
 
 
 def q3_path_phase(customer, orders, li3) -> tuple:
@@ -469,8 +504,9 @@ def q3_path_phase(customer, orders, li3) -> tuple:
     from spark_rapids_jni_tpu_torch.models import tpch
 
     torch.cuda.reset_peak_memory_stats()
-    res, launches = _run_counted(
-        "q3", lambda: tpch.tpch_q3(customer, orders, li3), 2)
+    launches = {}
+    res, launches["tpch_q3"] = _run_plan(
+        "q3", lambda: tpch.tpch_q3(customer, orders, li3), {"D": 2})
     total, groups = int(res.join_total), int(res.result.num_groups)
     require(total <= res.out_cap, f"join 2 total {total} > {res.out_cap}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -491,11 +527,12 @@ def q3_path_phase(customer, orders, li3) -> tuple:
         if groups == k + 1:
             require(not bool(c.validity[k]), f"q3 {name}: null group")
     log(f"q3: {total} matched rows, {groups} groups ({k} real); equal to "
-        f"the numpy oracle in value and order; probe launches {launches}, "
+        f"the numpy oracle in value and order; launches "
+        f"{launches['tpch_q3']}, "
         f"no fallback; peak device memory {peak:.2f} GiB")
 
-    planned, _ = _run_counted(
-        "planned q3", lambda: tpch.tpch_q3_planned(customer, orders, li3), 0)
+    planned, launches["tpch_q3_planned"] = _run_plan(
+        "planned q3", lambda: tpch.tpch_q3_planned(customer, orders, li3), {})
     require(not bool(planned.pk_violation), "planned q3: PK violation")
     require(int(planned.join_total) == total, "planned q3 match count")
     require(planned.result.compact().equals(got),
@@ -580,8 +617,8 @@ def tpcds_path_phase(tables) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     launches = {}
 
-    res, launches["tpcds_q72"] = _run_counted(
-        "q72", lambda: tpcds.tpcds_q72(*q72), 3)
+    res, launches["tpcds_q72"] = _run_plan(
+        "q72", lambda: tpcds.tpcds_q72(*q72), {"D": 3})
     t0 = time.perf_counter()
     want = tpcds.tpcds_q72_oracle(*q72)
     log(f"q72 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
@@ -593,16 +630,16 @@ def tpcds_path_phase(tables) -> tuple:
     log(f"q72: {groups} groups ({k} real), equal to the numpy oracle in "
         f"value and order; probe launches 3, no fallback")
 
-    planned, launches["tpcds_q72_planned"] = _run_counted(
-        "planned q72", lambda: tpcds.tpcds_q72_planned(*q72), 0)
+    planned, launches["tpcds_q72_planned"] = _run_plan(
+        "planned q72", lambda: tpcds.tpcds_q72_planned(*q72), {})
     require(not bool(planned.pk_violation), "planned q72: PK violation")
     require(int(planned.present.sum()) == k, "planned q72 group count")
     _require_same_rows("planned q72", planned.table, q72_table, k)
     log("planned q72: no probe launch, no PK violation, equal to q72")
     del res, planned, q72_table
 
-    res, launches["tpcds_q64"] = _run_counted(
-        "q64", lambda: tpcds.tpcds_q64(*q64), 1)
+    res, launches["tpcds_q64"] = _run_plan(
+        "q64", lambda: tpcds.tpcds_q64(*q64), {"D": 1})
     total = int(res.join_total)
     require(total <= res.out_size, f"q64 join total {total} > "
             f"{res.out_size}")
@@ -615,15 +652,15 @@ def tpcds_path_phase(tables) -> tuple:
     log(f"q64: {total} matched pairs (capacity {res.out_size}), {groups} "
         f"groups ({k} real), equal to the numpy oracle; probe launches 1")
 
-    planned, launches["tpcds_q64_planned"] = _run_counted(
-        "planned q64", lambda: tpcds.tpcds_q64_planned(*q64), 0)
+    planned, launches["tpcds_q64_planned"] = _run_plan(
+        "planned q64", lambda: tpcds.tpcds_q64_planned(*q64), {})
     require(int(planned.join_total) == total, "planned q64 pair count")
     _require_same_rows("planned q64", planned.result.table, q64_table, k)
     log("planned q64: no probe launch, same pair count, equal to q64")
     del res, planned, q64_table
 
-    res, launches["tpcds_q3"] = _run_counted(
-        "TPC-DS q3", lambda: tpcds.tpcds_q3(*q3), 0)
+    res, launches["tpcds_q3"] = _run_plan(
+        "TPC-DS q3", lambda: tpcds.tpcds_q3(*q3), {})
     require(not bool(res.pk_violation), "TPC-DS q3: PK violation")
     require(not bool(res.brand_domain_miss), "TPC-DS q3: brand domain miss")
     want = tpcds.tpcds_q3_oracle(*q3)
@@ -646,6 +683,193 @@ def tpcds_path_phase(tables) -> tuple:
     log(f"peak device memory of the TPC-DS plans {peak:.2f} GiB")
     return launches, {"plans": times, "matched_pairs_q64": total,
                       "peak_gib": peak}
+
+
+def _named_rows(table, present=None) -> list:
+    """[(name, value, ...)] of a result table whose column 0 is a STRING
+    key: its valid-key rows (among the ``present`` ones) in order."""
+    from spark_rapids_jni_tpu_torch.ops.strings import gather_strings
+
+    keep = table.column(0).valid_mask()
+    if present is not None:
+        keep = keep & present
+    idx = torch.nonzero(keep).flatten()
+    names = [b.decode()
+             for b in gather_strings(table.column(0), idx).row_bytes()]
+    return list(zip(names, *[c.data[idx].cpu().tolist()
+                             for c in table.columns[1:]]))
+
+
+def strings_tables(which: str):
+    """The SF10 tables of one group of the string plans on the card."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    t0 = time.perf_counter()
+    if which == "q12":  # q12 and q4 share q12's lineitem
+        tables = dict(li=tpch.lineitem_q12_table(ROWS, Q3_ORDERS),
+                      o12=tpch.orders_q12_table(Q3_ORDERS),
+                      o4=tpch.orders_q4_table(Q3_ORDERS))
+    elif which == "q14":
+        tables = dict(part=tpch.part_table(Q14_PARTS),
+                      li=tpch.lineitem_q14_table(ROWS, Q14_PARTS))
+    elif which == "q5":
+        tables = dict(args=(tpch.customer_q5_table(Q3_CUSTOMERS),
+                            tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS),
+                            tpch.lineitem_q5_table(ROWS, Q3_ORDERS,
+                                                   Q5_SUPPLIERS),
+                            tpch.supplier_table(Q5_SUPPLIERS),
+                            tpch.nation_table()))
+    else:
+        tables = dict(li=tpch.lineitem_table(ROWS, seed=0))
+    torch.cuda.synchronize()
+    log(f"{which} tables on the card in {time.perf_counter() - t0:.1f} s")
+    return tables
+
+
+def _plan_times(plans: dict, rows: int) -> dict:
+    """Host median of 3 per plan, and lineitem rows per second."""
+    out = {}
+    for name, fn in plans.items():
+        s = host_median_s(fn)
+        out[name] = {"s": s, "lineitem_rows_per_s": rows / s}
+        log(f"{name}: {s * 1e3:.3f} ms, {rows / s:.4g} lineitem rows/s")
+    return out
+
+
+def strings_phase(dev) -> tuple:
+    """The string TPC-H plans and q6 at SF10 (lineitem 59,986,052 rows,
+    orders 15,000,000, part 2,000,000, customer 1,500,000, supplier
+    100,000), one table group at a time: kernel A at the bounded
+    groupbys of planned q12, planned q4 and q5, kernel D at the joins of
+    q12, q4 and q14, each exact against its plain version; then the
+    eight plans with their launch counts, each equal to its vectorized
+    numpy oracle and each planned plan to its general twin; host times
+    and the phase's peak device memory."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    torch.cuda.reset_peak_memory_stats()
+    a_rows, d_rows, launches, times = {}, {}, {}, {}
+
+    tb = strings_tables("q12")
+    li, o12, o4 = tb["li"], tb["o12"], tb["o4"]
+    d_rows["q12 join"] = _probe_join(*tpch.q12_probe_inputs(o12, li),
+                                     "q12 join")
+    d_rows["q4 LEFT-SEMI join"] = _probe_join(
+        *tpch.q4_probe_inputs(o4, li), "q4 LEFT-SEMI join")
+    a_rows["planned q12"] = _accumulate_row(
+        *tpch.q12_accumulate_inputs(o12, li), dev, "planned q12")
+    a_rows["planned q4"] = _accumulate_row(
+        *tpch.q4_accumulate_inputs(o4, li), dev, "planned q4")
+
+    res, launches["tpch_q12"] = _run_plan(
+        "q12", lambda: tpch.tpch_q12(o12, li), {"D": 1})
+    t0 = time.perf_counter()
+    want = tpch.tpch_q12_oracle(o12, li)
+    log(f"q12 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    general = _named_rows(res.result.compact())
+    require({n: [h, lo] for n, h, lo in general} == want,
+            f"q12 {general} differs from the numpy oracle {want}")
+    require(int(res.join_total) <= li.num_rows, "q12 join past capacity")
+    planned, launches["tpch_q12_planned"] = _run_plan(
+        "planned q12", lambda: tpch.tpch_q12_planned_result(o12, li),
+        {"A": 1, "D": 1})
+    require(not bool(planned.domain_miss), "planned q12: domain miss")
+    require(_named_rows(planned.table, planned.present) == general,
+            "planned q12 differs from q12")
+    log(f"q12: {int(res.join_total)} matched rows, groups {general} equal "
+        f"to the numpy oracle; planned q12 equal to q12; launches "
+        f"{launches['tpch_q12']} / {launches['tpch_q12_planned']}")
+
+    res, launches["tpch_q4"] = _run_plan(
+        "q4", lambda: tpch.tpch_q4(o4, li), {"D": 1})
+    t0 = time.perf_counter()
+    want = tpch.tpch_q4_oracle(o4, li)
+    log(f"q4 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    general = _named_rows(res.result.compact())
+    require(dict(general) == want,
+            f"q4 {general} differs from the numpy oracle {want}")
+    planned, launches["tpch_q4_planned"] = _run_plan(
+        "planned q4", lambda: tpch.tpch_q4_planned_result(o4, li),
+        {"A": 1, "D": 1})
+    require(not bool(planned.domain_miss), "planned q4: domain miss")
+    require(_named_rows(planned.table, planned.present) == general,
+            "planned q4 differs from q4")
+    log(f"q4: {int(res.join_total)} orders with a late lineitem, groups "
+        f"{general} equal to the numpy oracle; planned q4 equal to q4; "
+        f"launches {launches['tpch_q4']} / {launches['tpch_q4_planned']}")
+    del res, planned
+    times.update(_plan_times({
+        "tpch_q12": lambda: tpch.tpch_q12(o12, li),
+        "tpch_q12_planned": lambda: tpch.tpch_q12_planned(o12, li),
+        "tpch_q4": lambda: tpch.tpch_q4(o4, li),
+        "tpch_q4_planned": lambda: tpch.tpch_q4_planned(o4, li)}, ROWS))
+    del tb, li, o12, o4
+    torch.cuda.empty_cache()
+
+    tb = strings_tables("q14")
+    part, li = tb["part"], tb["li"]
+    d_rows["q14 join"] = _probe_join(*tpch.q14_probe_inputs(part, li),
+                                     "q14 join")
+    res, launches["tpch_q14"] = _run_plan(
+        "q14", lambda: tpch.tpch_q14(part, li), {"D": 1})
+    want = tpch.tpch_q14_oracle(part, li)
+    require((int(res.promo_revenue), int(res.total_revenue)) == want,
+            f"q14 differs from the numpy oracle {want}")
+    planned, launches["tpch_q14_planned"] = _run_plan(
+        "planned q14", lambda: tpch.tpch_q14_planned(part, li), {})
+    require(not bool(planned.pk_violation), "planned q14: PK violation")
+    require(tuple(int(v) for v in planned[:3]) == tuple(
+        int(v) for v in res), "planned q14 differs from q14")
+    log(f"q14: promo {want[0]} of {want[1]} ({res.ratio():.4f} %), equal "
+        f"to the numpy oracle; planned q14 equal; launches "
+        f"{launches['tpch_q14']} / {launches['tpch_q14_planned']}")
+    times.update(_plan_times({
+        "tpch_q14": lambda: tpch.tpch_q14(part, li),
+        "tpch_q14_planned": lambda: tpch.tpch_q14_planned(part, li)}, ROWS))
+    del tb, part, li, res, planned
+    torch.cuda.empty_cache()
+
+    args = strings_tables("q5")["args"]
+    a_rows["q5"] = _accumulate_row(*tpch.q5_accumulate_inputs(*args), dev,
+                                   "q5")
+    res, launches["tpch_q5"] = _run_plan(
+        "q5", lambda: tpch.tpch_q5(*args), {"A": 1})
+    require(not bool(res.pk_violation) and not bool(res.domain_miss),
+            "q5: PK violation or domain miss")
+    t0 = time.perf_counter()
+    want = tpch.tpch_q5_oracle(*args)
+    log(f"q5 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    keys = res.table.column(0).data.cpu().tolist()
+    rev = res.table.column(1).data.cpu().tolist()
+    present = res.present.cpu().tolist()
+    got = [(keys[i], rev[i]) for i in range(len(keys)) if present[i]]
+    require(dict(got) == want and all(
+        a[1] >= b[1] for a, b in zip(got, got[1:])),
+        "q5 differs from the numpy oracle or is not in revenue order")
+    names = _named_rows(Table([res.table.column(2), res.table.column(0)]),
+                        res.present)
+    require(names == [(tpch._Q5_NATIONS[k - 1], k) for k, _ in got],
+            "q5 nation names out of step with their keys")
+    log(f"q5: {len(got)} nations equal to the numpy oracle in revenue "
+        f"order ({names[0][0]} first); launches {launches['tpch_q5']}")
+    times.update(_plan_times({"tpch_q5": lambda: tpch.tpch_q5(*args)},
+                             ROWS))
+    del args, res
+    torch.cuda.empty_cache()
+
+    li = strings_tables("q6")["li"]
+    res, launches["tpch_q6"] = _run_plan("q6", lambda: tpch.tpch_q6(li), {})
+    want = tpch.tpch_q6_oracle(li)
+    require(bool(res.validity[0]) and int(res.data[0]) == want,
+            f"q6 {int(res.data[0])} differs from the numpy oracle {want}")
+    log(f"q6: revenue {want} equal to the numpy oracle; no launch")
+    times.update(_plan_times({"tpch_q6": lambda: tpch.tpch_q6(li)}, ROWS))
+    del li, res
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory of the string plans {peak:.2f} GiB")
+    return a_rows, d_rows, launches, {"plans": times, "peak_gib": peak}
 
 
 def main() -> int:
@@ -693,11 +917,21 @@ def main() -> int:
     path_times["tpcds_probe_joins"] = tpcds_probe_phase(ds)
     ds_launches, path_times["tpcds"] = tpcds_path_phase(ds)
     del ds
-    # D's launches on every path that runs it, each read just after its run
-    kernel_rows["D"]["launches_by_path"] = {"tpch_q3": q3_launches,
-                                            **ds_launches}
-    launches[kernel_rows["D"]["name"]] = sum(
-        kernel_rows["D"]["launches_by_path"].values())
+    torch.cuda.empty_cache()
+
+    a_rows, d_rows, st_launches, path_times["strings"] = strings_phase(dev)
+    path_times["strings"].update(accumulate_at=a_rows, probe_joins=d_rows)
+    # each kernel's launches on every path that runs it, each read just
+    # after its run
+    by_plan = {**q3_launches, **ds_launches, **st_launches}
+    kernel_rows["A"]["launches_by_path"] = {
+        "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
+        **{p: n["A"] for p, n in by_plan.items() if n["A"]}}
+    kernel_rows["D"]["launches_by_path"] = {
+        p: n["D"] for p, n in by_plan.items() if n["D"]}
+    for k in ("A", "D"):
+        launches[kernel_rows[k]["name"]] = sum(
+            kernel_rows[k]["launches_by_path"].values())
 
     report = {"kernels": []}
     for row in kernel_rows.values():

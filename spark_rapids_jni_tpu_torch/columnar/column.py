@@ -2,8 +2,15 @@
 ``spark_rapids_jni_tpu/columnar/column.py``).
 
 A fixed-width column is (data: tensor[n], validity: bool tensor[n] |
-None); a DECIMAL128 column stores int64[n, 2] limb pairs. String, list
-and struct layouts are not ported yet.
+None); a DECIMAL128 column stores int64[n, 2] limb pairs. A STRING
+column has one of two layouts, as in the reference:
+
+- Arrow: ``data`` holds int32 offsets[n+1], ``chars`` the uint8 bytes;
+- padded: ``data`` holds int32 lengths[n], ``chars`` a uint8 (n, W)
+  matrix whose bytes past a row's length are zero
+  (``ops/strings.py`` converts between them).
+
+List and struct layouts are not ported yet.
 
 ``validity is None`` means "no null mask allocated — all rows valid",
 the tri-state cuDF uses (null_mask() == nullptr). Null slots in ``data``
@@ -19,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from spark_rapids_jni_tpu_torch.types import DType, TypeId
+from spark_rapids_jni_tpu_torch.types import STRING, DType, TypeId
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 
@@ -56,6 +63,8 @@ class Column:
     dtype: DType
     data: torch.Tensor
     validity: Optional[torch.Tensor] = None  # bool[n], True = valid
+    # STRING columns only: the uint8 bytes (Arrow) or (n, W) matrix (padded)
+    chars: Optional[torch.Tensor] = None
 
     def __post_init__(self) -> None:
         if self.validity is not None:
@@ -63,7 +72,18 @@ class Column:
                 raise TypeError("validity must be bool")
             if self.validity.device != self.data.device:
                 raise ValueError("validity must live on the data's device")
-        if self.dtype.is_decimal128:
+        if self.dtype.is_string:
+            if self.chars is None:
+                raise ValueError("string column requires chars buffer")
+            if self.data.dtype != torch.int32:
+                raise TypeError("string offsets/lengths must be int32")
+            if self.chars.dtype != torch.uint8:
+                raise TypeError("string chars must be uint8")
+            if self.chars.device != self.data.device:
+                raise ValueError("chars must live on the data's device")
+        elif self.chars is not None:
+            raise ValueError("only STRING columns carry chars")
+        elif self.dtype.is_decimal128:
             if self.data.dtype != torch.int64 or self.data.ndim != 2 \
                     or self.data.shape[-1] != 2:
                 raise TypeError(
@@ -79,11 +99,19 @@ class Column:
                 )
         else:
             raise NotImplementedError(
-                f"{self.dtype} columns are not ported yet (fixed-width and "
-                "DECIMAL128 only)")
+                f"{self.dtype} columns are not ported yet (fixed-width, "
+                "DECIMAL128 and STRING only)")
+
+    @property
+    def is_padded_string(self) -> bool:
+        """String column in the padded device layout: data = int32
+        lengths, chars = uint8 (n, W) matrix."""
+        return self.dtype.is_string and self.chars.ndim == 2
 
     @property
     def size(self) -> int:
+        if self.dtype.is_string and not self.is_padded_string:
+            return int(self.data.shape[0]) - 1
         return int(self.data.shape[0])
 
     @property
@@ -115,25 +143,40 @@ class Column:
         dtype: Optional[DType] = None,
         validity: Optional[np.ndarray] = None,
         device=None,
+        chars: Optional[np.ndarray] = None,
     ) -> "Column":
-        """Host arrays -> column on ``device`` (None: the CUDA device)."""
+        """Host arrays -> column on ``device`` (None: the CUDA device). A
+        STRING column takes its int32 offsets or lengths as ``values`` and
+        its bytes (1-D, or the (n, W) matrix) as ``chars``."""
         device = resolve_device(device)
         values = np.asarray(values)
+        vmask = None if validity is None else torch.from_numpy(
+            np.asarray(validity).astype(bool)).to(device)
+        if dtype is not None and dtype.is_string:
+            return cls(dtype, torch.from_numpy(values.astype(np.int32)).to(
+                device), vmask, chars=torch.from_numpy(
+                    np.asarray(chars).astype(np.uint8)).to(device))
         if dtype is None:
             dtype = DType.from_numpy(values.dtype)
         store = np.int64 if dtype.is_decimal128 else dtype.storage_dtype
         # fresh host copies: the column never aliases the caller's arrays
         data = torch.from_numpy(values.astype(store)).to(device)
-        vmask = None if validity is None else torch.from_numpy(
-            np.asarray(validity).astype(bool)).to(device)
         return cls(dtype, data, vmask)
 
     @classmethod
     def from_pylist(cls, values: Sequence, dtype: DType,
                     device=None) -> "Column":
-        """Build from a python list where ``None`` marks nulls."""
+        """Build from a python list where ``None`` marks nulls (STRING
+        values are ``str`` or ``bytes``; the column is Arrow-laid)."""
         valid = np.array([v is not None for v in values], dtype=bool)
         vmask = None if valid.all() else valid
+        if dtype.is_string:
+            chunks = [v.encode() if isinstance(v, str) else (v or b"")
+                      for v in values]
+            offsets = np.zeros(len(values) + 1, dtype=np.int32)
+            np.cumsum([len(c) for c in chunks], out=offsets[1:])
+            chars = np.frombuffer(b"".join(chunks), dtype=np.uint8)
+            return cls.from_numpy(offsets, dtype, vmask, device, chars=chars)
         if dtype.is_decimal128:
             limbs = np.zeros((len(values), 2), dtype=np.int64)
             for i, v in enumerate(values):
@@ -158,8 +201,20 @@ class Column:
         mask = None if self.validity is None else self.validity.cpu().numpy()
         return data, mask
 
+    def row_bytes(self) -> list:
+        """Each row's bytes (``bytes``; null rows too), host side."""
+        data, _ = self.to_numpy()
+        chars = self.chars.cpu().numpy()
+        if self.is_padded_string:
+            return [chars[i, :data[i]].tobytes() for i in range(self.size)]
+        blob = chars.tobytes()
+        return [blob[data[i]:data[i + 1]] for i in range(self.size)]
+
     def to_pylist(self) -> list:
         data, mask = self.to_numpy()
+        if self.dtype.is_string:
+            return [None if mask is not None and not mask[i] else b.decode()
+                    for i, b in enumerate(self.row_bytes())]
         out = []
         for i in range(self.size):
             if mask is not None and not mask[i]:
@@ -184,6 +239,15 @@ class Column:
         b_valid = other.valid_mask().to(a_valid.device)
         if not torch.equal(a_valid, b_valid):
             return False
+        if self.dtype.is_string:
+            from spark_rapids_jni_tpu_torch.ops.strings import (
+                pad_to_common_width,
+            )
+
+            a, b = pad_to_common_width([self, other])
+            same = (a.data == b.data.to(a.device)) \
+                & (a.chars == b.chars.to(a.device)).all(1)
+            return bool((same | ~a_valid).all())
         a = _indexable(self.data)[a_valid]
         b = _indexable(other.data.to(self.data.device))[a_valid]
         if a.is_floating_point():
@@ -194,3 +258,8 @@ class Column:
     def __repr__(self) -> str:
         return (f"Column({self.dtype}, size={self.size}, "
                 f"device={self.device})")
+
+
+def string_column(values: Sequence[Optional[str]], device=None) -> Column:
+    """An Arrow-laid STRING column from a python list (None = null)."""
+    return Column.from_pylist(values, STRING, device)

@@ -17,7 +17,7 @@ order: the general q1 is the filter/derive work table, the sort-based
 groupby with the plan's group budget, and the ORDER BY; the planned q1
 lowers the groupby through ``plan_groupby`` with the DDL flag domains.
 The fused single-kernel q1 is ``ops/kernels/q1.py::tpch_q1_pallas``.
-TPC-H q3 is further down.
+TPC-H q3, q6, q5, q12, q14 and q4 are further down.
 """
 
 from __future__ import annotations
@@ -44,11 +44,18 @@ from spark_rapids_jni_tpu_torch.ops.join import (
 )
 from spark_rapids_jni_tpu_torch.ops.planner import (
     PlannedGroupBy,
+    bounded_accumulate_inputs,
     dense_pk_join,
     plan_groupby,
     scalar_domain,
+    string_domain,
 )
 from spark_rapids_jni_tpu_torch.ops.sort import gather, sort_order
+from spark_rapids_jni_tpu_torch.ops.strings import (
+    like,
+    pad_strings,
+    static_strings,
+)
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 # lineitem columns used by q1 (positions in the table below)
@@ -352,7 +359,7 @@ def lineitem_q3_table(num_rows: int, num_orders: int, seed: int = 2,
 
 
 def _null_where(c: Column, drop: torch.Tensor) -> Column:
-    return Column(c.dtype, c.data, c.valid_mask() & ~drop)
+    return Column(c.dtype, c.data, c.valid_mask() & ~drop, c.chars)
 
 
 def _q3_cust_fn(customer: Table, segment: int) -> Table:
@@ -571,3 +578,970 @@ def tpch_q3_numpy(customer: Table, orders: Table, lineitem: Table,
     o = tpch_q3_oracle(customer, orders, lineitem, segment, cutoff)
     return {int(k): (int(r), int(d), int(p)) for k, r, d, p in zip(
         o["orderkey"], o["revenue"], o["orderdate"], o["shippriority"])}
+
+
+# ---- string columns of the generators, and host helpers of the oracles -----
+
+def _vocab_strings(vocab, idx: np.ndarray, device) -> Column:
+    """The Arrow STRING column whose row i is ``vocab[idx[i]]``, built on
+    ``device`` from the indices (no Python list of rows): the rows'
+    vocabulary bytes, padded, then compacted. Its offsets and chars are
+    the bytes ``Column.from_pylist`` gives for the same rows."""
+    lens, mat = static_strings(vocab, device)
+    idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+    row_lens, rows = lens[idx_t], mat[idx_t]
+    chars = rows[torch.arange(rows.shape[1], dtype=torch.int32,
+                              device=device)[None, :] < row_lens[:, None]]
+    offsets = torch.zeros((idx_t.shape[0] + 1,), dtype=torch.int32,
+                          device=device)
+    offsets[1:] = torch.cumsum(row_lens, 0)
+    return Column(t.STRING, offsets, None, chars=chars)
+
+
+def _host(tbl: Table, i: int) -> np.ndarray:
+    return tbl.column(i).data.cpu().numpy()
+
+
+def _host_valid(tbl: Table, i: int) -> np.ndarray:
+    return tbl.column(i).valid_mask().cpu().numpy()
+
+
+def _host_strings(col: Column, rows=None) -> tuple:
+    """(int32 lengths, uint8 (n, W) zero-padded bytes, validity) of a
+    STRING column's rows (all, or those of the bool mask ``rows``), laid
+    out on the host from the column's own buffers: the oracles share no
+    code with the plans' device layout. W is the longest such row (at
+    least 1)."""
+    valid = col.valid_mask().cpu().numpy()
+    if col.is_padded_string:
+        lens, mat = col.data.cpu().numpy(), col.chars.cpu().numpy()
+        if rows is not None:
+            lens, mat, valid = lens[rows], mat[rows], valid[rows]
+        return lens, mat, valid
+    offsets = col.data.cpu().numpy().astype(np.int64)
+    chars = col.chars.cpu().numpy()
+    starts, lens = offsets[:-1], np.diff(offsets).astype(np.int32)
+    if rows is not None:
+        starts, lens, valid = starts[rows], lens[rows], valid[rows]
+    mat = np.zeros((len(lens), max(int(lens.max(initial=0)), 1)), np.uint8)
+    for j in range(mat.shape[1]):  # one byte column at a time
+        has = lens > j
+        mat[has, j] = chars[starts[has] + j]
+    return lens, mat, valid
+
+
+def _host_codes(col: Column, values) -> np.ndarray:
+    """Per row, the index in ``values`` of the row's string (-1 for none
+    and for null rows), on the host."""
+    lens, mat, valid = _host_strings(col)
+    codes = np.full(lens.shape, -1, np.int64)
+    for k, v in enumerate(values):
+        b = np.frombuffer(v.encode(), np.uint8)
+        if len(b) > mat.shape[1]:
+            continue
+        hit = (lens == len(b)) & (mat[:, :len(b)] == b).all(1)
+        codes[hit & (codes < 0)] = k
+    return np.where(valid, codes, -1)
+
+
+def _host_lookup(keys: np.ndarray, values: np.ndarray, probe: np.ndarray):
+    """(found, value) of each probe key in ``keys``; a repeated key takes
+    its last row's value, as a Python dict built row by row does.
+    Compact keys (a range at most 16 times their count) go through a
+    direct-address table, one read per probe; others through a search
+    of the sorted probes (a search per random probe misses the cache at
+    every step)."""
+    if (keys[1:] > keys[:-1]).all():  # sorted and unique already
+        ukey, vals = keys, values
+    else:
+        ukey, first = np.unique(keys[::-1], return_index=True)
+        vals = values[::-1][first]
+    pos = np.full(probe.shape, -1, np.int64)
+    if len(ukey):
+        lo, hi = int(ukey[0]), int(ukey[-1])
+        if hi - lo < 16 * len(ukey) + 1024:
+            slot = np.full(hi - lo + 1, -1, np.int64)
+            slot[(ukey - lo).astype(np.int64)] = np.arange(len(ukey))
+            inside = (probe >= lo) & (probe <= hi)
+            pos[inside] = slot[(probe[inside] - lo).astype(np.int64)]
+        else:
+            order = np.argsort(probe, kind="stable")
+            at = np.searchsorted(ukey, probe[order])
+            safe = np.minimum(at, len(ukey) - 1)
+            pos[order] = np.where(ukey[safe] == probe[order], safe, -1)
+    found = pos >= 0
+    out = np.zeros(probe.shape, values.dtype)
+    out[found] = vals[pos[found]]
+    return found, out
+
+
+def _host_group_sums(keys: np.ndarray, values: np.ndarray) -> dict:
+    """{key: exact int64 sum of its values}."""
+    uk, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uk), np.int64)
+    np.add.at(sums, inv, values.astype(np.int64))
+    return {int(k): int(v) for k, v in zip(uk, sums)}
+
+
+# ---- TPC-H q6 (forecasting revenue change): one masked reduction -----------
+
+_Q6_DATE_LO = 8766
+_Q6_DATE_HI = 9131
+_Q6_DISC_LO = 5
+_Q6_DISC_HI = 7
+_Q6_QTY_HI = 2400
+
+
+def tpch_q6(lineitem: Table) -> Column:
+    """TPC-H q6: SELECT sum(l_extendedprice * l_discount) WHERE shipdate
+    in a year AND discount BETWEEN 0.05 AND 0.07 AND quantity < 24. One
+    masked int64 multiply-accumulate over the q1 lineitem; a 1-row
+    DECIMAL64(scale -4) column, null iff no row matched."""
+    qty = lineitem.column(L_QUANTITY)
+    price = lineitem.column(L_EXTENDEDPRICE)
+    disc = lineitem.column(L_DISCOUNT)
+    ship = lineitem.column(L_SHIPDATE)
+    sel = (qty.valid_mask() & price.valid_mask() & disc.valid_mask()
+           & ship.valid_mask()
+           & (ship.data >= _Q6_DATE_LO) & (ship.data < _Q6_DATE_HI)
+           & (disc.data >= _Q6_DISC_LO) & (disc.data <= _Q6_DISC_HI)
+           & (qty.data < _Q6_QTY_HI))
+    prod = torch.where(sel, lineitem.column(L_EXTENDEDPRICE).data
+                       * lineitem.column(L_DISCOUNT).data, 0)
+    return Column(t.decimal64(-4), prod.sum().reshape(1),
+                  sel.any().reshape(1))
+
+
+def _q6_host_selection(lineitem: Table) -> np.ndarray:
+    """q6's WHERE on the host arrays."""
+    cols = (L_QUANTITY, L_EXTENDEDPRICE, L_DISCOUNT, L_SHIPDATE)
+    qty, _, disc, ship = (_host(lineitem, c) for c in cols)
+    valid = np.ones(lineitem.num_rows, dtype=bool)
+    for c in cols:
+        valid &= _host_valid(lineitem, c)
+    return (valid & (ship >= _Q6_DATE_LO) & (ship < _Q6_DATE_HI)
+            & (disc >= _Q6_DISC_LO) & (disc <= _Q6_DISC_HI)
+            & (qty < _Q6_QTY_HI))
+
+
+def tpch_q6_numpy(lineitem: Table) -> int:
+    """Host oracle for q6 (exact Python-int arithmetic, scale -4)."""
+    sel = _q6_host_selection(lineitem)
+    price = _host(lineitem, L_EXTENDEDPRICE)[sel]
+    disc = _host(lineitem, L_DISCOUNT)[sel]
+    return int((price.astype(object) * disc.astype(object)).sum())
+
+
+def tpch_q6_oracle(lineitem: Table) -> int:
+    """q6's host oracle, vectorized: the same sum in int64 (exact below
+    2^63, which TPC-H value ranges do not approach)."""
+    sel = _q6_host_selection(lineitem)
+    return int((_host(lineitem, L_EXTENDEDPRICE)[sel]
+                * _host(lineitem, L_DISCOUNT)[sel]).sum())
+
+
+# ---- TPC-H q5 (local supplier volume): four dense-PK lookups and the
+# 25-nation bounded groupby ---------------------------------------------------
+
+_Q5_NATIONS = (
+    "ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+    "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN",
+    "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA",
+    "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA", "UNITED KINGDOM",
+    "UNITED STATES",
+)
+_Q5_N_REGIONS = 5
+_Q5_YEAR_START = 8766   # 1994-01-01
+_Q5_YEAR_END = 9131     # 1995-01-01
+
+# nation columns
+N_NATIONKEY, N_REGIONKEY = 0, 1
+# supplier columns
+S_SUPPKEY, S_NATIONKEY = 0, 1
+# q5 customer columns
+C5_CUSTKEY, C5_NATIONKEY = 0, 1
+# q5 lineitem columns
+L5_ORDERKEY, L5_SUPPKEY, L5_EXTENDEDPRICE, L5_DISCOUNT = 0, 1, 2, 3
+
+
+def _keys_and_draw(num_rows: int, draw, device) -> Table:
+    """[1..n int64 keys, an int64 column of ``draw``]."""
+    return Table([
+        Column.from_numpy(np.arange(1, num_rows + 1, dtype=np.int64),
+                          device=device),
+        Column.from_numpy(draw.astype(np.int64), device=device)])
+
+
+def nation_table(seed: int = 0, device=None) -> Table:
+    """nation: [n_nationkey 1..25, n_regionkey in 1..5]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return _keys_and_draw(25, rng.integers(1, _Q5_N_REGIONS + 1, 25), device)
+
+
+def supplier_table(num_rows: int, seed: int = 9, device=None) -> Table:
+    """supplier: [s_suppkey 1..n, s_nationkey in 1..25]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return _keys_and_draw(num_rows, rng.integers(1, 26, num_rows), device)
+
+
+def customer_q5_table(num_rows: int, seed: int = 10, device=None) -> Table:
+    """q5's customer: [c_custkey 1..n, c_nationkey in 1..25]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return _keys_and_draw(num_rows, rng.integers(1, 26, num_rows), device)
+
+
+def lineitem_q5_table(num_rows: int, num_orders: int, num_suppliers: int,
+                      seed: int = 11, device=None) -> Table:
+    """q5's lineitem: [l_orderkey, l_suppkey, l_extendedprice,
+    l_discount]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return Table([
+        Column.from_numpy(
+            rng.integers(1, num_orders + 1, num_rows).astype(np.int64),
+            device=device),
+        Column.from_numpy(
+            rng.integers(1, num_suppliers + 1, num_rows).astype(np.int64),
+            device=device),
+        Column.from_numpy(
+            rng.integers(90_000, 10_500_000, num_rows).astype(np.int64),
+            t.decimal64(-2), device=device),
+        Column.from_numpy(
+            rng.integers(0, 11, num_rows).astype(np.int64), t.decimal64(-2),
+            device=device),
+    ])
+
+
+class Q5Result(NamedTuple):
+    table: Table              # [n_nationkey, revenue, n_name], rev desc
+    present: torch.Tensor
+    pk_violation: torch.Tensor
+    domain_miss: torch.Tensor
+
+
+_Q5_AGGS = [(1, "sum")]
+
+
+def _q5_keyed(customer: Table, orders: Table, lineitem: Table,
+              supplier: Table, nation: Table, region_of_interest: int,
+              year_start: int, year_end: int):
+    """q5 up to its groupby, one row per lineitem row: the four clustered
+    dense-PK lookups (supplier, orders with the date filter in its key,
+    customer on the gathered o_custkey, nation with the region filter in
+    its key), then [s_nationkey where kept, revenue]. Returns (keyed,
+    pk_violation)."""
+    n = lineitem.num_columns
+    j_s = dense_pk_join(lineitem, supplier, L5_SUPPKEY, S_SUPPKEY,
+                        1, supplier.num_rows, clustered=True)
+    s_nation = j_s.table.column(n + 1)
+    od = orders.column(O_ORDERDATE)
+    date_ok = od.valid_mask() & (od.data >= year_start) \
+        & (od.data < year_end)
+    ord_build = Table([_null_where(orders.column(O_ORDERKEY), ~date_ok),
+                       orders.column(O_CUSTKEY)])
+    j_o = dense_pk_join(lineitem, ord_build, L5_ORDERKEY, 0,
+                        1, orders.num_rows, clustered=True)
+    # the gathered o_custkey's validity already holds the match
+    j_c = dense_pk_join(Table([j_o.table.column(n + 1)]), customer, 0,
+                        C5_CUSTKEY, 1, customer.num_rows, clustered=True)
+    c_nation = j_c.table.column(2)
+    nat_build = Table([_null_where(
+        nation.column(N_NATIONKEY),
+        nation.column(N_REGIONKEY).data != region_of_interest)])
+    j_n = dense_pk_join(Table([s_nation]), nat_build, 0, 0, 1, 25,
+                        clustered=True)
+    keep = (j_s.matched & j_o.matched & j_c.matched & j_n.matched
+            & (c_nation.data == s_nation.data))
+    price = lineitem.column(L5_EXTENDEDPRICE)
+    disc = lineitem.column(L5_DISCOUNT)
+    rev_ok = keep & price.valid_mask() & disc.valid_mask()
+    revenue = Column(t.decimal64(-4),
+                     torch.where(rev_ok, price.data * (100 - disc.data), 0),
+                     rev_ok)
+    keyed = Table([Column(s_nation.dtype,
+                          torch.where(keep, s_nation.data, 0), keep),
+                   revenue])
+    pk_violation = (j_s.pk_violation | j_o.pk_violation | j_c.pk_violation
+                    | j_n.pk_violation)
+    return keyed, pk_violation
+
+
+def _q5_domains():
+    return [scalar_domain(range(1, 26))]
+
+
+def tpch_q5(customer: Table, orders: Table, lineitem: Table,
+            supplier: Table, nation: Table, region_of_interest: int = 1,
+            year_start: int = _Q5_YEAR_START,
+            year_end: int = _Q5_YEAR_END) -> Q5Result:
+    """q5 from planner facts alone, the reference's plan: every join a
+    clustered dense-PK lookup (``_q5_keyed``), the GROUP BY nation the
+    bounded groupby over the 25-value DDL domain (the accumulate kernel
+    on the card, m = 26), then n_name attached from the static slot
+    layout and the 26-row ORDER BY revenue DESC carrying it."""
+    keyed, pk_violation = _q5_keyed(customer, orders, lineitem, supplier,
+                                    nation, region_of_interest, year_start,
+                                    year_end)
+    g = plan_groupby(keyed, [0], _Q5_AGGS, _q5_domains())
+    if g.lowered != "bounded":
+        raise AssertionError("q5's nation domain must lower to the "
+                             "bounded plan")
+    # bounded slot i (< 25) is nation key i+1
+    lens, mat = static_strings(
+        list(_Q5_NATIONS) + [None] * (g.table.num_rows - len(_Q5_NATIONS)),
+        g.present.device)
+    names = Column(t.STRING, lens, g.table.column(0).valid_mask(), chars=mat)
+    out = Table(list(g.table.columns) + [names])
+    srt = gather(out, sort_order(out, [1], ascending=[False],
+                                 nulls_first=[False]))
+    # key valid <=> slot present, through the ORDER BY's permutation
+    return Q5Result(srt, srt.column(0).valid_mask(), pk_violation,
+                    g.domain_miss)
+
+
+def q5_accumulate_inputs(customer: Table, orders: Table, lineitem: Table,
+                         supplier: Table, nation: Table):
+    """(gid, lanes, m): the accumulate kernel's inputs in q5 (m = 26)."""
+    keyed, _ = _q5_keyed(customer, orders, lineitem, supplier, nation, 1,
+                         _Q5_YEAR_START, _Q5_YEAR_END)
+    return bounded_accumulate_inputs(keyed, [0], _Q5_AGGS, _q5_domains())
+
+
+def tpch_q5_numpy(customer: Table, orders: Table, lineitem: Table,
+                  supplier: Table, nation: Table,
+                  region_of_interest: int = 1,
+                  year_start: int = _Q5_YEAR_START,
+                  year_end: int = _Q5_YEAR_END) -> dict:
+    """Host oracle, a loop over lineitem: {n_nationkey: revenue}."""
+    s_nat = {int(k): int(v) for k, v in zip(_host(supplier, S_SUPPKEY),
+                                            _host(supplier, S_NATIONKEY))}
+    c_nat = {int(k): int(v) for k, v in zip(_host(customer, C5_CUSTKEY),
+                                            _host(customer, C5_NATIONKEY))}
+    in_region = {int(k) for k, r in zip(_host(nation, N_NATIONKEY),
+                                        _host(nation, N_REGIONKEY))
+                 if int(r) == region_of_interest}
+    o_info = {}
+    for k, c, d in zip(_host(orders, O_ORDERKEY), _host(orders, O_CUSTKEY),
+                       _host(orders, O_ORDERDATE)):
+        if year_start <= int(d) < year_end:
+            o_info[int(k)] = int(c)
+    out: dict = {}
+    lkey = _host(lineitem, L5_ORDERKEY)
+    lsupp = _host(lineitem, L5_SUPPKEY)
+    price = _host(lineitem, L5_EXTENDEDPRICE)
+    disc = _host(lineitem, L5_DISCOUNT)
+    for i in range(lineitem.num_rows):
+        ok = int(lkey[i])
+        if ok not in o_info:
+            continue
+        sn = s_nat.get(int(lsupp[i]))
+        if sn is None or sn not in in_region:
+            continue
+        if c_nat.get(o_info[ok]) != sn:
+            continue
+        out[sn] = out.get(sn, 0) + int(price[i]) * (100 - int(disc[i]))
+    return out
+
+
+def tpch_q5_oracle(customer: Table, orders: Table, lineitem: Table,
+                   supplier: Table, nation: Table,
+                   region_of_interest: int = 1,
+                   year_start: int = _Q5_YEAR_START,
+                   year_end: int = _Q5_YEAR_END) -> dict:
+    """``tpch_q5_numpy`` vectorized: {n_nationkey: revenue}."""
+    od = _host(orders, O_ORDERDATE)
+    o_keep = (od >= year_start) & (od < year_end)
+    found_o, ocust = _host_lookup(_host(orders, O_ORDERKEY)[o_keep],
+                                  _host(orders, O_CUSTKEY)[o_keep],
+                                  _host(lineitem, L5_ORDERKEY))
+    found_s, sn = _host_lookup(_host(supplier, S_SUPPKEY),
+                               _host(supplier, S_NATIONKEY),
+                               _host(lineitem, L5_SUPPKEY))
+    region = _host(nation, N_NATIONKEY)[
+        _host(nation, N_REGIONKEY) == region_of_interest]
+    found_c, cn = _host_lookup(_host(customer, C5_CUSTKEY),
+                               _host(customer, C5_NATIONKEY), ocust)
+    ok = found_o & found_s & np.isin(sn, region) & found_c & (cn == sn)
+    rev = _host(lineitem, L5_EXTENDEDPRICE)[ok] \
+        * (100 - _host(lineitem, L5_DISCOUNT)[ok])
+    return _host_group_sums(sn[ok], rev)
+
+
+# ---- TPC-H q12 (shipping modes and order priority): a join, then a
+# string-key groupby with CASE WHEN counts ------------------------------------
+
+# q12 lineitem columns
+L12_ORDERKEY, L12_SHIPMODE, L12_COMMITDATE = 0, 1, 2
+L12_RECEIPTDATE, L12_SHIPDATE = 3, 4
+# q12 orders columns
+O12_ORDERKEY, O12_ORDERPRIORITY = 0, 1
+
+_Q12_MODES = ("MAIL", "SHIP", "AIR", "RAIL", "TRUCK", "FOB", "REG AIR")
+_Q12_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM",
+                   "4-NOT SPECIFIED", "5-LOW")
+_Q12_URGENT = ("1-URGENT", "2-HIGH")
+_Q12_YEAR_START = 8766   # 1994-01-01 in days
+_Q12_YEAR_END = 9131     # 1995-01-01
+_Q12_AGGS = [(1, "sum"), (2, "sum")]
+
+
+def lineitem_q12_table(num_rows: int, num_orders: int, seed: int = 3,
+                       device=None) -> Table:
+    """q12's lineitem: [l_orderkey, l_shipmode (STRING), l_commitdate,
+    l_receiptdate, l_shipdate]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    ship = rng.integers(8400, 10957, num_rows).astype(np.int32)
+    commit = ship + rng.integers(-30, 60, num_rows).astype(np.int32)
+    receipt = commit + rng.integers(-20, 40, num_rows).astype(np.int32)
+    okey = rng.integers(1, num_orders + 1, num_rows).astype(np.int64)
+    mode = rng.integers(0, len(_Q12_MODES), num_rows)
+    return Table([
+        Column.from_numpy(okey, device=device),
+        _vocab_strings(_Q12_MODES, mode, device),
+        Column.from_numpy(commit, t.TIMESTAMP_DAYS, device=device),
+        Column.from_numpy(receipt, t.TIMESTAMP_DAYS, device=device),
+        Column.from_numpy(ship, t.TIMESTAMP_DAYS, device=device),
+    ])
+
+
+def orders_q12_table(num_rows: int, seed: int = 4, device=None) -> Table:
+    """q12's orders: [o_orderkey 1..n, o_orderpriority (STRING)]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return Table([
+        Column.from_numpy(np.arange(1, num_rows + 1, dtype=np.int64),
+                          device=device),
+        _vocab_strings(_Q12_PRIORITIES, rng.integers(
+            0, len(_Q12_PRIORITIES), num_rows), device),
+    ])
+
+
+def _q12_keep(lineitem: Table, mode_c: Column, modes: tuple,
+              year_start: int, year_end: int) -> torch.Tensor:
+    """q12's WHERE: shipmode IN the list (one LIKE per mode), the date
+    sanity predicates, every operand non-null."""
+    in_modes = torch.zeros((lineitem.num_rows,), dtype=torch.bool,
+                           device=mode_c.device)
+    for mname in modes:
+        in_modes = in_modes | (like(mode_c, mname).data != 0)
+    commit_c = lineitem.column(L12_COMMITDATE)
+    receipt_c = lineitem.column(L12_RECEIPTDATE)
+    ship_c = lineitem.column(L12_SHIPDATE)
+    return (in_modes & mode_c.valid_mask() & commit_c.valid_mask()
+            & receipt_c.valid_mask() & ship_c.valid_mask()
+            & (commit_c.data < receipt_c.data)
+            & (ship_c.data < commit_c.data)
+            & (receipt_c.data >= year_start)
+            & (receipt_c.data < year_end))
+
+
+def _q12_priority_lanes(prio: Column, matched: torch.Tensor):
+    """CASE WHEN o_orderpriority IN ('1-URGENT', '2-HIGH') as two int64
+    count lanes."""
+    urgent = (like(prio, "1-URGENT").data != 0) \
+        | (like(prio, "2-HIGH").data != 0)
+    high = Column(t.INT64, (matched & urgent).to(torch.int64), matched)
+    low = Column(t.INT64, (matched & ~urgent).to(torch.int64), matched)
+    return high, low
+
+
+def _q12_joined(orders: Table, lineitem: Table, mode_c: Column,
+                modes: tuple, year_start: int, year_end: int):
+    """The WHERE as a nulled join key, the join to orders (capacity: the
+    lineitem rows), and the matched mask. Returns (joined table
+    [l_orderkey, l_shipmode, o_orderkey, o_orderpriority], maps,
+    matched)."""
+    keep = _q12_keep(lineitem, mode_c, modes, year_start, year_end)
+    probe = Table([_null_where(lineitem.column(L12_ORDERKEY), ~keep),
+                   mode_c])
+    maps = join(probe, orders, 0, 0, out_size=lineitem.num_rows)
+    j = apply_join_maps(probe, orders, maps)
+    return j, maps, j.column(2).valid_mask()
+
+
+class Q12Result(NamedTuple):
+    result: GroupByResult  # [l_shipmode, high_line_count, low_line_count]
+    join_total: torch.Tensor
+
+
+def tpch_q12(orders: Table, lineitem: Table,
+             modes: tuple = ("MAIL", "SHIP"),
+             year_start: int = _Q12_YEAR_START,
+             year_end: int = _Q12_YEAR_END) -> Q12Result:
+    """General q12: lineitem filtered on the mode and date predicates,
+    joined to orders on orderkey (the probe kernel on the card), grouped
+    by shipmode with the CASE WHEN priority counts (sort-based, string
+    key), ORDER BY shipmode with the null group last."""
+    j, maps, matched = _q12_joined(orders, lineitem,
+                                   lineitem.column(L12_SHIPMODE), modes,
+                                   year_start, year_end)
+    high, low = _q12_priority_lanes(j.column(3), matched)
+    keyed = Table([_null_where(j.column(1), ~matched), high, low])
+    g = groupby_aggregate(keyed, [0], _Q12_AGGS)
+    srt = gather(g.table, sort_order(g.table, [0], nulls_first=[False]))
+    return Q12Result(GroupByResult(srt, g.num_groups), maps.total)
+
+
+def _q12_planned_keyed(orders: Table, lineitem: Table, modes: tuple,
+                       year_start: int, year_end: int) -> Table:
+    """Planned q12 up to its groupby: the shipmode padded once, the same
+    join, then [shipmode (unmatched rows zeroed in lengths and bytes),
+    high, low]."""
+    mode_c = pad_strings(lineitem.column(L12_SHIPMODE))
+    j, _, matched = _q12_joined(orders, lineitem, mode_c, modes, year_start,
+                                year_end)
+    high, low = _q12_priority_lanes(j.column(3), matched)
+    mode_j = j.column(1)
+    return Table([
+        Column(mode_j.dtype, torch.where(matched, mode_j.data, 0), matched,
+               chars=mode_j.chars.masked_fill(~matched[:, None], 0)),
+        high, low])
+
+
+def tpch_q12_planned_result(orders: Table, lineitem: Table,
+                            modes: tuple = ("MAIL", "SHIP"),
+                            year_start: int = _Q12_YEAR_START,
+                            year_end: int = _Q12_YEAR_END) -> PlannedGroupBy:
+    """q12 with the groupby on the sort-free plan: the shipmode key's
+    domain is the query's own IN list, so the aggregation lowers to the
+    bounded groupby (the accumulate kernel on the card, m = 3 for two
+    modes), with the modes dictionary-encoded on the device and decoded
+    to static strings. The join is the general one."""
+    keyed = _q12_planned_keyed(orders, lineitem, modes, year_start,
+                               year_end)
+    return plan_groupby(keyed, [0], _Q12_AGGS, [string_domain(modes)])
+
+
+def tpch_q12_planned(orders: Table, lineitem: Table,
+                     modes: tuple = ("MAIL", "SHIP"),
+                     year_start: int = _Q12_YEAR_START,
+                     year_end: int = _Q12_YEAR_END) -> Table:
+    """Planned q12, table only: [l_shipmode, high_line_count,
+    low_line_count] in mode order, the null group last."""
+    return tpch_q12_planned_result(orders, lineitem, modes, year_start,
+                                   year_end).table
+
+
+def q12_accumulate_inputs(orders: Table, lineitem: Table,
+                          modes: tuple = ("MAIL", "SHIP")):
+    """(gid, lanes, m): the accumulate kernel's inputs in planned q12."""
+    keyed = _q12_planned_keyed(orders, lineitem, modes, _Q12_YEAR_START,
+                               _Q12_YEAR_END)
+    return bounded_accumulate_inputs(keyed, [0], _Q12_AGGS,
+                                     [string_domain(modes)])
+
+
+def q12_probe_inputs(orders: Table, lineitem: Table):
+    """(build, n_valid, probe): the probe kernel's inputs at q12's join,
+    the build sorted and sentinel-padded as ``join`` gives it (the probe
+    is the raw key column: its nulls are applied after the probe)."""
+    key = orders.column(O12_ORDERKEY)
+    build, n_valid, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    return build, n_valid, lineitem.column(L12_ORDERKEY).data
+
+
+def tpch_q12_numpy(orders: Table, lineitem: Table,
+                   modes: tuple = ("MAIL", "SHIP"),
+                   year_start: int = _Q12_YEAR_START,
+                   year_end: int = _Q12_YEAR_END) -> dict:
+    """Host oracle, a loop over lineitem: {shipmode: [high, low]}."""
+    prio = {int(k): p for k, p in zip(
+        _host(orders, O12_ORDERKEY).tolist(),
+        orders.column(O12_ORDERPRIORITY).to_pylist())}
+    out: dict = {}
+    lmode = lineitem.column(L12_SHIPMODE).to_pylist()
+    lkey = _host(lineitem, L12_ORDERKEY).tolist()
+    commit = _host(lineitem, L12_COMMITDATE).tolist()
+    receipt = _host(lineitem, L12_RECEIPTDATE).tolist()
+    ship = _host(lineitem, L12_SHIPDATE).tolist()
+    for i in range(lineitem.num_rows):
+        if lmode[i] not in modes:
+            continue
+        if not (commit[i] < receipt[i] and ship[i] < commit[i]
+                and year_start <= receipt[i] < year_end):
+            continue
+        p = prio.get(lkey[i])
+        if p is None:
+            continue
+        counts = out.setdefault(lmode[i], [0, 0])
+        counts[0 if p in _Q12_URGENT else 1] += 1
+    return out
+
+
+def tpch_q12_oracle(orders: Table, lineitem: Table,
+                    modes: tuple = ("MAIL", "SHIP"),
+                    year_start: int = _Q12_YEAR_START,
+                    year_end: int = _Q12_YEAR_END) -> dict:
+    """``tpch_q12_numpy`` vectorized: {shipmode: [high, low]}."""
+    code = _host_codes(lineitem.column(L12_SHIPMODE), modes)
+    commit = _host(lineitem, L12_COMMITDATE)
+    receipt = _host(lineitem, L12_RECEIPTDATE)
+    ship = _host(lineitem, L12_SHIPDATE)
+    keep = (code >= 0) & (commit < receipt) & (ship < commit) \
+        & (receipt >= year_start) & (receipt < year_end)
+    prio = orders.column(O12_ORDERPRIORITY)
+    # 1 = urgent, 0 = other, -1 = null priority (skipped, as None is)
+    cls = np.where(_host_codes(prio, _Q12_URGENT) >= 0, 1, 0)
+    cls = np.where(prio.valid_mask().cpu().numpy(), cls, -1)
+    found, pcls = _host_lookup(_host(orders, O12_ORDERKEY), cls,
+                               _host(lineitem, L12_ORDERKEY))
+    ok = keep & found & (pcls >= 0)
+    out = {}
+    for k, mname in enumerate(modes):
+        rows = ok & (code == k)
+        if rows.any() and mname not in out:
+            high = int((pcls[rows] == 1).sum())
+            out[mname] = [high, int(rows.sum()) - high]
+    return out
+
+
+# ---- TPC-H q14 (promotion effect): a join, LIKE 'PROMO%' and two sums -------
+
+P_PARTKEY, P_TYPE, P_BRAND, P_CONTAINER, P_SIZE = 0, 1, 2, 3, 4
+
+_P_TYPES = ("PROMO BURNISHED COPPER", "PROMO PLATED BRASS",
+            "STANDARD POLISHED TIN", "MEDIUM BRUSHED NICKEL",
+            "ECONOMY ANODIZED STEEL", "SMALL PLATED COPPER")
+_P_BRANDS = ("Brand#11", "Brand#12", "Brand#23", "Brand#34", "Brand#55")
+_P_CONTAINERS = ("SM CASE", "SM BOX", "SM PACK", "SM PKG",
+                 "MED BAG", "MED BOX", "MED PKG", "MED PACK",
+                 "LG CASE", "LG BOX", "LG PACK", "LG PKG")
+
+# q14 lineitem columns
+L14_PARTKEY, L14_EXTENDEDPRICE, L14_DISCOUNT, L14_SHIPDATE = 0, 1, 2, 3
+
+_Q14_MONTH_START = 9374  # 1995-09-01
+_Q14_MONTH_END = 9404    # 1995-10-01
+
+
+def part_table(num_rows: int, seed: int = 5, device=None) -> Table:
+    """part: [p_partkey 1..n, p_type, p_brand, p_container (STRING),
+    p_size]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, len(_P_TYPES), num_rows)
+    brands = rng.integers(0, len(_P_BRANDS), num_rows)
+    containers = rng.integers(0, len(_P_CONTAINERS), num_rows)
+    size = rng.integers(1, 51, num_rows).astype(np.int32)
+    return Table([
+        Column.from_numpy(np.arange(1, num_rows + 1, dtype=np.int64),
+                          device=device),
+        _vocab_strings(_P_TYPES, types, device),
+        _vocab_strings(_P_BRANDS, brands, device),
+        _vocab_strings(_P_CONTAINERS, containers, device),
+        Column.from_numpy(size, device=device),
+    ])
+
+
+def lineitem_q14_table(num_rows: int, num_parts: int, seed: int = 6,
+                       device=None) -> Table:
+    """q14's lineitem: [l_partkey, l_extendedprice, l_discount,
+    l_shipdate]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return Table([
+        Column.from_numpy(
+            rng.integers(1, num_parts + 1, num_rows).astype(np.int64),
+            device=device),
+        Column.from_numpy(
+            rng.integers(90_000, 10_500_000, num_rows).astype(np.int64),
+            t.decimal64(-2), device=device),
+        Column.from_numpy(
+            rng.integers(0, 11, num_rows).astype(np.int64), t.decimal64(-2),
+            device=device),
+        Column.from_numpy(
+            rng.integers(8400, 10957, num_rows).astype(np.int32),
+            t.TIMESTAMP_DAYS, device=device),
+    ])
+
+
+class Q14Result(NamedTuple):
+    promo_revenue: torch.Tensor   # int64 unscaled decimal(-4)
+    total_revenue: torch.Tensor   # int64 unscaled decimal(-4)
+    join_total: torch.Tensor
+
+    def ratio(self) -> float:
+        """100 * promo / total (the published q14 metric), host side."""
+        tot = int(self.total_revenue)
+        return 100.0 * int(self.promo_revenue) / tot if tot else 0.0
+
+
+class Q14PlannedResult(NamedTuple):
+    promo_revenue: torch.Tensor
+    total_revenue: torch.Tensor
+    join_total: torch.Tensor
+    pk_violation: torch.Tensor    # the declared clustered PK was a lie
+
+    ratio = Q14Result.ratio
+
+
+def _q14_inputs(lineitem: Table, month_start: int, month_end: int):
+    """The month-filtered probe [l_partkey], the exact decimal(-4)
+    revenue per lineitem row, and where it counts."""
+    ship = lineitem.column(L14_SHIPDATE)
+    keep = ship.valid_mask() & (ship.data >= month_start) \
+        & (ship.data < month_end)
+    price = lineitem.column(L14_EXTENDEDPRICE)
+    disc = lineitem.column(L14_DISCOUNT)
+    revenue = price.data * (100 - disc.data)
+    rev_ok = price.valid_mask() & disc.valid_mask() & keep
+    probe = Table([_null_where(lineitem.column(L14_PARTKEY), ~keep)])
+    return probe, revenue, rev_ok
+
+
+def _q14_sums(rev: torch.Tensor, p_type: Column):
+    promo = like(p_type, "PROMO%").data != 0
+    return torch.where(promo, rev, 0).sum(), rev.sum()
+
+
+def tpch_q14(part: Table, lineitem: Table,
+             month_start: int = _Q14_MONTH_START,
+             month_end: int = _Q14_MONTH_END) -> Q14Result:
+    """General q14: the month's lineitem joined to part (the probe kernel
+    on the card), CASE WHEN p_type LIKE 'PROMO%' over the joined strings,
+    and the two exact decimal(-4) sums. The revenue lanes are gathered by
+    the join's left map."""
+    probe, revenue, rev_ok = _q14_inputs(lineitem, month_start, month_end)
+    build = Table([part.column(P_PARTKEY), part.column(P_TYPE)])
+    maps = join(probe, build, 0, 0, out_size=lineitem.num_rows)
+    li = maps.left_index.clamp(0, max(lineitem.num_rows - 1, 0))
+    j = apply_join_maps(probe, build, maps)
+    matched = j.column(1).valid_mask() & maps.row_valid
+    rev_j = torch.where(matched & rev_ok[li], revenue[li], 0)
+    return Q14Result(*_q14_sums(rev_j, j.column(2)), maps.total)
+
+
+def tpch_q14_planned(part: Table, lineitem: Table,
+                     month_start: int = _Q14_MONTH_START,
+                     month_end: int = _Q14_MONTH_END) -> Q14PlannedResult:
+    """q14 with the part join a declared clustered dense-PK lookup: a
+    gather, no join kernel; its rows are the lineitem rows, so the
+    revenue lanes need no gather."""
+    probe, revenue, rev_ok = _q14_inputs(lineitem, month_start, month_end)
+    build = Table([part.column(P_PARTKEY),
+                   pad_strings(part.column(P_TYPE))])
+    j = dense_pk_join(probe, build, 0, 0, 1, part.num_rows, clustered=True)
+    rev_j = torch.where(j.matched & rev_ok, revenue, 0)
+    return Q14PlannedResult(*_q14_sums(rev_j, j.table.column(2)), j.total,
+                            j.pk_violation)
+
+
+def q14_probe_inputs(part: Table, lineitem: Table):
+    """(build, n_valid, probe): the probe kernel's inputs at q14's join."""
+    key = part.column(P_PARTKEY)
+    build, n_valid, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    return build, n_valid, lineitem.column(L14_PARTKEY).data
+
+
+def tpch_q14_numpy(part: Table, lineitem: Table,
+                   month_start: int = _Q14_MONTH_START,
+                   month_end: int = _Q14_MONTH_END) -> tuple:
+    """Host oracle, a loop over lineitem: (promo, total) revenue."""
+    ptype = {int(k): v for k, v in zip(_host(part, P_PARTKEY).tolist(),
+                                       part.column(P_TYPE).to_pylist())}
+    lkey = _host(lineitem, L14_PARTKEY).tolist()
+    price = _host(lineitem, L14_EXTENDEDPRICE).tolist()
+    disc = _host(lineitem, L14_DISCOUNT).tolist()
+    ship = _host(lineitem, L14_SHIPDATE).tolist()
+    promo = total = 0
+    for i in range(lineitem.num_rows):
+        if not month_start <= ship[i] < month_end:
+            continue
+        tp = ptype.get(lkey[i])
+        if tp is None:
+            continue
+        rev = price[i] * (100 - disc[i])
+        total += rev
+        if tp.startswith("PROMO"):
+            promo += rev
+    return promo, total
+
+
+def tpch_q14_oracle(part: Table, lineitem: Table,
+                    month_start: int = _Q14_MONTH_START,
+                    month_end: int = _Q14_MONTH_END) -> tuple:
+    """``tpch_q14_numpy`` vectorized: (promo, total) revenue."""
+    lens, mat, valid = _host_strings(part.column(P_TYPE))
+    pref = np.frombuffer(b"PROMO", np.uint8)
+    is_promo = (lens >= len(pref)) & (mat[:, :len(pref)] == pref).all(1) \
+        if mat.shape[1] >= len(pref) else np.zeros(lens.shape, bool)
+    # 1 = promo, 0 = other, -1 = null type (skipped, as None is)
+    cls = np.where(valid, is_promo.astype(np.int64), -1)
+    ship = _host(lineitem, L14_SHIPDATE)
+    found, pcls = _host_lookup(_host(part, P_PARTKEY), cls,
+                               _host(lineitem, L14_PARTKEY))
+    ok = (ship >= month_start) & (ship < month_end) & found & (pcls >= 0)
+    rev = _host(lineitem, L14_EXTENDEDPRICE)[ok] \
+        * (100 - _host(lineitem, L14_DISCOUNT)[ok])
+    return int(rev[pcls[ok] == 1].sum()), int(rev.sum())
+
+
+# ---- TPC-H q4 (order priority checking): EXISTS as a LEFT-SEMI join, then
+# a string-key groupby ---------------------------------------------------------
+
+# q4 orders columns
+O4_ORDERKEY, O4_ORDERDATE, O4_ORDERPRIORITY = 0, 1, 2
+_Q4_QTR_START = 8582   # 1993-07-01
+_Q4_QTR_END = 8674     # 1993-10-01
+_Q4_AGGS = [(1, "sum")]
+
+
+def orders_q4_table(num_rows: int, seed: int = 8, device=None) -> Table:
+    """q4's orders: [o_orderkey 1..n, o_orderdate, o_orderpriority
+    (STRING)]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    date = rng.integers(8400, 8800, num_rows).astype(np.int32)
+    prio = rng.integers(0, len(_Q12_PRIORITIES), num_rows)
+    return Table([
+        Column.from_numpy(np.arange(1, num_rows + 1, dtype=np.int64),
+                          device=device),
+        Column.from_numpy(date, t.TIMESTAMP_DAYS, device=device),
+        _vocab_strings(_Q12_PRIORITIES, prio, device),
+    ])
+
+
+def _q4_semi(orders: Table, lineitem: Table, prio_c: Column,
+             qtr_start: int, qtr_end: int):
+    """Orders of the quarter (nulled key otherwise) LEFT-SEMI joined to
+    the late lineitem rows (commit < receipt; nulled key otherwise),
+    capacity the orders rows. Returns (joined [o_orderkey,
+    o_orderpriority, l_orderkey], maps)."""
+    od = orders.column(O4_ORDERDATE)
+    keep_o = od.valid_mask() & (od.data >= qtr_start) & (od.data < qtr_end)
+    probe = Table([_null_where(orders.column(O4_ORDERKEY), ~keep_o), prio_c])
+    commit_c = lineitem.column(L12_COMMITDATE)
+    receipt_c = lineitem.column(L12_RECEIPTDATE)
+    late = commit_c.valid_mask() & receipt_c.valid_mask() \
+        & (commit_c.data < receipt_c.data)
+    build = Table([_null_where(lineitem.column(L12_ORDERKEY), ~late)])
+    maps = join(probe, build, 0, 0, out_size=orders.num_rows,
+                how="left_semi")
+    return apply_join_maps(probe, build, maps), maps
+
+
+class Q4Result(NamedTuple):
+    result: GroupByResult   # [o_orderpriority, order_count]
+    join_total: torch.Tensor
+
+
+def _count_lane(matched: torch.Tensor) -> Column:
+    return Column(t.INT64, matched.to(torch.int64), matched)
+
+
+def tpch_q4(orders: Table, lineitem: Table, qtr_start: int = _Q4_QTR_START,
+            qtr_end: int = _Q4_QTR_END) -> Q4Result:
+    """General q4: the orders of the quarter with EXISTS(a late lineitem)
+    as a LEFT-SEMI join (the probe kernel on the card, into the whole
+    lineitem key column), counted per priority by the sort-based
+    groupby, ORDER BY priority with the null group last."""
+    j, maps = _q4_semi(orders, lineitem, orders.column(O4_ORDERPRIORITY),
+                       qtr_start, qtr_end)
+    matched = maps.row_valid
+    keyed = Table([_null_where(j.column(1), ~matched), _count_lane(matched)])
+    g = groupby_aggregate(keyed, [0], _Q4_AGGS)
+    srt = gather(g.table, sort_order(g.table, [0], nulls_first=[False]))
+    return Q4Result(GroupByResult(srt, g.num_groups), maps.total)
+
+
+def _q4_planned_keyed(orders: Table, lineitem: Table, qtr_start: int,
+                      qtr_end: int) -> Table:
+    prio_c = pad_strings(orders.column(O4_ORDERPRIORITY))
+    j, maps = _q4_semi(orders, lineitem, prio_c, qtr_start, qtr_end)
+    matched = maps.row_valid
+    prio_j = j.column(1)
+    return Table([
+        Column(prio_j.dtype, torch.where(matched, prio_j.data, 0), matched,
+               chars=prio_j.chars.masked_fill(~matched[:, None], 0)),
+        _count_lane(matched)])
+
+
+def tpch_q4_planned_result(orders: Table, lineitem: Table,
+                           qtr_start: int = _Q4_QTR_START,
+                           qtr_end: int = _Q4_QTR_END) -> PlannedGroupBy:
+    """q4 with the groupby on the sort-free plan: o_orderpriority is a
+    5-value DDL enum, so the COUNT(*) GROUP BY lowers to the bounded
+    groupby (the accumulate kernel on the card, m = 6) with the
+    priorities dictionary-encoded on the device. The EXISTS stays a
+    LEFT-SEMI join."""
+    keyed = _q4_planned_keyed(orders, lineitem, qtr_start, qtr_end)
+    return plan_groupby(keyed, [0], _Q4_AGGS,
+                        [string_domain(_Q12_PRIORITIES)])
+
+
+def tpch_q4_planned(orders: Table, lineitem: Table,
+                    qtr_start: int = _Q4_QTR_START,
+                    qtr_end: int = _Q4_QTR_END) -> Table:
+    """Planned q4, table only: [o_orderpriority, order_count] in priority
+    order, the null group last."""
+    return tpch_q4_planned_result(orders, lineitem, qtr_start,
+                                  qtr_end).table
+
+
+def q4_accumulate_inputs(orders: Table, lineitem: Table):
+    """(gid, lanes, m): the accumulate kernel's inputs in planned q4."""
+    keyed = _q4_planned_keyed(orders, lineitem, _Q4_QTR_START, _Q4_QTR_END)
+    return bounded_accumulate_inputs(keyed, [0], _Q4_AGGS,
+                                     [string_domain(_Q12_PRIORITIES)])
+
+
+def q4_probe_inputs(orders: Table, lineitem: Table):
+    """(build, n_valid, probe): the probe kernel's inputs at q4's
+    LEFT-SEMI join, the late lineitem keys sorted and sentinel-padded."""
+    commit_c = lineitem.column(L12_COMMITDATE)
+    receipt_c = lineitem.column(L12_RECEIPTDATE)
+    late = commit_c.valid_mask() & receipt_c.valid_mask() \
+        & (commit_c.data < receipt_c.data)
+    key = lineitem.column(L12_ORDERKEY)
+    build, n_valid, _ = _sorted_valid_keys(key.data, key.valid_mask() & late)
+    return build, n_valid, orders.column(O4_ORDERKEY).data
+
+
+def tpch_q4_numpy(orders: Table, lineitem: Table,
+                  qtr_start: int = _Q4_QTR_START,
+                  qtr_end: int = _Q4_QTR_END) -> dict:
+    """Host oracle, loops over both tables: {priority: order count}."""
+    late_keys = set()
+    lkey = _host(lineitem, L12_ORDERKEY).tolist()
+    commit = _host(lineitem, L12_COMMITDATE).tolist()
+    receipt = _host(lineitem, L12_RECEIPTDATE).tolist()
+    for i in range(lineitem.num_rows):
+        if commit[i] < receipt[i]:
+            late_keys.add(lkey[i])
+    out: dict = {}
+    okey = _host(orders, O4_ORDERKEY).tolist()
+    odate = _host(orders, O4_ORDERDATE).tolist()
+    prio = orders.column(O4_ORDERPRIORITY).to_pylist()
+    for i in range(orders.num_rows):
+        if not qtr_start <= odate[i] < qtr_end:
+            continue
+        if okey[i] in late_keys:
+            out[prio[i]] = out.get(prio[i], 0) + 1
+    return out
+
+
+def tpch_q4_oracle(orders: Table, lineitem: Table,
+                   qtr_start: int = _Q4_QTR_START,
+                   qtr_end: int = _Q4_QTR_END) -> dict:
+    """``tpch_q4_numpy`` vectorized: {priority: order count}."""
+    late = _host(lineitem, L12_COMMITDATE) < _host(lineitem,
+                                                   L12_RECEIPTDATE)
+    odate = _host(orders, O4_ORDERDATE)
+    ok = (odate >= qtr_start) & (odate < qtr_end) & np.isin(
+        _host(orders, O4_ORDERKEY), _host(lineitem, L12_ORDERKEY)[late])
+    lens, mat, valid = _host_strings(orders.column(O4_ORDERPRIORITY), ok)
+    out: dict = {}
+    if valid.any():
+        rows = np.concatenate([lens[valid, None].view(np.uint8).reshape(
+            -1, 4), mat[valid]], 1)
+        uniq, counts = np.unique(rows, axis=0, return_counts=True)
+        for r, c in zip(uniq, counts):
+            n = int(r[:4].view(np.int32)[0])
+            out[r[4:4 + n].tobytes().decode()] = int(c)
+    if not valid.all():
+        out[None] = int((~valid).sum())
+    return out

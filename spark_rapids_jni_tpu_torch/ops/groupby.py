@@ -1,5 +1,5 @@
-"""Groupby-aggregate (counterpart of ``spark_rapids_jni_tpu/ops/groupby.py``,
-fixed-width part).
+"""Groupby-aggregate (counterpart of ``spark_rapids_jni_tpu/ops/groupby.py``:
+fixed-width aggregates; fixed-width and STRING keys).
 
 Two plans:
 
@@ -35,6 +35,10 @@ from spark_rapids_jni_tpu_torch.ops.sort import (
     int64_value,
     order_key,
     sort_order,
+)
+from spark_rapids_jni_tpu_torch.ops.strings import (
+    gather_strings,
+    strings_equal_prev,
 )
 from spark_rapids_jni_tpu_torch.types import DType, TypeId
 
@@ -167,9 +171,10 @@ def dense_gid(table: Table, keys, key_domains, m: int,
     domain_miss = torch.zeros((), dtype=torch.bool, device=device)
     for k, dom in zip(keys, key_domains):
         c = table.column(k)
-        if c.dtype.is_decimal128:
+        if c.dtype.is_decimal128 or c.dtype.is_string:
             raise NotImplementedError(
-                "bounded-domain keys are fixed-width scalars")
+                "bounded-domain keys are fixed-width scalars (string keys "
+                "are dictionary-encoded by plan_groupby first)")
         data = _ordered(c.data)
         dom_arr = torch.tensor(sorted(dom), dtype=data.dtype, device=device)
         valid = c.valid_mask()
@@ -223,6 +228,10 @@ def groupby_aggregate_bounded(
             raise NotImplementedError(
                 "DECIMAL128 aggregation is not supported yet (limb-pair "
                 "arithmetic); cast to DECIMAL64 first if the values fit")
+        if dt.is_string and op != "count":
+            raise NotImplementedError(
+                f"bounded {op} of a STRING column is not ported yet "
+                f"(ROADMAP.md Queue 1 entry 3)")
     _, m, slot_codes, order = bounded_group_layout(
         [len(d) for d in key_domains])
     gid, domain_miss = dense_gid(table, keys, key_domains, m, row_valid)
@@ -334,6 +343,8 @@ class GroupByResult(NamedTuple):
 def _col_values_equal_prev(c: Column) -> torch.Tensor:
     """bool[n-1]: row i+1's value equals row i's (validity ignored; NaNs
     compare equal, the grouping convention)."""
+    if c.dtype.is_string:
+        return strings_equal_prev(c)
     if c.dtype.is_decimal128:
         return (c.data[1:] == c.data[:-1]).all(dim=-1)
     d = _indexable(c.data)
@@ -380,18 +391,29 @@ def _gather_group_keys(sorted_tbl: Table, keys: Sequence[int],
                        first_idx: torch.Tensor, m: int,
                        n: int) -> list[Column]:
     """One output row per group: each key column at its group's first
-    sorted row (absent groups have first_idx == n and a null key)."""
+    sorted row (absent groups have first_idx == n and a null key). String
+    keys come back padded."""
     out: list[Column] = []
     for k in keys:
         c = sorted_tbl.column(k)
+        if n == 0 and c.dtype.is_string:
+            out.append(Column(
+                c.dtype, torch.zeros((m,), dtype=torch.int32, device=c.device),
+                torch.zeros((m,), dtype=torch.bool, device=c.device),
+                chars=torch.zeros((m, 1), dtype=torch.uint8, device=c.device)))
+            continue
         if n == 0:
             out.append(Column(
                 c.dtype, zeros((m, *c.data.shape[1:]), c.data.dtype, c.device),
                 torch.zeros((m,), dtype=torch.bool, device=c.device)))
             continue
         safe = first_idx.clamp(0, n - 1)
-        out.append(Column(c.dtype, take(c.data, safe),
-                          c.valid_mask()[safe] & (first_idx < n)))
+        valid = c.valid_mask()[safe] & (first_idx < n)
+        if c.dtype.is_string:
+            g = gather_strings(c, safe)
+            out.append(Column(c.dtype, g.data, valid, chars=g.chars))
+        else:
+            out.append(Column(c.dtype, take(c.data, safe), valid))
     return out
 
 
@@ -461,6 +483,10 @@ def _check_aggs(table: Table, aggs) -> None:
             raise NotImplementedError(
                 f"DECIMAL128 {op} is not ported yet (limb-pair arithmetic, "
                 f"ROADMAP.md Queue 1 item 6)")
+        if table.column(col_idx).dtype.is_string and op != "count":
+            raise NotImplementedError(
+                f"{op} of a STRING column is not ported yet (ROADMAP.md "
+                f"Queue 1 entry 3)")
 
 
 def groupby_aggregate(

@@ -1,5 +1,4 @@
-"""Equi-join (counterpart of ``spark_rapids_jni_tpu/ops/join.py``,
-fixed-width keys).
+"""Equi-join (counterpart of ``spark_rapids_jni_tpu/ops/join.py``).
 
 A sort + binary-search join, as in the reference: sort the build side
 once (nulls banished past the valid prefix, which is then overwritten
@@ -10,10 +9,11 @@ row, match ordinal) with a search over the offsets. The caller supplies
 ``out_size`` (capacity) and gets gather maps plus the true match count.
 SQL semantics: a NULL in any key column matches nothing.
 
-Multi-column, float and DECIMAL128 keys are exact, not hashed: both
-sides' key tuples are dense-rank encoded over their union (one sort of
-the concatenated keys), and the join runs on the int32 ranks. String
-keys are not ported yet (ROADMAP.md Queue 1 item 10).
+Multi-column, float, DECIMAL128 and STRING keys are exact, not hashed:
+both sides' key tuples are dense-rank encoded over their union (one sort
+of the concatenated keys; string keys padded to one width first), and
+the join runs on the int32 ranks. String payload columns come back in
+the padded layout.
 
 Indices are int64 (torch's index type; the reference's are int32), and
 index values on rows with ``row_valid`` False are unspecified.
@@ -41,6 +41,11 @@ from spark_rapids_jni_tpu_torch.ops.sort import (
     gather,
     lexsort,
     sort_order,
+)
+from spark_rapids_jni_tpu_torch.ops.strings import (
+    gather_strings,
+    pad_strings,
+    pad_to_common_width,
 )
 
 _JOIN_TYPES = ("inner", "left", "left_semi", "left_anti", "right", "full")
@@ -175,6 +180,13 @@ def _join_maps_impl(
 def _concat_key_columns(lc: Column, rc: Column) -> Column:
     """One key column from both tables stacked (left rows first), for the
     union rank encoding."""
+    if lc.dtype.is_string != rc.dtype.is_string:
+        raise TypeError("join key types must match (string vs non-string)")
+    validity = torch.cat([lc.valid_mask(), rc.valid_mask()])
+    if lc.dtype.is_string:
+        lp, rp = pad_to_common_width([lc, rc])
+        return Column(lc.dtype, torch.cat([lp.data, rp.data]), validity,
+                      chars=torch.cat([lp.chars, rp.chars]))
     if lc.dtype.is_decimal or rc.dtype.is_decimal:
         # unscaled storage comparison is only sound at equal scales
         if lc.dtype != rc.dtype:
@@ -183,8 +195,7 @@ def _concat_key_columns(lc: Column, rc: Column) -> Column:
                 f"{lc.dtype} vs {rc.dtype} (rescale first)")
     elif lc.dtype.storage_dtype != rc.dtype.storage_dtype:
         raise TypeError("join key storage types must match")
-    return Column(lc.dtype, cat([lc.data, rc.data]),
-                  torch.cat([lc.valid_mask(), rc.valid_mask()]))
+    return Column(lc.dtype, cat([lc.data, rc.data]), validity)
 
 
 def rank_encode_keys(
@@ -272,6 +283,15 @@ def join(
 
 def _gather_out(c: Column, idx: torch.Tensor,
                 validity: torch.Tensor) -> Column:
+    if c.dtype.is_string:
+        p = pad_strings(c)
+        if c.size == 0:  # an empty build: zero lengths and bytes
+            return Column(c.dtype, torch.zeros(
+                idx.shape, dtype=torch.int32, device=c.device), validity,
+                chars=torch.zeros((idx.shape[0], p.chars.shape[1]),
+                                  dtype=torch.uint8, device=c.device))
+        g = gather_strings(p, idx)
+        return Column(c.dtype, g.data, validity, chars=g.chars)
     if c.size == 0:
         data = zeros((idx.shape[0], *c.data.shape[1:]), c.data.dtype,
                      c.device)
@@ -284,7 +304,7 @@ def apply_join_maps(left: Table, right: Table, maps: JoinMaps) -> Table:
     """Materialize the joined table: left columns then right columns.
     Padding rows carry validity False everywhere; unmatched right sides
     (left/full join) and unmatched left sides (right/full join) are
-    null."""
+    null. String columns come back padded."""
     cols: list[Column] = []
     for c in left.columns:
         validity = (_at(c.valid_mask(), maps.left_index) & maps.left_valid

@@ -6,8 +6,10 @@
   ``plan_groupby`` lowers the groupby to ``groupby_aggregate_bounded``:
   no sort, no gather, one streaming pass. ``domain_miss`` is the runtime
   escape hatch: out-of-domain data must re-plan, it is never silently
-  dropped. The general sort-based lowering of ``plan_groupby`` is not
-  ported yet (ROADMAP.md Queue 1 item 6).
+  dropped. String keys are dictionary-encoded on the device against
+  their domain (``encode_string_key``) and decoded back to static
+  strings at the output. The general sort-based lowering of
+  ``plan_groupby`` is not ported yet (ROADMAP.md Queue 1 entry 3).
 - Dense primary-key join (``dense_pk_join``): a LEFT join against a
   build side whose keys are declared unique in [key_lo, key_hi] — a
   gather (clustered) or one sort plus a search, never the join kernel.
@@ -25,20 +27,32 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.columnar.column import take, zeros
-from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate_bounded
-from spark_rapids_jni_tpu_torch.ops.sort import gather, int64_value
+from spark_rapids_jni_tpu_torch.ops.groupby import (
+    bounded_group_layout,
+    bounded_lanes,
+    dense_gid,
+    groupby_aggregate_bounded,
+)
+from spark_rapids_jni_tpu_torch.ops.sort import (
+    gather,
+    int64_value,
+    order_key,
+)
+from spark_rapids_jni_tpu_torch.ops.strings import pad_strings, static_strings
 
 
 class Domain(NamedTuple):
-    """Planner-declared candidate values for one groupby key column,
-    kept sorted so the group output order is ORDER BY ... NULLS LAST.
-    ``source`` is provenance ("ddl", "dictionary", ...), never branched
-    on."""
+    """Planner-declared candidate values for one groupby key column:
+    storage scalars for fixed-width keys, ``str`` for string keys, kept
+    sorted so the group output order is ORDER BY ... NULLS LAST.
+    ``source`` is provenance ("ddl", "dictionary", "observed", ...),
+    never branched on."""
 
     values: tuple
-    kind: str  # "scalar" (the only kind ported so far)
+    kind: str  # "scalar" | "string"
     source: str
 
 
@@ -47,6 +61,106 @@ def scalar_domain(values: Sequence, source: str = "ddl") -> Domain:
     if not vals:
         raise ValueError("empty domain")
     return Domain(vals, "scalar", source)
+
+
+def string_domain(values: Sequence[str], source: str = "ddl") -> Domain:
+    """A string key's domain, sorted byte-wise: the collation of the
+    string sort keys, so the bounded output order is the one
+    ``sort_table`` gives."""
+    vals = tuple(sorted(set(values), key=lambda v: v.encode()))
+    if not vals:
+        raise ValueError("empty domain")
+    return Domain(vals, "string", source)
+
+
+_OBSERVED_DEFAULT_CAP = 1024
+
+
+def observed_domain(col: Column, max_size: int = _OBSERVED_DEFAULT_CAP,
+                    source: str = "observed") -> Domain | None:
+    """Planning-time statistics: the column's distinct non-null values,
+    read on the host, or None when there are more than ``max_size`` of
+    them (or none) and the key is not boundable."""
+    if col.dtype.is_string:
+        vals = sorted({v for v in col.to_pylist() if v is not None},
+                      key=lambda v: v.encode())
+        if len(vals) > max_size:
+            return None
+        return Domain(tuple(vals), "string", source) if vals else None
+    if col.dtype.is_decimal128:
+        return None
+    data, valid = col.to_numpy()
+    if valid is not None:
+        data = data[valid]
+    vals = np.unique(data)
+    if vals.size > max_size or vals.size == 0:
+        return None
+    return Domain(tuple(int(v) for v in vals), "scalar", source)
+
+
+def encode_string_key(col: Column, domain: Domain) -> Column:
+    """Dictionary-encode a string key against its declared domain on the
+    device: one compare of the padded bytes per domain value. The code
+    is the value's index in the sorted domain; a row outside the domain
+    gets ``len(domain)`` (a ``domain_miss`` in the bounded groupby); null
+    rows stay null. As in the reference, the compare covers the whole
+    zero-padded row and not its length, so a row that is a domain value
+    followed by NUL bytes takes that value's code."""
+    if domain.kind != "string":
+        raise ValueError("encode_string_key needs a string domain")
+    col = pad_strings(col)
+    n, w = int(col.chars.shape[0]), int(col.chars.shape[1])
+    k = len(domain.values)
+    code = torch.full((n,), k, dtype=torch.int32, device=col.device)
+    for idx, v in enumerate(domain.values):
+        b = v.encode()
+        if len(b) > w:
+            continue  # longer than every row: cannot match
+        target = np.zeros((w,), np.uint8)
+        target[:len(b)] = np.frombuffer(b, np.uint8)
+        hit = (col.chars == torch.from_numpy(target).to(col.device)).all(1)
+        code = torch.where(hit, idx, code)
+    return Column(t.INT32, code, col.validity)
+
+
+def _decode_string_key(dom: Domain, codes: np.ndarray, order: np.ndarray,
+                       present: torch.Tensor) -> Column:
+    """The bounded output's string key column, built on the host from the
+    static layout: slot i holds the domain value of code
+    ``codes[order[i]]`` (null past the domain)."""
+    vals = [dom.values[c] if c < len(dom.values) else None
+            for c in codes[order]]
+    lens, mat = static_strings(vals, present.device)
+    valid = torch.tensor([v is not None for v in vals], device=present.device)
+    return Column(t.STRING, lens, valid & present, chars=mat)
+
+
+def _encode_keys(table: Table, keys, domains):
+    """The bounded plan's input: string keys replaced by their domain
+    codes. Returns (table, per-key domain values, {key position: string
+    Domain})."""
+    work_cols = list(table.columns)
+    key_domains: list[Sequence[int]] = []
+    strings: dict[int, Domain] = {}
+    for pos, (k, dom) in enumerate(zip(keys, domains)):
+        if dom.kind == "string":
+            work_cols[k] = encode_string_key(table.column(k), dom)
+            key_domains.append(tuple(range(len(dom.values))))
+            strings[pos] = dom
+        else:
+            key_domains.append(dom.values)
+    return Table(work_cols), key_domains, strings
+
+
+def bounded_accumulate_inputs(table: Table, keys, aggs, domains,
+                              row_valid: Optional[torch.Tensor] = None):
+    """(gid, lanes, m): the accumulate kernel's inputs in the bounded plan
+    ``plan_groupby`` lowers this groupby to, for timing and checking the
+    kernel alone."""
+    work, key_domains, _ = _encode_keys(table, keys, domains)
+    _, m, _, _ = bounded_group_layout([len(d) for d in key_domains])
+    gid, _ = dense_gid(work, keys, key_domains, m, row_valid)
+    return gid, bounded_lanes(work, aggs).lanes, m
 
 
 class PlannedGroupBy(NamedTuple):
@@ -72,9 +186,11 @@ def plan_groupby(
     row_valid: Optional[torch.Tensor] = None,
 ) -> PlannedGroupBy:
     """Lower a groupby to the sort-free bounded plan when the planner can
-    bound every key: each key has a scalar ``Domain``, the slot count
+    bound every key: each key has a ``Domain``, the slot count
     ``prod(len(d)+1)`` fits ``budget`` and every agg is in the
-    single-pass set (sum/count/mean/min/max).
+    single-pass set (sum/count/mean/min/max). String keys are encoded to
+    dense codes on the device and decoded to static strings at the
+    output.
 
     ``row_valid``: bool[n] marking rows that EXIST; non-rows join no
     slot."""
@@ -90,15 +206,33 @@ def plan_groupby(
         raise NotImplementedError(
             "plan_groupby: the general sort-based lowering is not ported "
             "yet (ROADMAP.md Queue 1 item 6: sort and general groupby)")
-    if any(d.kind != "scalar" for d in domains):
-        raise NotImplementedError(
-            "plan_groupby: string-key domains are not ported yet "
-            "(ROADMAP.md Queue 1 item 10: strings)")
+    work, key_domains, strings = _encode_keys(table, keys, domains)
     res = groupby_aggregate_bounded(
-        table, keys=list(keys), aggs=list(aggs),
-        key_domains=[d.values for d in domains], row_valid=row_valid)
-    return PlannedGroupBy(res.table, res.present, res.domain_miss,
+        work, keys=list(keys), aggs=list(aggs), key_domains=key_domains,
+        row_valid=row_valid)
+    out_cols = list(res.table.columns)
+    if strings:
+        _, _, codes, order = bounded_group_layout(
+            [len(d) for d in key_domains])
+        for pos, dom in strings.items():
+            out_cols[pos] = _decode_string_key(dom, codes[:, pos], order,
+                                               res.present)
+    return PlannedGroupBy(Table(out_cols), res.present, res.domain_miss,
                           "bounded")
+
+
+_INT64_MAX = (1 << 63) - 1
+
+
+def _key_image(v: int, np_dt: np.dtype) -> int:
+    """A Python key bound in ``order_key``'s image of ``np_dt``; a bound
+    outside the dtype raises OverflowError, as numpy's scalar conversion
+    does in the reference."""
+    info = np.iinfo(np_dt)
+    if not info.min <= v <= info.max:
+        raise OverflowError(
+            f"Python integer {v} out of bounds for {np_dt.name}")
+    return v - (1 << 63) if np_dt == np.uint64 else v
 
 
 class DensePkJoinResult(NamedTuple):
@@ -136,7 +270,9 @@ def dense_pk_join(
       ``pk_violation``.
 
     Build rows with null keys are filtered rows: probes pointing at them
-    are unmatched, not violations."""
+    are unmatched, not violations. Keys compare in their order image
+    (``order_key``: uint64 with its sign bit flipped), so UINT64 keys
+    and ranges past 2^63 match by value."""
     nb = build.num_rows
     pk = probe.column(probe_key)
     bk = build.column(build_key)
@@ -145,13 +281,25 @@ def dense_pk_join(
             or bk.dtype.storage_dtype.kind not in ("i", "u"):
         raise NotImplementedError(
             "dense PK keys are integers (dictionary-encode first)")
-    pdata = int64_value(pk.data)
-    in_range = pk.valid_mask() & (pdata >= key_lo) & (pdata <= key_hi)
+    p_dt, b_dt = pk.dtype.storage_dtype, bk.dtype.storage_dtype
+    if (p_dt == np.uint64) != (b_dt == np.uint64) and min(
+            np.iinfo(p_dt).min, np.iinfo(b_dt).min) < 0:
+        raise TypeError("dense PK keys: uint64 and a signed key dtype "
+                        "have no common exact order")
+    pimg = order_key(pk.data)
+    plo, phi = _key_image(key_lo, p_dt), _key_image(key_hi, p_dt)
+    in_range = pk.valid_mask() & (pimg >= plo) & (pimg <= phi)
     if clustered:
         if key_hi - key_lo + 1 != nb:
             raise ValueError(
                 f"clustered dense PK needs build rows == key range "
                 f"({nb} != {key_hi - key_lo + 1})")
+        if key_hi > _INT64_MAX:
+            # as in the reference, whose int64 offsets overflow here
+            raise OverflowError(
+                f"clustered dense PK range [{key_lo}, {key_hi}] passes "
+                f"int64's max")
+        pdata = int64_value(pk.data)
         pos = (pdata - key_lo).clamp(0, max(nb - 1, 0))
         bkey_at = int64_value(take(bk.data, pos))
         bvalid_at = bk.valid_mask()[pos]
@@ -161,38 +309,47 @@ def dense_pk_join(
         # null keys become the dtype max so the sorted keys are globally
         # monotone; a declared range reaching that max would collide
         bvalid = bk.valid_mask()
-        np_dt = bk.dtype.storage_dtype
-        dt_max = int(np.iinfo(np_dt).max)
+        dt_max = int(np.iinfo(b_dt).max)
         if key_hi >= dt_max:
             raise ValueError(
                 f"dense PK range [{key_lo}, {key_hi}] reaches "
-                f"iinfo({np_dt.name}).max, the null sentinel; widen the "
+                f"iinfo({b_dt.name}).max, the null sentinel; widen the "
                 f"key dtype or shrink the range")
-        bdata = int64_value(bk.data)
-        top = min(dt_max, (1 << 63) - 1)  # above every in-range key
-        skey, perm = torch.sort(torch.where(bvalid, bdata, top), stable=True)
+        bimg = order_key(bk.data)
+        top = _key_image(dt_max, b_dt)  # above every in-range key
+        skey, perm = torch.sort(torch.where(bvalid, bimg, top), stable=True)
         n_valid = bvalid.to(torch.int64).sum()
-        pos0 = torch.searchsorted(skey, pdata)
+        pos0 = torch.searchsorted(skey, pimg)
         safe = pos0.clamp(0, max(nb - 1, 0))
-        hit = (pos0 < n_valid) & (skey[safe] == pdata) if nb \
+        hit = (pos0 < n_valid) & (skey[safe] == pimg) if nb \
             else torch.zeros_like(in_range)
         pos = perm[safe] if nb else safe
         matched = in_range & hit
         dup = ((skey[1:] == skey[:-1]) & (
             torch.arange(1, nb, device=bk.device) < n_valid)).any()
-        oor = (bvalid & ((bdata < key_lo) | (bdata > key_hi))).any()
+        oor = (bvalid & ((bimg < _key_image(key_lo, b_dt))
+                         | (bimg > _key_image(key_hi, b_dt)))).any()
         pk_violation = dup | oor
     out_cols = list(probe.columns)
     if nb:
         gathered = gather(build, pos).columns
     else:
-        gathered = [Column(c.dtype, zeros(
-            (pos.shape[0], *c.data.shape[1:]), c.data.dtype, c.device))
-            for c in build.columns]
+        gathered = [_empty_rows(c, pos.shape[0]) for c in build.columns]
     for c in gathered:
-        out_cols.append(Column(c.dtype, c.data, c.valid_mask() & matched))
+        out_cols.append(Column(c.dtype, c.data, c.valid_mask() & matched,
+                               c.chars))
     return DensePkJoinResult(Table(out_cols), matched,
                              matched.to(torch.int64).sum(), pk_violation)
+
+
+def _empty_rows(c: Column, n: int) -> Column:
+    """``n`` zero rows of ``c``'s type (string columns padded)."""
+    if c.dtype.is_string:
+        w = int(pad_strings(c).chars.shape[1])
+        return Column(c.dtype, zeros((n,), torch.int32, c.device), None,
+                      zeros((n, w), torch.uint8, c.device))
+    return Column(c.dtype, zeros((n, *c.data.shape[1:]), c.data.dtype,
+                                 c.device))
 
 
 def _dense_ids(gid: torch.Tensor, m: int) -> torch.Tensor:

@@ -14,11 +14,12 @@ word of its own). The orders match the reference exactly:
 - float64 by value: -0.0 and 0.0 tie (input order kept), NaN is one
   value above +inf;
 - DECIMAL128 as the signed 128-bit integer of its (lo, hi) limbs;
+- STRING by memcmp of the bytes, then length (embedded NUL bytes
+  included): the length and one 32-bit big-endian word per 4 bytes of
+  the padded layout (``ops/strings.py::packed_sort_keys``);
 - a null's value key is a constant, and its null rank is the column's
   most significant key (``nulls_first`` picks the side);
 - rows with ``row_valid`` False sort after every real row.
-
-String keys are not ported yet (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ import torch
 
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.columnar.column import take
+from spark_rapids_jni_tpu_torch.ops.strings import (
+    gather_strings,
+    packed_sort_keys,
+)
 
 INT64_MIN = -(1 << 63)
 _LOW63 = (1 << 63) - 1
@@ -101,10 +106,8 @@ def _key_fields(col: Column, ascending: bool, nulls_first: bool) -> list[Field]:
     valid = col.valid_mask()
     if dtype.is_decimal128:
         value = [(col.data[:, 0] ^ INT64_MIN, 64), (col.data[:, 1], 64)]
-    elif not dtype.is_fixed_width:
-        raise NotImplementedError(
-            f"sort keys of type {dtype} are not ported yet (ROADMAP.md "
-            f"Queue 1 item 10: strings)")
+    elif dtype.is_string:
+        value = [(k, 32) for k in packed_sort_keys(col)]
     elif col.data.dtype == torch.float64:
         nan = torch.isnan(col.data)
         value = [(_float64_value_key(col.data, ascending), 64),
@@ -177,8 +180,9 @@ def sort_order(
 
 def gather(table: Table, indices: torch.Tensor) -> Table:
     """Row gather (the cuDF gather primitive); ``indices`` must be in
-    range."""
+    range. String columns come back padded."""
     return Table([
+        gather_strings(c, indices) if c.dtype.is_string else
         Column(c.dtype, take(c.data, indices),
                None if c.validity is None else c.validity[indices])
         for c in table.columns

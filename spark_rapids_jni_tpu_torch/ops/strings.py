@@ -1,0 +1,336 @@
+"""String columns in the relational core (counterpart of part of
+``spark_rapids_jni_tpu/ops/strings.py``): the two layouts and the
+conversions between them, sort keys and row equality, the row gather,
+and the search predicates (``contains``, ``starts_with``,
+``ends_with``, SQL ``like``).
+
+- Arrow layout (offsets int32[n+1], chars uint8[m]) at rest;
+- padded layout (lengths int32[n], chars uint8[n, W]) for relational
+  ops. W is the column's longest row unless the caller passes a width.
+  Every op here is a dense pass over the (n, W) matrix.
+
+``pad_strings`` without ``width=`` reads the offsets to the host for the
+longest row: on the card that is a device sync. The reference took it
+outside jit; the plans that pad inside a timed run keep it, since the
+padded width decides the null-slot bytes and the sort-key word count.
+
+Substring, case mapping, the regex functions and the string xxhash are
+not ported yet (ROADMAP.md Queue 1 entry 7).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spark_rapids_jni_tpu_torch.columnar import Column
+from spark_rapids_jni_tpu_torch.types import BOOL8, STRING
+
+
+# ---- layout -----------------------------------------------------------------
+
+def is_padded(col: Column) -> bool:
+    """True when a string column carries the padded (n, W) layout."""
+    return col.is_padded_string
+
+
+def max_string_width(col: Column) -> int:
+    """The longest row's byte length (0 for an all-empty column); for an
+    Arrow column a device-to-host read of the offsets."""
+    if is_padded(col):
+        return int(col.chars.shape[1])
+    offsets = col.data
+    if offsets.shape[0] <= 1:
+        return 0
+    return int((offsets[1:] - offsets[:-1]).max())
+
+
+def pad_strings(col: Column, width: int | None = None) -> Column:
+    """Arrow -> padded layout. ``width`` must be >= every row length
+    (default: the longest row, read on the host); it is at least 1.
+    Bytes past a row's length are zero."""
+    if is_padded(col):
+        return col
+    if width is None:
+        width = max_string_width(col)
+    width = max(int(width), 1)
+    offsets, chars = col.data, col.chars
+    n = int(offsets.shape[0]) - 1
+    dev = offsets.device
+    if n == 0 or int(chars.shape[0]) == 0:
+        return Column(STRING, torch.zeros((n,), dtype=torch.int32, device=dev),
+                      col.validity,
+                      chars=torch.zeros((n, width), dtype=torch.uint8,
+                                        device=dev))
+    starts = offsets[:-1]
+    lengths = offsets[1:] - starts
+    jdx = torch.arange(width, dtype=torch.int32, device=dev)
+    idx = (starts[:, None] + jdx[None, :]).clamp_(0, int(chars.shape[0]) - 1)
+    mat = chars[idx]
+    mat.masked_fill_(jdx[None, :] >= lengths[:, None], 0)
+    return Column(STRING, lengths, col.validity, chars=mat)
+
+
+def unpad_strings(col: Column) -> Column:
+    """Padded -> Arrow layout. The chars buffer has the static bound n*W
+    bytes; offsets[-1] is the true total and the slack bytes are zero."""
+    if not is_padded(col):
+        return col
+    lengths, mat = col.data, col.chars
+    n, width = int(mat.shape[0]), int(mat.shape[1])
+    dev = lengths.device
+    if n == 0:
+        return Column(STRING, torch.zeros((1,), dtype=torch.int32, device=dev),
+                      col.validity,
+                      chars=torch.zeros((0,), dtype=torch.uint8, device=dev))
+    offsets = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                         torch.cumsum(lengths, 0).to(torch.int32)])
+    # output byte c belongs to the row r with offsets[r] <= c <
+    # offsets[r+1]; its source is mat[r, c - offsets[r]]
+    c = torch.arange(max(n * width, 1), dtype=torch.int64, device=dev)
+    row = torch.searchsorted(offsets[1:].to(torch.int64), c, right=True)
+    row = row.clamp(0, n - 1)
+    src = (row * width + c - offsets[row]).clamp(0, n * width - 1)
+    chars = mat.reshape(-1)[src]
+    chars.masked_fill_(c >= offsets[-1], 0)
+    return Column(STRING, offsets, col.validity, chars=chars)
+
+
+def static_strings(values, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int32 lengths, uint8 (m, W) bytes) of a padded layout built on the
+    host from python strings (None: an empty row), W the longest row's
+    bytes (at least 1)."""
+    enc = [b"" if v is None else v.encode() for v in values]
+    mat = np.zeros((len(enc), max([len(b) for b in enc] + [1])), np.uint8)
+    for i, b in enumerate(enc):
+        mat[i, :len(b)] = np.frombuffer(b, np.uint8)
+    lens = np.asarray([len(b) for b in enc], np.int32)
+    return torch.from_numpy(lens).to(device), torch.from_numpy(mat).to(device)
+
+
+def pad_to_common_width(cols) -> list[Column]:
+    """Several string columns padded to one shared (the widest) width."""
+    ps = [pad_strings(c) for c in cols]
+    w = max(int(p.chars.shape[1]) for p in ps)
+    return [p if int(p.chars.shape[1]) == w else Column(
+        p.dtype, p.data, p.validity,
+        chars=torch.nn.functional.pad(p.chars, (0, w - p.chars.shape[1])))
+        for p in ps]
+
+
+def gather_strings(col: Column, indices: torch.Tensor) -> Column:
+    """Row gather of a string column (padded first), as the two-array
+    gather of a fixed-width column; ``indices`` must be in range."""
+    col = pad_strings(col)
+    validity = None if col.validity is None else col.validity[indices]
+    return Column(STRING, col.data[indices], validity,
+                  chars=col.chars[indices])
+
+
+# ---- sort keys and equality -------------------------------------------------
+
+def packed_sort_keys(col: Column) -> list[torch.Tensor]:
+    """Order-preserving keys of a string column, minor to major, each an
+    int64 tensor holding a 32-bit unsigned value: [length, word_k-1, ...,
+    word_0]. Word i packs bytes 4i..4i+3 big-endian, so comparing words
+    is memcmp on those bytes; zero padding ties equal prefixes and the
+    length breaks the tie (shorter first). That is memcmp-then-length
+    order, embedded NUL bytes included."""
+    col = pad_strings(col)
+    mat = col.chars
+    n_words = (int(mat.shape[1]) + 3) // 4
+    pad = n_words * 4 - int(mat.shape[1])
+    if pad:
+        mat = torch.nn.functional.pad(mat, (0, pad))
+    words = []
+    for i in range(n_words):
+        u = mat[:, 4 * i:4 * i + 4].to(torch.int64)
+        words.append((u[:, 0] << 24) | (u[:, 1] << 16) | (u[:, 2] << 8)
+                     | u[:, 3])
+    return [col.data.to(torch.int64)] + words[::-1]
+
+
+def strings_equal_prev(col: Column) -> torch.Tensor:
+    """bool[n-1]: row i+1's bytes equal row i's."""
+    col = pad_strings(col)
+    mat, lengths = col.chars, col.data
+    return (lengths[1:] == lengths[:-1]) & (mat[1:] == mat[:-1]).all(1)
+
+
+# ---- search predicates ------------------------------------------------------
+
+def _needle_windows(col: Column, needle: bytes) -> torch.Tensor:
+    """bool (n, W): position j starts a full match of ``needle``
+    (non-empty). A shifted byte that wrapped around the row is masked by
+    ``j + len(needle) <= length``."""
+    assert needle, "empty needles are the caller's fast path"
+    p = pad_strings(col)
+    mat, lengths = p.chars, p.data
+    w = int(mat.shape[1])
+    f = len(needle)
+    if f > w:
+        return torch.zeros((p.size, w), dtype=torch.bool, device=mat.device)
+    jdx = torch.arange(w, dtype=torch.int32, device=mat.device)
+    win = mat == needle[0]
+    for off in range(1, f):
+        win &= torch.roll(mat, -off, 1) == needle[off]
+    return win & (jdx[None, :] + f <= lengths[:, None])
+
+
+def _bool8_result(hit: torch.Tensor, col: Column) -> Column:
+    """BOOL8 predicate result; validity passes through (None stays
+    None)."""
+    return Column(BOOL8, hit.to(torch.uint8), col.validity)
+
+
+def _all_rows(col: Column) -> torch.Tensor:
+    return torch.ones((col.size,), dtype=torch.bool, device=col.data.device)
+
+
+def contains(col: Column, needle: str) -> Column:
+    """BOOL8: the row contains ``needle`` (an empty needle matches every
+    row). Null rows stay null."""
+    nb = needle.encode("utf-8")
+    hit = _needle_windows(col, nb).any(1) if nb else _all_rows(col)
+    return _bool8_result(hit, col)
+
+
+def starts_with(col: Column, prefix: str) -> Column:
+    nb = prefix.encode("utf-8")
+    hit = _needle_windows(col, nb)[:, 0] if nb else _all_rows(col)
+    return _bool8_result(hit, col)
+
+
+def ends_with(col: Column, suffix: str) -> Column:
+    nb = suffix.encode("utf-8")
+    p = pad_strings(col)
+    if not nb:
+        hit = _all_rows(col)
+    else:
+        win = _needle_windows(p, nb)
+        pos = (p.data - len(nb)).clamp(0, max(int(p.chars.shape[1]) - 1, 0))
+        hit = torch.gather(win, 1, pos[:, None].to(torch.int64))[:, 0]
+        hit = hit & (p.data >= len(nb))
+    return _bool8_result(hit, col)
+
+
+def _compile_like(pattern: str, escape: str):
+    """A LIKE pattern as literal segments, each with the gap before it
+    ((single-character count, saw '%')), and the gap after the last."""
+    esc = escape.encode("utf-8")
+    if len(esc) != 1:
+        raise ValueError("LIKE escape must be one byte")
+    segs: list[bytes] = []
+    gaps: list[tuple[int, bool]] = []
+    cur = bytearray()
+    pend_gap = [0, False]
+    pb = pattern.encode("utf-8")
+    i = 0
+    while i < len(pb):
+        c = pb[i:i + 1]
+        if c == esc:
+            # the escape must be followed by %, _ or itself (Spark's
+            # checkLikePattern); anything else is an invalid pattern
+            nxt = pb[i + 1:i + 2]
+            if not nxt or nxt not in (b"%", b"_", esc):
+                raise ValueError(
+                    f"invalid LIKE pattern {pattern!r}: the escape "
+                    f"character must be followed by '%', '_', or the "
+                    f"escape character itself")
+            cur += nxt
+            i += 2
+            continue
+        if c in (b"%", b"_"):
+            if cur:
+                segs.append(bytes(cur))
+                gaps.append(tuple(pend_gap))
+                cur = bytearray()
+                pend_gap = [0, False]
+            if c == b"%":
+                pend_gap[1] = True
+            else:
+                pend_gap[0] += 1
+            i += 1
+            continue
+        cur += c
+        i += 1
+    segs.append(bytes(cur))
+    gaps.append(tuple(pend_gap))
+    tail_gap = (0, False)
+    if not segs[-1] and len(segs) > 1:
+        tail_gap = gaps.pop()
+        segs.pop()
+    return segs, gaps, tail_gap
+
+
+def like(col: Column, pattern: str, escape: str = "\\") -> Column:
+    """SQL LIKE: '%' matches any run, '_' one CHARACTER, and the escape
+    character makes the next '%', '_' or escape literal. The pattern
+    compiles to literal segments, matched by window compares, with a
+    reachability scan per gap; no per-row loop.
+
+    '_' advances one UTF-8 character through character boundaries; '%'
+    and literals are byte-exact (a valid UTF-8 literal cannot start at a
+    continuation byte). In invalid UTF-8, continuation bytes (0x80-0xBF)
+    always extend the character before them, as in the reference."""
+    segs, gaps, tail_gap = _compile_like(pattern, escape)
+    p = pad_strings(col)
+    n = p.size
+    w = int(p.chars.shape[1])
+    dev = p.chars.device
+    lengths = p.data
+    jdx = torch.arange(w + 1, dtype=torch.int32, device=dev)
+
+    if any(g[0] for g in gaps) or tail_gap[0]:
+        # position j in [0, w] is a boundary iff j == 0, j == w or the
+        # byte at j is not a continuation byte; one '_' moves each
+        # reachable boundary to the next one (a gather of the previous
+        # boundary, whose running max is torch.cummax)
+        cont = (p.chars & 0xC0) == 0x80
+        ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        is_b = torch.cat([ones, ~cont[:, 1:], ones], 1)
+        pos_if_b = torch.where(is_b, jdx[None, :], -1)
+        pb_incl = torch.cummax(pos_if_b, 1).values
+        prev_b = torch.cat([torch.full((n, 1), -1, dtype=torch.int32,
+                                       device=dev), pb_incl[:, :-1]], 1)
+        prev_ok = is_b & (prev_b >= 0)
+        prev_idx = prev_b.clamp(0, w).to(torch.int64)
+
+        def advance_chars(r, k):
+            for _ in range(k):
+                r = prev_ok & torch.gather(r, 1, prev_idx)
+            return r
+    else:
+        def advance_chars(r, k):
+            return r
+
+    def or_scan(r):
+        return torch.cummax(r.to(torch.uint8), 1).values.bool()
+
+    within = jdx[None, :] <= lengths[:, None]
+    # reach[:, j]: the pattern consumed so far can end exactly at byte j
+    reach = torch.zeros((n, w + 1), dtype=torch.bool, device=dev)
+    reach[:, 0] = True
+    for seg, (mincnt, floating) in zip(segs, gaps):
+        if mincnt:
+            reach = advance_chars(reach, mincnt)
+        reach = reach & within
+        if floating:
+            reach = or_scan(reach)
+        if seg:
+            win = _needle_windows(p, seg)  # (n, w): a match starts at j
+            ok_start = torch.cat(
+                [win, torch.zeros((n, 1), dtype=torch.bool, device=dev)], 1)
+            # the roll's wrap-around lands below len(seg), masked here
+            moved = torch.roll(reach & ok_start, len(seg), 1)
+            reach = moved & (jdx[None, :] >= len(seg))
+    mincnt, floating = tail_gap
+    if mincnt:
+        reach = advance_chars(reach, mincnt)
+    reach = reach & within
+    if floating:
+        hit = reach.any(1)
+    else:
+        hit = torch.gather(reach, 1,
+                           lengths.clamp(0, w)[:, None].to(torch.int64))[:, 0]
+    return _bool8_result(hit, col)

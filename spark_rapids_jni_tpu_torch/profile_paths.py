@@ -6,7 +6,9 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``q1_fused``, ``to_rows``, ``q1_general``, ``q3``, ``q3_joins``,
 ``q3_groupby``, ``q3_order_by``, ``q3_planned``, ``tpcds_q72``,
 ``tpcds_q72_planned``, ``tpcds_q64``, ``tpcds_q64_planned``,
-``tpcds_q3``) select some of them.
+``tpcds_q3``, ``tpch_q12``, ``tpch_q12_planned``, ``tpch_q4``,
+``tpch_q4_planned``, ``tpch_q14``, ``tpch_q14_planned``, ``tpch_q5``,
+``tpch_q6``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -15,7 +17,9 @@ rows) as a whole, stage by stage (the joins, the groupby, the ORDER BY)
 and planned, then for the TPC-DS plans at scale factor 10 (store_sales
 28,800,991 rows, catalog_sales 14,401,261, item 102,000, customer
 500,000; the generators' 730-day date_dim and 10,710,000-row
-inventory), after a warm-up: the wall time per run (host clock around
+inventory), then for the string TPC-H plans and q6 at scale factor 10
+(lineitem 59,986,052 rows, orders 15,000,000, part 2,000,000, customer
+1,500,000, supplier 100,000), after a warm-up: the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
 share of the window (their summed device time over the window's wall
@@ -42,6 +46,7 @@ from spark_rapids_jni_tpu_torch.utils.platform import card_line
 ROOT = Path(__file__).resolve().parents[1]
 ROWS = 59_986_052  # TPC-H SF10 lineitem
 CUSTOMERS, ORDERS = 1_500_000, 15_000_000  # TPC-H SF10
+PARTS, SUPPLIERS = 2_000_000, 100_000  # TPC-H SF10
 # TPC-DS SF10: store_sales, catalog_sales, item, customer
 DS_STORE_SALES, DS_CATALOG_SALES = 28_800_991, 14_401_261
 DS_ITEMS, DS_CUSTOMERS = 102_000, 500_000
@@ -111,6 +116,8 @@ def main(only: list[str]) -> int:
         profile_q3(run)
     if wanted("tpcds"):
         profile_tpcds(run)
+    if wanted("tpch_"):
+        profile_strings(run)
     return 0
 
 
@@ -148,6 +155,29 @@ def profile_tpcds(run) -> None:
     q3 = (dd, tpcds.store_sales_q3_table(DS_STORE_SALES, num_items=DS_ITEMS),
           tpcds.item_q3_table(DS_ITEMS))
     run("tpcds_q3", lambda: tpcds.tpcds_q3(*q3))
+
+
+def profile_strings(run) -> None:
+    li = tpch.lineitem_q12_table(ROWS, ORDERS)
+    o12, o4 = tpch.orders_q12_table(ORDERS), tpch.orders_q4_table(ORDERS)
+    run("tpch_q12", lambda: tpch.tpch_q12(o12, li), Q3_REPS)
+    run("tpch_q12_planned", lambda: tpch.tpch_q12_planned(o12, li), Q3_REPS)
+    run("tpch_q4", lambda: tpch.tpch_q4(o4, li), Q3_REPS)
+    run("tpch_q4_planned", lambda: tpch.tpch_q4_planned(o4, li), Q3_REPS)
+    del li, o12, o4
+    part = tpch.part_table(PARTS)
+    li = tpch.lineitem_q14_table(ROWS, PARTS)
+    run("tpch_q14", lambda: tpch.tpch_q14(part, li), Q3_REPS)
+    run("tpch_q14_planned", lambda: tpch.tpch_q14_planned(part, li))
+    del part, li
+    q5 = (tpch.customer_q5_table(CUSTOMERS),
+          tpch.orders_table(ORDERS, CUSTOMERS),
+          tpch.lineitem_q5_table(ROWS, ORDERS, SUPPLIERS),
+          tpch.supplier_table(SUPPLIERS), tpch.nation_table())
+    run("tpch_q5", lambda: tpch.tpch_q5(*q5))
+    del q5
+    li = tpch.lineitem_table(ROWS, seed=0)
+    run("tpch_q6", lambda: tpch.tpch_q6(li))
 
 
 if __name__ == "__main__":

@@ -201,6 +201,7 @@ BOOL8 = DType(TypeId.BOOL8)
 TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
 TIMESTAMP_MICROSECONDS = DType(TypeId.TIMESTAMP_MICROSECONDS)
 DURATION_DAYS = DType(TypeId.DURATION_DAYS)
+STRING = DType(TypeId.STRING)
 
 
 def decimal32(scale: int) -> DType:

@@ -16,13 +16,14 @@ import torch
 
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
+from spark_rapids_jni_tpu_torch.columnar.column import string_column
 from spark_rapids_jni_tpu_torch.models import tpcds, tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.groupby import (
     groupby_aggregate,
     groupby_aggregate_bounded,
 )
-from spark_rapids_jni_tpu_torch.ops.join import join
+from spark_rapids_jni_tpu_torch.ops.join import apply_join_maps, join
 from spark_rapids_jni_tpu_torch.ops.kernels import (
     groupby_accumulate as kga,
     hash_probe as khp,
@@ -30,6 +31,7 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (
     row_transpose as krt,
 )
 from spark_rapids_jni_tpu_torch.ops.sort import sort_order
+from spark_rapids_jni_tpu_torch.ops.strings import like
 from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     compute_fixed_width_layout,
     convert_from_rows,
@@ -535,4 +537,129 @@ def test_probe_kernel_at_q64_self_join(dev):
     s = int(n_valid)
     assert 0.4 < s / build.shape[0] < 0.6
     assert int(build[:s].unique().numel()) < s // 10
+    _probe_kernel_equal(build, probe)
+
+
+_VOCAB = ["", "a", "ab", "MAIL", "MAIL\x00", "SHIP", "\u00e9", "\u65e5\u672c",
+          "PROMO PLATED BRASS", "a\x00b", "\U0001F600x", "zzzzzzzzzzzz"]
+
+
+def _string_table(n, device, seed):
+    """[a STRING key with nulls, an int32 key, an int64 value]."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(_VOCAB), n)
+    valid = rng.random(n) > 0.2
+    return Table([
+        string_column([_VOCAB[i] if v else None for i, v in zip(idx, valid)],
+                      device=device),
+        Column.from_numpy(rng.integers(0, 3, n).astype(np.int32),
+                          device=device),
+        Column.from_numpy(rng.integers(-10**6, 10**6, n), device=device)])
+
+
+def test_strings_on_the_card_match_cpu(dev):
+    # LIKE, the string sort, the string-key groupby and a join on string
+    # keys on CUDA tensors, against the same calls on the CPU
+    n = 2049
+    card, cpu = _string_table(n, dev, 3), _string_table(n, "cpu", 3)
+    for pattern in ("%", "MAIL", "MAIL%", "_", "%\u00e9%", "a_b", "%_%b",
+                    "PROMO%", "\U0001F600_"):
+        assert like(card.column(0), pattern).equals(
+            like(cpu.column(0), pattern)), pattern
+    for asc in (True, False):
+        assert torch.equal(
+            sort_order(card, [0, 1], [asc, True], [False, True]).cpu(),
+            sort_order(cpu, [0, 1], [asc, True], [False, True]))
+    aggs = [(2, "sum"), (2, "count"), (0, "count")]
+    got = groupby_aggregate(card, [0, 1], aggs)
+    want = groupby_aggregate(cpu, [0, 1], aggs)
+    assert int(got.num_groups) == int(want.num_groups)
+    assert got.compact().equals(want.compact())
+    small = _string_table(300, dev, 4)
+    kernels.reset_counts()
+    maps = join(card, small, [0], [0], 64 * n, how="inner")
+    torch.cuda.synchronize()
+    assert kernels.launches() == {khp.NAME: 1}
+    small_cpu = _string_table(300, "cpu", 4)
+    ref = join(cpu, small_cpu, [0], [0], 64 * n, how="inner")
+    assert int(maps.total) == int(ref.total) <= 64 * n
+    assert apply_join_maps(card, small, maps).equals(
+        apply_join_maps(cpu, small_cpu, ref))
+
+
+def _tpch_string_tables(device):
+    """Small tables of the string TPC-H plans and q6."""
+    li12 = tpch.lineitem_q12_table(40000, 3000, device=device)
+    part = tpch.part_table(1000, device=device)
+    return dict(
+        q12=(tpch.orders_q12_table(3000, device=device), li12),
+        q4=(tpch.orders_q4_table(3000, device=device), li12),
+        q14=(part, tpch.lineitem_q14_table(40000, 1000, device=device)),
+        q5=(tpch.customer_q5_table(300, device=device),
+            tpch.orders_table(3000, 300, device=device),
+            tpch.lineitem_q5_table(40000, 3000, 100, device=device),
+            tpch.supplier_table(100, device=device),
+            tpch.nation_table(device=device)),
+        q6=(tpch.lineitem_table(40000, device=device),))
+
+
+def _tpch_result(res):
+    """A plan's result as (tables, scalars), tables on their device."""
+    if isinstance(res, Column):  # q6
+        return [Table([res])], []
+    if hasattr(res, "result"):  # general q12, q4
+        return [res.result.compact()], [int(res.join_total),
+                                        int(res.result.num_groups)]
+    if hasattr(res, "promo_revenue"):  # q14, planned q14
+        return [], [int(v) if v.dtype != torch.bool else bool(v)
+                    for v in res]
+    # planned q12, q4 and q5
+    return [res.table], [res.present.tolist(), bool(res.domain_miss)] + (
+        [bool(res.pk_violation)] if hasattr(res, "pk_violation") else [])
+
+
+@pytest.mark.parametrize("plan,tables,want", [
+    ("tpch_q12", "q12", {khp.NAME: 1}),
+    ("tpch_q12_planned_result", "q12", {khp.NAME: 1, kga.NAME: 1}),
+    ("tpch_q4", "q4", {khp.NAME: 1}),
+    ("tpch_q4_planned_result", "q4", {khp.NAME: 1, kga.NAME: 1}),
+    ("tpch_q14", "q14", {khp.NAME: 1}),
+    ("tpch_q14_planned", "q14", {}),
+    ("tpch_q5", "q5", {kga.NAME: 1}),
+    ("tpch_q6", "q6", {})])
+def test_string_tpch_plans_launch_their_kernels(dev, plan, tables, want):
+    # D once per general join, A once per bounded groupby, nothing else;
+    # the card's result equals the CPU's
+    card = _tpch_string_tables(dev)[tables]
+    cpu = _tpch_string_tables("cpu")[tables]
+    kernels.reset_counts()
+    got = getattr(tpch, plan)(*card)
+    torch.cuda.synchronize()
+    assert kernels.launches() == want
+    assert kernels.fallbacks() == {}
+    got_tables, got_scalars = _tpch_result(got)
+    want_tables, want_scalars = _tpch_result(getattr(tpch, plan)(*cpu))
+    assert got_scalars == want_scalars
+    for a, b in zip(got_tables, want_tables):
+        assert a.equals(b)
+
+
+def test_accumulate_kernel_at_q5_ids(dev):
+    # the m > 16 side (m = 26) on q5's real nation ids
+    gid, lanes, m = tpch.q5_accumulate_inputs(*_tpch_string_tables(dev)["q5"])
+    assert m == 26 and int(gid.max()) <= m
+    got = kga._accumulate_cuda(gid, lanes, m)
+    want = kga.accumulate_plain(gid, lanes, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_probe_kernel_at_q4_semi_join(dev):
+    # q4's LEFT-SEMI build: every lineitem slot, about 2/3 of them late
+    # (valid), each order key on about 13 lineitem rows
+    build, n_valid, probe = tpch.q4_probe_inputs(
+        *_tpch_string_tables(dev)["q4"])
+    s = int(n_valid)
+    assert 0.55 < s / build.shape[0] < 0.75
+    assert int(build[:s].unique().numel()) < s // 4
     _probe_kernel_equal(build, probe)

@@ -274,3 +274,75 @@ def test_dense_pk_join_matches_reference(clustered, broken):
     np.testing.assert_array_equal(got.matched.numpy(),
                                   np.asarray(want.matched))
     assert_joined_match(got.table, want.table)
+
+
+@pytest.mark.parametrize("key_hi,matched,violation", [
+    (2**63 + 100, [True, True, False, False, False], True),  # 2^64-3 oor
+    (2**64 - 2, [True, True, False, True, False], False)])
+def test_uint64_dense_pk_join_past_2_63_matches_reference(key_hi, matched,
+                                                          violation):
+    """Sorted mode with UINT64 keys and ranges past 2^63: the keys compare
+    in their order image, so they match by value, as in the reference."""
+    from spark_rapids_jni_tpu.ops import planner as jplanner
+    from spark_rapids_jni_tpu_torch.ops import planner
+
+    u = int(T.UINT64)
+    build = [(u, 0, np.asarray([5, 2**63 + 7, 2**64 - 3, 2**63], np.uint64),
+              np.asarray([True, True, True, False])),
+             (u, 0, np.arange(4, dtype=np.uint64), None)]
+    probe = [(u, 0, np.asarray([2**63 + 7, 5, 2**63, 2**64 - 3, 6],
+                               np.uint64), None)]
+    jp, jb = jax_table(probe), jax_table(build)
+    want = jplanner.dense_pk_join(jp, jb, 0, 0, 0, key_hi)
+    got = planner.dense_pk_join(to_port(jp), to_port(jb), 0, 0, 0, key_hi)
+    np.testing.assert_array_equal(got.matched.numpy(),
+                                  np.asarray(want.matched))
+    assert got.matched.tolist() == matched
+    assert bool(got.pk_violation) == bool(want.pk_violation) == violation
+    assert int(got.total) == int(want.total)
+    assert_joined_match(got.table, want.table)
+
+
+def test_dense_pk_join_bounds_outside_the_key_dtype_raise_as_reference():
+    from spark_rapids_jni_tpu.ops import planner as jplanner
+    from spark_rapids_jni_tpu_torch.ops import planner
+
+    u = int(T.UINT64)
+    keys = [(u, 0, np.asarray([2**63, 2**63 + 1], np.uint64), None)]
+    jt_ = jax_table(keys)
+    for lo, hi, clustered in ((-1, 2**63 + 100, False),
+                              (2**63, 2**63 + 1, True)):
+        with pytest.raises(OverflowError):
+            jplanner.dense_pk_join(jt_, jt_, 0, 0, lo, hi,
+                                   clustered=clustered)
+        with pytest.raises(OverflowError):
+            planner.dense_pk_join(to_port(jt_), to_port(jt_), 0, 0, lo, hi,
+                                  clustered=clustered)
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+@pytest.mark.parametrize("build_tid,probe_tid", [
+    (T.INT64, T.UINT64), (T.UINT64, T.INT64), (T.INT32, T.UINT64)])
+def test_dense_pk_join_uint64_against_signed_keys_raises(clustered,
+                                                         build_tid,
+                                                         probe_tid):
+    """UINT64 against a signed key dtype has no common exact 64-bit
+    order, so the port refuses the pair. The reference promotes both
+    sides to float64 and matches by value, exactly only below 2^53
+    (ROADMAP Queue 3); on these small keys it matches [3, 1, 0]."""
+    from spark_rapids_jni_tpu.ops import planner as jplanner
+    from spark_rapids_jni_tpu_torch.ops import planner
+
+    def keys(tid, vals):
+        np_dt = jt.DType(tid).storage_dtype
+        return (int(tid), 0, np.asarray(vals).astype(np_dt), None)
+
+    build = [keys(build_tid, [0, 1, 2, 3]),
+             (int(T.INT64), 0, np.arange(4, dtype=np.int64), None)]
+    probe = [keys(probe_tid, [3, 1, 0])]
+    jp, jb = jax_table(probe), jax_table(build)
+    want = jplanner.dense_pk_join(jp, jb, 0, 0, 0, 3, clustered=clustered)
+    assert np.asarray(want.matched).tolist() == [True, True, True]
+    with pytest.raises(TypeError, match="no common exact order"):
+        planner.dense_pk_join(to_port(jp), to_port(jb), 0, 0, 0, 3,
+                              clustered=clustered)

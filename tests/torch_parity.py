@@ -16,9 +16,12 @@ EDGE_ROWS = [1, 255, 256, 257, 2047, 2048, 2049]
 
 
 def host_columns(jtable) -> list:
-    """A JAX table as ``[(type_id, scale, data, validity), ...]``."""
+    """A JAX table as ``[(type_id, scale, data, validity), ...]``; a
+    STRING column's data is the pair (offsets or lengths, chars)."""
     return [
-        (int(c.dtype.type_id), int(c.dtype.scale), np.asarray(c.data),
+        (int(c.dtype.type_id), int(c.dtype.scale),
+         (np.asarray(c.data), np.asarray(c.chars)) if c.dtype.is_string
+         else np.asarray(c.data),
          None if c.validity is None else np.asarray(c.validity))
         for c in jtable.columns
     ]
@@ -35,11 +38,46 @@ def jax_table(columns):
     from spark_rapids_jni_tpu import types as jt
     from spark_rapids_jni_tpu.columnar import Column as JColumn, Table as JTable
 
-    return JTable([
-        JColumn(jt.DType(jt.TypeId(tid), scale), jnp.asarray(data),
-                None if valid is None else jnp.asarray(valid))
-        for tid, scale, data, valid in columns
-    ])
+    def column(tid, scale, data, valid):
+        dtype = jt.DType(jt.TypeId(tid), scale)
+        validity = None if valid is None else jnp.asarray(valid)
+        if dtype.is_string:
+            return JColumn(dtype, jnp.asarray(data[0]), validity,
+                           chars=jnp.asarray(data[1]))
+        return JColumn(dtype, jnp.asarray(data), validity)
+
+    return JTable([column(*c) for c in columns])
+
+
+def traced_reference(fn, *args):
+    """``fn(*args)`` of the JAX package traced into one XLA program: the
+    same code as its eager call, compiled once per shape rather than once
+    per operation. The STRING columns of table arguments enter padded
+    (jit needs a static width); the reference pads a string column first
+    wherever it reads one, so the results are those of the Arrow input.
+    Exact for integers and bytes; XLA may fuse float arithmetic
+    differently, so float results stay on the eager path."""
+    import jax
+
+    from spark_rapids_jni_tpu.columnar import Table as JTable
+    from spark_rapids_jni_tpu.ops.strings import pad_strings
+
+    def padded(a):
+        if not isinstance(a, JTable):
+            return a
+        return JTable([pad_strings(c) if c.dtype.is_string else c
+                       for c in a.columns])
+
+    return jax.jit(fn)(*[padded(a) for a in args])
+
+
+def _string_rows(data) -> list:
+    """Each row's bytes of a host STRING column (either layout)."""
+    values, chars = data
+    if chars.ndim == 2:
+        return [chars[i, :values[i]].tobytes() for i in range(len(values))]
+    blob = chars.tobytes()
+    return [blob[values[i]:values[i + 1]] for i in range(len(values) - 1)]
 
 
 def assert_same_array(got, want, what=""):
@@ -57,7 +95,11 @@ def assert_same_table(port_table, jtable) -> None:
     assert len(got) == len(want), "column count"
     for i, (g, w) in enumerate(zip(got, want)):
         assert g[:2] == w[:2], f"column {i}: type {g[:2]} != {w[:2]}"
-        assert_same_array(g[2], w[2], f"column {i} data")
+        if isinstance(w[2], tuple):
+            assert_same_array(g[2][0], w[2][0], f"column {i} offsets")
+            assert_same_array(g[2][1], w[2][1], f"column {i} chars")
+        else:
+            assert_same_array(g[2], w[2], f"column {i} data")
         assert (g[3] is None) == (w[3] is None), f"column {i}: tri-state"
         if g[3] is not None:
             assert_same_array(g[3], w[3], f"column {i} validity")
@@ -72,11 +114,26 @@ def assert_same_valid_table(port_table, jtable) -> None:
     assert len(got) == len(want), "column count"
     for i, (g, w) in enumerate(zip(got, want)):
         assert g[:2] == w[:2], f"column {i}: type {g[:2]} != {w[:2]}"
-        n = len(w[2])
+        if isinstance(w[2], tuple):
+            # the same layout (and padded width), the same bytes per
+            # valid row
+            assert g[2][1].ndim == w[2][1].ndim, f"column {i}: layout"
+            assert g[2][1].shape[1:] == w[2][1].shape[1:], \
+                f"column {i}: padded width"
+            grows, wrows = _string_rows(g[2]), _string_rows(w[2])
+            n = len(wrows)
+            assert len(grows) == n, f"column {i}: rows"
+        else:
+            n = len(w[2])
         gv = np.ones(n, bool) if g[3] is None else g[3]
         wv = np.ones(n, bool) if w[3] is None else w[3]
         assert_same_array(gv, wv, f"column {i} validity")
-        assert_same_array(g[2][gv], w[2][wv], f"column {i} valid data")
+        if isinstance(w[2], tuple):
+            assert [r for r, v in zip(grows, gv) if v] \
+                == [r for r, v in zip(wrows, wv) if v], \
+                f"column {i} valid strings"
+        else:
+            assert_same_array(g[2][gv], w[2][wv], f"column {i} valid data")
 
 
 def random_host_columns(n: int, seed: int) -> list:

@@ -50,7 +50,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    accumulate kernel once per bounded groupby, nothing else), each equal
    to a vectorized numpy oracle and each planned plan to its general
    twin, their host times and the phase's peak device memory;
-9. one ``{"kernels": [...]}`` line, the card line, and the final
+9. CastStrings over SF10 lineitem text (59,986,052 rows) after the
+   string tables are freed: quantity, extendedprice, discount and tax
+   rendered to Arrow STRING by ``decimal_to_string``, shipdate by
+   ``date_to_string`` and q3's l_orderkey by ``integer_to_string``, the
+   first 1,000,000 rows of each byte-equal to a numpy rendering; each
+   parsed back (``string_to_decimal`` to decimal64(-2),
+   ``string_to_date``, ``string_to_integer`` to INT64) equal to the
+   generator's column; ``string_to_float`` of extendedprice bit-equal,
+   on a 1,000,000-row slice, to the same function run on the CPU, with
+   its ulp distance from numpy's correctly rounded parse; ``bench.py``'s
+   CastStrings column (4,096 ``"{m}.{ff}"`` templates tiled to
+   59,986,052 rows) parsed to FLOAT64 and decimal64(-2); each cast's
+   host time (median of 3), rows/s and byte bound, and the phase's peak
+   device memory;
+10. TPC-H q19, planned q19, q17 and q10 at scale factor 10 (lineitem
+   59,986,052 rows, part 2,000,000, orders 15,000,000, customer
+   1,500,000): the join probe kernel at q19's join and q17's two joins
+   against its plain version, then each plan with the counts reset
+   before it (the probe kernel once in q19, twice in q17, never in
+   planned q19 and q10; no fallback), each equal to its vectorized numpy
+   oracle (q17's with the reference's float association; the rows where
+   it and the loop oracle's differ must be exact ties, and are
+   reported) and planned q19 to q19, their host times and the phase's
+   peak device memory;
+11. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -872,6 +896,288 @@ def strings_phase(dev) -> tuple:
     return a_rows, d_rows, launches, {"plans": times, "peak_gib": peak}
 
 
+CAST_SLICE = 1_000_000  # rows checked byte for byte and on the CPU
+
+
+def _host_arrow(pieces) -> tuple:
+    """(int32 offsets, uint8 chars) of a list of bytes."""
+    import numpy as np
+
+    offsets = np.zeros(len(pieces) + 1, np.int32)
+    np.cumsum([len(p) for p in pieces], out=offsets[1:])
+    return offsets, np.frombuffer(b"".join(pieces), np.uint8)
+
+
+def _require_text_prefix(col, pieces, what: str) -> None:
+    """The first ``len(pieces)`` rows of an Arrow STRING column are
+    exactly ``pieces``, and the column has no null mask."""
+    offsets, chars = _host_arrow(pieces)
+    k = len(pieces)
+    require(col.validity is None, f"{what}: a null mask on all-valid rows")
+    require((col.data[:k + 1].cpu().numpy() == offsets).all(),
+            f"{what}: offsets differ from the numpy rendering")
+    require((col.chars[:int(offsets[-1])].cpu().numpy() == chars).all(),
+            f"{what}: chars differ from the numpy rendering")
+
+
+def _cpu_slice(col, k: int):
+    """The first ``k`` rows of an Arrow STRING column, copied to the
+    host."""
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    offsets = col.data[:k + 1].cpu()
+    return Column(col.dtype, offsets, None,
+                  chars=col.chars[:int(offsets[-1])].cpu())
+
+
+def _float_check(col, card_f64, strings, what: str) -> dict:
+    """``string_to_float`` on the card bit-equal to the same function on
+    the CPU over the first rows' bytes; ulp distance of those rows from
+    numpy's correctly rounded parse."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
+
+    k = len(strings)
+    t0 = time.perf_counter()
+    cpu = cs.string_to_float(_cpu_slice(col, k), t.FLOAT64)
+    cpu_s = time.perf_counter() - t0
+    got = card_f64.data[:k].cpu()
+    require(got.numpy().tobytes() == cpu.data.numpy().tobytes()
+            and torch.equal(card_f64.validity[:k].cpu(), cpu.validity),
+            f"{what}: the card's float parse differs from the CPU's")
+    exact = np.array(strings, dtype=np.float64)
+    ulp = np.abs(got.numpy().view(np.int64) - exact.view(np.int64))
+    out = {"rows": k, "rows_off": int((ulp > 0).sum()),
+           "max_ulp": int(ulp.max()), "cpu_s": cpu_s}
+    log(f"{what}: FLOAT64 parse on the card bit-equal to the CPU run over "
+        f"{k} rows ({cpu_s:.1f} s on the host); {out['rows_off']} rows "
+        f"off numpy's correctly rounded parse, at most {out['max_ulp']} "
+        f"ulp")
+    return out
+
+
+def cast_phase(dev) -> dict:
+    """CastStrings over SF10 lineitem rendered as text (the phase list in
+    the module docstring)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    li = tpch.lineitem_table(ROWS, seed=0)
+    cols = {"l_quantity": li.column(tpch.L_QUANTITY),
+            "l_extendedprice": li.column(tpch.L_EXTENDEDPRICE),
+            "l_discount": li.column(tpch.L_DISCOUNT),
+            "l_tax": li.column(tpch.L_TAX),
+            "l_shipdate": li.column(tpch.L_SHIPDATE),
+            "l_orderkey": tpch.lineitem_q3_table(ROWS, Q3_ORDERS).column(
+                tpch.L3_ORDERKEY)}
+    del li
+    torch.cuda.synchronize()
+    log(f"cast inputs: {ROWS} lineitem rows on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dec = t.decimal64(-2)
+    render = {name: cs.decimal_to_string for name in cols}
+    render["l_shipdate"] = cs.date_to_string
+    render["l_orderkey"] = cs.integer_to_string
+    parse = {name: (lambda s: cs.string_to_decimal(s, dec)) for name in cols}
+    parse["l_shipdate"] = cs.string_to_date
+    parse["l_orderkey"] = lambda s: cs.string_to_integer(s, t.INT64)
+
+    def numpy_text(name, k):
+        v = cols[name].data[:k].cpu().numpy()
+        if name == "l_shipdate":
+            return [s.encode() for s in np.datetime_as_string(
+                v.astype("datetime64[D]"))]
+        if name == "l_orderkey":
+            return [b"%d" % x for x in v.tolist()]
+        return [b"%d.%02d" % (x // 100, x % 100) for x in v.tolist()]
+
+    text, times, out = {}, {}, {}
+    for name, col in cols.items():
+        text[name] = render[name](col)
+        _require_text_prefix(text[name], numpy_text(name, CAST_SLICE),
+                             f"{render[name].__name__}({name})")
+        back = parse[name](text[name])
+        torch.cuda.synchronize()
+        require(back.dtype == col.dtype and torch.equal(back.data, col.data)
+                and bool(back.validity.all()),
+                f"{name}: the parse of its text differs from the column")
+    log(f"casts: {', '.join(cols)} rendered to text (first {CAST_SLICE} "
+        f"rows byte-equal to numpy's) and parsed back exactly, "
+        f"{ROWS} rows each")
+    price_text = text["l_extendedprice"]
+    f64 = cs.string_to_float(price_text, t.FLOAT64)
+    require(bool(f64.validity.all()), "float parse: a null")
+    out["float_l_extendedprice"] = _float_check(
+        price_text, f64, [b.decode() for b in numpy_text(
+            "l_extendedprice", CAST_SLICE)], "l_extendedprice")
+    del f64
+
+    # bench.py's CastStrings column, tiled on the card
+    rng = np.random.default_rng(0)
+    pool, unscaled = [], []
+    for _ in range(4096):
+        mant = int(rng.integers(-10_000_000, 10_000_000))
+        frac = int(rng.integers(0, 100))
+        pool.append(f"{mant}.{frac:02d}")
+        unscaled.append((abs(mant) * 100 + frac) * (-1 if mant < 0 else 1))
+    tile = np.arange(ROWS, dtype=np.int64) % len(pool)
+    bench_col = tpch._vocab_strings(pool, tile, dev)
+    bd = cs.string_to_decimal(bench_col, dec)
+    want = torch.tensor(unscaled, dtype=torch.int64, device=dev)[
+        torch.from_numpy(tile).to(dev)]
+    require(torch.equal(bd.data, want) and bool(bd.validity.all()),
+            "bench column: decimal parse differs from its templates")
+    bf = cs.string_to_float(bench_col, t.FLOAT64)
+    out["float_bench"] = _float_check(
+        bench_col, bf, [pool[i] for i in tile[:CAST_SLICE]], "bench column")
+    del bd, bf, want
+
+    def bytes_of(*tensors):
+        return sum(x.nbytes for x in tensors)
+
+    cases = []
+    for name, col in cols.items():
+        s = text[name]
+        cases.append((f"{render[name].__name__}({name})",
+                      lambda c=col, f=render[name]: f(c),
+                      bytes_of(col.data, s.data, s.chars)))
+        # a parse writes its data and a one-byte validity per row
+        cases.append((f"parse({name})", lambda s=s, f=parse[name]: f(s),
+                      bytes_of(s.data, s.chars, col.data) + ROWS))
+    cases.append(("string_to_float(l_extendedprice)",
+                  lambda: cs.string_to_float(price_text, t.FLOAT64),
+                  bytes_of(price_text.data, price_text.chars) + 9 * ROWS))
+    for what, fn in (("string_to_float(bench)", lambda: cs.string_to_float(
+            bench_col, t.FLOAT64)), ("string_to_decimal(bench)",
+                                     lambda: cs.string_to_decimal(
+                                         bench_col, dec))):
+        cases.append((what, fn, bytes_of(bench_col.data, bench_col.chars)
+                      + 9 * ROWS))
+    for what, fn, nbytes in cases:
+        sec = host_median_s(fn)
+        b_ms, _ = bound(nbytes, 0)
+        times[what] = {"s": sec, "rows_per_s": ROWS / sec,
+                       "bound_ms": b_ms}
+        log(f"{what}: {sec * 1e3:.3f} ms, {ROWS / sec:.4g} rows/s (byte "
+            f"bound {b_ms:.3f} ms)")
+    del text, cols, bench_col, price_text
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"cast phase peak {peak:.2f} GiB")
+    log(f"peak device memory of the cast phase {peak:.2f} GiB")
+    return {"casts": times, "peak_gib": peak, **out}
+
+
+def more_plans_phase() -> tuple:
+    """TPC-H q19, planned q19, q17 and q10 at SF10 (the phase list in
+    the module docstring)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    torch.cuda.reset_peak_memory_stats()
+    d_rows, launches, times = {}, {}, {}
+    t0 = time.perf_counter()
+    part = tpch.part_table(Q14_PARTS)
+    li = tpch.lineitem_q19_table(ROWS, Q14_PARTS)
+    torch.cuda.synchronize()
+    log(f"q19/q17 tables: part {Q14_PARTS}, lineitem {ROWS} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    d_rows["q19 join"] = _probe_join(*tpch.q19_probe_inputs(part, li),
+                                     "q19 join")
+    for name, join in zip(("q17 join 1", "q17 join 2"),
+                          tpch.q17_probe_inputs(part, li)):
+        d_rows[name] = _probe_join(*join, name)
+
+    res, launches["tpch_q19"] = _run_plan(
+        "q19", lambda: tpch.tpch_q19(part, li), {"D": 1})
+    t0 = time.perf_counter()
+    want = tpch.tpch_q19_oracle(part, li)
+    log(f"q19 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    require(int(res.revenue) == want and want > 0,
+            f"q19 revenue {int(res.revenue)} differs from the oracle {want}")
+    planned, launches["tpch_q19_planned"] = _run_plan(
+        "planned q19", lambda: tpch.tpch_q19_planned(part, li), {})
+    require(not bool(planned.pk_violation), "planned q19: PK violation")
+    require(int(planned.revenue) == want
+            and int(planned.join_total) == int(res.join_total),
+            "planned q19 differs from q19")
+    log(f"q19: revenue {want} over {int(res.join_total)} joined rows, "
+        f"equal to the numpy oracle; planned q19 equal; launches "
+        f"{launches['tpch_q19']} / {launches['tpch_q19_planned']}")
+    res, launches["tpch_q17"] = _run_plan(
+        "q17", lambda: tpch.tpch_q17(part, li), {"D": 2})
+    t0 = time.perf_counter()
+    want = tpch.tpch_q17_oracle(part, li, plan_association=True)
+    sql = tpch.tpch_q17_oracle(part, li)
+    log(f"q17 numpy oracles: {time.perf_counter() - t0:.1f} s on the host")
+    require(int(res.yearly_total) == want and want > 0,
+            f"q17 {int(res.yearly_total)} differs from the oracle {want}")
+    # the reference's association, q < (0.2 * mean) * 100.0, against
+    # the loop oracle's q < 0.2 * avg: every row they split must be an
+    # exact tie, 5 * q * count == sum
+    qty, sums, counts, _ = tpch._q17_selected(part, li, "Brand#23",
+                                              "MED BOX")
+    avg = sums.astype(np.float64) / counts
+    split = (qty < 0.2 * avg) != (
+        qty.astype(np.float64) < 0.2 * (avg * 0.01) * 100.0)
+    require(bool((5 * qty[split] * counts[split] == sums[split]).all()),
+            "q17: the two associations split a row that is not a tie")
+    log(f"q17: yearly total {want} (avg_yearly {res.avg_yearly():.2f}) "
+        f"over {int(res.join_total)} selected rows, equal to the numpy "
+        f"oracle with the reference's association; the loop oracle's "
+        f"{sql} differs by {want - sql} over {int(split.sum())} rows, each "
+        f"an exact tie; launches {launches['tpch_q17']}")
+    del res, planned
+    times.update(_plan_times({
+        "tpch_q19": lambda: tpch.tpch_q19(part, li),
+        "tpch_q19_planned": lambda: tpch.tpch_q19_planned(part, li),
+        "tpch_q17": lambda: tpch.tpch_q17(part, li)}, ROWS))
+    del part, li
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    li3 = tpch.lineitem_q3_table(ROWS, Q3_ORDERS)
+    flags = np.random.default_rng(10).choice(
+        np.frombuffer(b"ANR", np.int8), ROWS)
+    args = (tpch.customer_q5_table(Q3_CUSTOMERS),
+            tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS),
+            Table(list(li3.columns) + [Column.from_numpy(flags, t.INT8)]))
+    del li3, flags
+    torch.cuda.synchronize()
+    log(f"q10 tables on the card in {time.perf_counter() - t0:.1f} s")
+    res, launches["tpch_q10"] = _run_plan(
+        "q10", lambda: tpch.tpch_q10(*args), {})
+    require(not bool(res.pk_violation), "q10: PK violation")
+    t0 = time.perf_counter()
+    want = tpch.tpch_q10_oracle(*args)
+    log(f"q10 numpy oracle: {time.perf_counter() - t0:.1f} s on the host")
+    k, groups = len(want["custkey"]), int(res.result.num_groups)
+    # the real groups, then the null-key group of the rows not kept
+    require(groups in (k, k + 1), f"q10 groups {groups} vs oracle {k}")
+    _require_columns("q10", res.result.compact(), want, k)
+    log(f"q10: {int(res.join_total)} returned rows joined, {k} customers "
+        f"equal to the numpy oracle in revenue order; no probe launch, no "
+        f"PK violation")
+    del res
+    times.update(_plan_times({"tpch_q10": lambda: tpch.tpch_q10(*args)},
+                             ROWS))
+    del args
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory of q19, q17 and q10 {peak:.2f} GiB")
+    return d_rows, launches, {"plans": times, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -921,9 +1227,12 @@ def main() -> int:
 
     a_rows, d_rows, st_launches, path_times["strings"] = strings_phase(dev)
     path_times["strings"].update(accumulate_at=a_rows, probe_joins=d_rows)
+    path_times["cast_strings"] = cast_phase(dev)
+    d_rows, more_launches, path_times["tpch_more"] = more_plans_phase()
+    path_times["tpch_more"].update(probe_joins=d_rows)
     # each kernel's launches on every path that runs it, each read just
     # after its run
-    by_plan = {**q3_launches, **ds_launches, **st_launches}
+    by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

@@ -17,7 +17,7 @@ order: the general q1 is the filter/derive work table, the sort-based
 groupby with the plan's group budget, and the ORDER BY; the planned q1
 lowers the groupby through ``plan_groupby`` with the DDL flag domains.
 The fused single-kernel q1 is ``ops/kernels/q1.py::tpch_q1_pallas``.
-TPC-H q3, q6, q5, q12, q14 and q4 are further down.
+TPC-H q3, q6, q5, q12, q14, q4, q19, q17 and q10 are further down.
 """
 
 from __future__ import annotations
@@ -50,8 +50,9 @@ from spark_rapids_jni_tpu_torch.ops.planner import (
     scalar_domain,
     string_domain,
 )
-from spark_rapids_jni_tpu_torch.ops.sort import gather, sort_order
+from spark_rapids_jni_tpu_torch.ops.sort import gather, sort_order, sort_table
 from spark_rapids_jni_tpu_torch.ops.strings import (
+    gather_strings,
     like,
     pad_strings,
     static_strings,
@@ -632,7 +633,20 @@ def _host_strings(col: Column, rows=None) -> tuple:
 
 def _host_codes(col: Column, values) -> np.ndarray:
     """Per row, the index in ``values`` of the row's string (-1 for none
-    and for null rows), on the host."""
+    and for null rows), on the host. An Arrow column compares only the
+    rows of each value's length, a byte at a time."""
+    if not col.is_padded_string:
+        offsets = col.data.cpu().numpy().astype(np.int64)
+        chars = col.chars.cpu().numpy()
+        starts, lens = offsets[:-1], np.diff(offsets)
+        codes = np.full(lens.shape, -1, np.int64)
+        for k, v in enumerate(values):
+            b = v.encode()
+            rows = np.flatnonzero((lens == len(b)) & (codes < 0))
+            for j, byte in enumerate(b):
+                rows = rows[chars[starts[rows] + j] == byte]
+            codes[rows] = k
+        return np.where(col.valid_mask().cpu().numpy(), codes, -1)
     lens, mat, valid = _host_strings(col)
     codes = np.full(lens.shape, -1, np.int64)
     for k, v in enumerate(values):
@@ -647,10 +661,10 @@ def _host_codes(col: Column, values) -> np.ndarray:
 def _host_lookup(keys: np.ndarray, values: np.ndarray, probe: np.ndarray):
     """(found, value) of each probe key in ``keys``; a repeated key takes
     its last row's value, as a Python dict built row by row does.
-    Compact keys (a range at most 16 times their count) go through a
-    direct-address table, one read per probe; others through a search
-    of the sorted probes (a search per random probe misses the cache at
-    every step)."""
+    Compact keys (a range at most 16 times their count, or under 2^24)
+    go through a direct-address table, one read per probe; others
+    through a search of the sorted probes (a search per random probe
+    misses the cache at every step)."""
     if (keys[1:] > keys[:-1]).all():  # sorted and unique already
         ukey, vals = keys, values
     else:
@@ -659,7 +673,7 @@ def _host_lookup(keys: np.ndarray, values: np.ndarray, probe: np.ndarray):
     pos = np.full(probe.shape, -1, np.int64)
     if len(ukey):
         lo, hi = int(ukey[0]), int(ukey[-1])
-        if hi - lo < 16 * len(ukey) + 1024:
+        if hi - lo < max(16 * len(ukey), 1 << 24):
             slot = np.full(hi - lo + 1, -1, np.int64)
             slot[(ukey - lo).astype(np.int64)] = np.arange(len(ukey))
             inside = (probe >= lo) & (probe <= hi)
@@ -1545,3 +1559,461 @@ def tpch_q4_oracle(orders: Table, lineitem: Table,
     if not valid.all():
         out[None] = int((~valid).sum())
     return out
+
+
+# ---- TPC-H q19 (discounted revenue): a join and an OR of three AND-groups
+# over brand, container and shipmode strings -----------------------------------
+
+L19_PARTKEY, L19_QUANTITY, L19_EXTENDEDPRICE = 0, 1, 2
+L19_DISCOUNT, L19_SHIPMODE, L19_SHIPINSTRUCT = 3, 4, 5
+
+_Q19_MODES = ("AIR", "AIR REG", "TRUCK")
+_Q19_INSTRUCTS = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                  "TAKE BACK RETURN")
+# (brand, container prefix, qty_lo in whole units, size_hi)
+_Q19_BRANCHES = (
+    ("Brand#12", "SM", 1, 5),
+    ("Brand#23", "MED", 10, 10),
+    ("Brand#34", "LG", 20, 15),
+)
+
+
+def lineitem_q19_table(num_rows: int, num_parts: int, seed: int = 7,
+                       device=None) -> Table:
+    """q19's (and q17's) lineitem: [l_partkey, l_quantity,
+    l_extendedprice, l_discount, l_shipmode, l_shipinstruct (STRING)]."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    partkey = rng.integers(1, num_parts + 1, num_rows).astype(np.int64)
+    qty = rng.integers(100, 51_00, num_rows).astype(np.int64)
+    price = rng.integers(90_000, 10_500_000, num_rows).astype(np.int64)
+    disc = rng.integers(0, 11, num_rows).astype(np.int64)
+    modes = rng.integers(0, len(_Q19_MODES), num_rows)
+    instructs = rng.integers(0, len(_Q19_INSTRUCTS), num_rows)
+    return Table([
+        Column.from_numpy(partkey, device=device),
+        Column.from_numpy(qty, t.decimal64(-2), device=device),
+        Column.from_numpy(price, t.decimal64(-2), device=device),
+        Column.from_numpy(disc, t.decimal64(-2), device=device),
+        _vocab_strings(_Q19_MODES, modes, device),
+        _vocab_strings(_Q19_INSTRUCTS, instructs, device),
+    ])
+
+
+class Q19Result(NamedTuple):
+    revenue: torch.Tensor     # int64 unscaled decimal(-4)
+    join_total: torch.Tensor
+
+
+class Q19PlannedResult(NamedTuple):
+    revenue: torch.Tensor     # int64 unscaled decimal(-4)
+    join_total: torch.Tensor
+    pk_violation: torch.Tensor
+
+
+def _q19_revenue(brand_c: Column, cont_c: Column, size: torch.Tensor,
+                 qty: torch.Tensor, price: torch.Tensor, disc: torch.Tensor,
+                 mode_c: Column, instr_c: Column, keep: torch.Tensor,
+                 branches: tuple) -> torch.Tensor:
+    """The q19 predicate over rows already aligned with their part
+    columns, and the exact decimal(-4) revenue sum of the rows it
+    keeps."""
+    air = (like(mode_c, "AIR").data != 0) | (like(mode_c, "AIR REG").data != 0)
+    person = like(instr_c, "DELIVER IN PERSON").data != 0
+    pred = torch.zeros(keep.shape, dtype=torch.bool, device=keep.device)
+    for brand, cont_prefix, qty_lo, size_hi in branches:
+        b = like(brand_c, brand).data != 0
+        cont = like(cont_c, cont_prefix + "%").data != 0
+        qok = (qty >= qty_lo * 100) & (qty <= (qty_lo + 10) * 100)
+        sok = (size >= 1) & (size <= size_hi)
+        pred = pred | (b & cont & qok & sok)
+    pred = pred & air & person & keep
+    return torch.where(pred, price * (100 - disc), 0).sum()
+
+
+def _q19_lanes_ok(lineitem: Table) -> torch.Tensor:
+    return (lineitem.column(L19_QUANTITY).valid_mask()
+            & lineitem.column(L19_EXTENDEDPRICE).valid_mask()
+            & lineitem.column(L19_DISCOUNT).valid_mask()
+            & lineitem.column(L19_SHIPMODE).valid_mask()
+            & lineitem.column(L19_SHIPINSTRUCT).valid_mask())
+
+
+def tpch_q19(part: Table, lineitem: Table,
+             branches: tuple = _Q19_BRANCHES) -> Q19Result:
+    """General q19: lineitem joined to part on partkey (the probe kernel
+    on the card), the OR-of-ANDs predicate as masks over the
+    join-gathered part columns and the left-map-gathered lineitem lanes,
+    and the exact int64 revenue sum."""
+    n = lineitem.num_rows
+    probe = Table([lineitem.column(L19_PARTKEY)])
+    build = Table([part.column(P_PARTKEY), part.column(P_BRAND),
+                   part.column(P_CONTAINER), part.column(P_SIZE)])
+    maps = join(probe, build, 0, 0, out_size=n)
+    li = maps.left_index.clamp(0, max(n - 1, 0))
+    j = apply_join_maps(probe, build, maps)
+    # j: [l_partkey, p_partkey, p_brand, p_container, p_size]
+    matched = j.column(1).valid_mask() & maps.row_valid
+    mode = gather_strings(pad_strings(lineitem.column(L19_SHIPMODE)), li)
+    instr = gather_strings(pad_strings(lineitem.column(L19_SHIPINSTRUCT)),
+                           li)
+    revenue = _q19_revenue(
+        j.column(2), j.column(3), j.column(4).data,
+        lineitem.column(L19_QUANTITY).data[li],
+        lineitem.column(L19_EXTENDEDPRICE).data[li],
+        lineitem.column(L19_DISCOUNT).data[li],
+        Column(t.STRING, mode.data, None, chars=mode.chars),
+        Column(t.STRING, instr.data, None, chars=instr.chars),
+        matched & _q19_lanes_ok(lineitem)[li], branches)
+    return Q19Result(revenue, maps.total)
+
+
+def tpch_q19_planned(part: Table, lineitem: Table,
+                     branches: tuple = _Q19_BRANCHES) -> Q19PlannedResult:
+    """q19 with the part join a declared clustered dense-PK lookup: no
+    join kernel, and its output rows are the lineitem rows, so the
+    lineitem lanes are read without a gather."""
+    probe = Table([lineitem.column(L19_PARTKEY)])
+    build = Table([part.column(P_PARTKEY),
+                   pad_strings(part.column(P_BRAND)),
+                   pad_strings(part.column(P_CONTAINER)),
+                   part.column(P_SIZE)])
+    j = dense_pk_join(probe, build, 0, 0, 1, part.num_rows, clustered=True)
+    revenue = _q19_revenue(
+        j.table.column(2), j.table.column(3), j.table.column(4).data,
+        lineitem.column(L19_QUANTITY).data,
+        lineitem.column(L19_EXTENDEDPRICE).data,
+        lineitem.column(L19_DISCOUNT).data,
+        pad_strings(lineitem.column(L19_SHIPMODE)),
+        pad_strings(lineitem.column(L19_SHIPINSTRUCT)),
+        j.matched & _q19_lanes_ok(lineitem), branches)
+    return Q19PlannedResult(revenue, j.total, j.pk_violation)
+
+
+def q19_probe_inputs(part: Table, lineitem: Table):
+    """(build, n_valid, probe): the probe kernel's inputs at q19's join."""
+    key = part.column(P_PARTKEY)
+    build, n_valid, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    return build, n_valid, lineitem.column(L19_PARTKEY).data
+
+
+def tpch_q19_numpy(part: Table, lineitem: Table,
+                   branches: tuple = _Q19_BRANCHES) -> int:
+    """Host oracle, a loop over lineitem: the revenue integer."""
+    pinfo = {}
+    pk = _host(part, P_PARTKEY).tolist()
+    pb = part.column(P_BRAND).to_pylist()
+    pc = part.column(P_CONTAINER).to_pylist()
+    ps = _host(part, P_SIZE).tolist()
+    for i in range(part.num_rows):
+        pinfo[pk[i]] = (pb[i], pc[i], ps[i])
+    lkey = _host(lineitem, L19_PARTKEY).tolist()
+    qty = _host(lineitem, L19_QUANTITY).tolist()
+    price = _host(lineitem, L19_EXTENDEDPRICE).tolist()
+    disc = _host(lineitem, L19_DISCOUNT).tolist()
+    mode = lineitem.column(L19_SHIPMODE).to_pylist()
+    instr = lineitem.column(L19_SHIPINSTRUCT).to_pylist()
+    total = 0
+    for i in range(lineitem.num_rows):
+        info = pinfo.get(lkey[i])
+        if info is None:
+            continue
+        if mode[i] not in ("AIR", "AIR REG"):
+            continue
+        if instr[i] != "DELIVER IN PERSON":
+            continue
+        for brand, cont_prefix, qty_lo, size_hi in branches:
+            if (info[0] == brand and info[1].startswith(cont_prefix)
+                    and qty_lo * 100 <= qty[i] <= (qty_lo + 10) * 100
+                    and 1 <= info[2] <= size_hi):
+                total += price[i] * (100 - disc[i])
+                break
+    return total
+
+
+def _host_prefix(col: Column, prefix: str) -> np.ndarray:
+    """bool per row: the row starts with ``prefix`` (False for nulls)."""
+    lens, mat, valid = _host_strings(col)
+    pref = np.frombuffer(prefix.encode(), np.uint8)
+    if len(pref) > mat.shape[1]:
+        return np.zeros(lens.shape, bool)
+    return valid & (lens >= len(pref)) & (mat[:, :len(pref)] == pref).all(1)
+
+
+def tpch_q19_oracle(part: Table, lineitem: Table,
+                    branches: tuple = _Q19_BRANCHES) -> int:
+    """``tpch_q19_numpy`` vectorized: the revenue integer."""
+    brand = _host_codes(part.column(P_BRAND), [b[0] for b in branches])
+    size = _host(part, P_SIZE)
+    # bit b: part rows that pass branch b's part conditions
+    bits = np.zeros(part.num_rows, np.int64)
+    for b, (_, cont_prefix, _, size_hi) in enumerate(branches):
+        ok = (brand == b) & _host_prefix(part.column(P_CONTAINER),
+                                         cont_prefix) \
+            & (size >= 1) & (size <= size_hi)
+        bits |= ok.astype(np.int64) << b
+    found, pbits = _host_lookup(_host(part, P_PARTKEY), bits,
+                                _host(lineitem, L19_PARTKEY))
+    qty = _host(lineitem, L19_QUANTITY)
+    hit = np.zeros(lineitem.num_rows, bool)
+    for b, (_, _, qty_lo, _) in enumerate(branches):
+        hit |= ((pbits >> b) & 1).astype(bool) \
+            & (qty >= qty_lo * 100) & (qty <= (qty_lo + 10) * 100)
+    hit &= found & (_host_codes(lineitem.column(L19_SHIPMODE),
+                                ("AIR", "AIR REG")) >= 0) \
+        & (_host_codes(lineitem.column(L19_SHIPINSTRUCT),
+                       ("DELIVER IN PERSON",)) >= 0)
+    return int((_host(lineitem, L19_EXTENDEDPRICE)[hit]
+                * (100 - _host(lineitem, L19_DISCOUNT)[hit])).sum())
+
+
+# ---- TPC-H q17 (small-quantity-order revenue): the correlated AVG as a
+# groupby mean joined back, then an exact sum --------------------------------
+
+class Q17Result(NamedTuple):
+    yearly_total: torch.Tensor   # int64 unscaled decimal(-2)
+    join_total: torch.Tensor
+
+    def avg_yearly(self) -> float:
+        """sum(l_extendedprice) / 7.0 in display units."""
+        return int(self.yearly_total) / 100.0 / 7.0
+
+
+def _q17_build(part: Table, brand: str, container: str) -> Table:
+    """[p_partkey], null except for the parts of the brand and
+    container."""
+    sel = (like(part.column(P_BRAND), brand).data != 0) \
+        & (like(part.column(P_CONTAINER), container).data != 0) \
+        & part.column(P_PARTKEY).valid_mask()
+    return Table([_null_where(part.column(P_PARTKEY), ~sel)])
+
+
+def _q17_joined(part: Table, lineitem: Table, brand: str, container: str):
+    """Join 1 and the groupby's input: (its maps, the clamped left map,
+    [l_partkey, l_quantity] of the joined rows). The AVG runs over every
+    selected row with a non-null quantity (a null price only drops the
+    row from the final sum)."""
+    n = lineitem.num_rows
+    build = _q17_build(part, brand, container)
+    probe = Table([lineitem.column(L19_PARTKEY)])
+    maps = join(probe, build, 0, 0, out_size=n)
+    li = maps.left_index.clamp(0, max(n - 1, 0))
+    j = apply_join_maps(probe, build, maps)
+    qty_c = lineitem.column(L19_QUANTITY)
+    avg_ok = qty_c.valid_mask()[li] & j.column(1).valid_mask() \
+        & maps.row_valid
+    return maps, li, Table([_null_where(j.column(0), ~avg_ok),
+                            Column(qty_c.dtype, qty_c.data[li], avg_ok)])
+
+
+def tpch_q17(part: Table, lineitem: Table, brand: str = "Brand#23",
+             container: str = "MED BOX") -> Q17Result:
+    """q17: lineitem joined to the parts of one brand and container,
+    keeping rows with l_quantity < 0.2 * avg(l_quantity) of their part.
+    The correlated subquery is a groupby mean on partkey, joined back to
+    the rows (two joins: the probe kernel twice on the card), then an
+    exact sum of the kept prices."""
+    n = lineitem.num_rows
+    maps, li, keyed = _q17_joined(part, lineitem, brand, container)
+    gt = groupby_aggregate(keyed, [0], [(1, "mean")]).table
+    m2 = join(keyed, gt, 0, 0, out_size=n)
+    li2 = m2.left_index.clamp(0, max(n - 1, 0))
+    j2 = apply_join_maps(keyed, gt, m2)
+    # j2: [l_partkey, l_quantity, g_partkey, g_mean]; quantity is the
+    # unscaled decimal(-2), the mean a FLOAT64 in value units, compared
+    # as the reference does: q < (0.2 * mean) * 100.0
+    ok2 = j2.column(2).valid_mask() & m2.row_valid
+    q2, mean2 = j2.column(1), j2.column(3)
+    pred = (q2.data.to(torch.float64) < 0.2 * mean2.data * 100.0) \
+        & ok2 & q2.valid_mask()
+    row = li[li2]
+    price_c = lineitem.column(L19_EXTENDEDPRICE)
+    total = torch.where(pred & price_c.valid_mask()[row], price_c.data[row],
+                        0).sum()
+    return Q17Result(total, maps.total)
+
+
+def q17_probe_inputs(part: Table, lineitem: Table,
+                     brand: str = "Brand#23", container: str = "MED BOX"):
+    """The probe kernel's inputs at q17's two joins, each (build,
+    n_valid, probe): the selected parts' keys probed by l_partkey, then
+    the groupby output's keys probed by the joined rows' keys."""
+    key = _q17_build(part, brand, container).column(0)
+    build1, n_valid1, _ = _sorted_valid_keys(key.data, key.valid_mask())
+    _, _, keyed = _q17_joined(part, lineitem, brand, container)
+    gkey = groupby_aggregate(keyed, [0], [(1, "mean")]).table.column(0)
+    build2, n_valid2, _ = _sorted_valid_keys(gkey.data, gkey.valid_mask())
+    return ((build1, n_valid1, lineitem.column(L19_PARTKEY).data),
+            (build2, n_valid2, keyed.column(0).data))
+
+
+def tpch_q17_numpy(part: Table, lineitem: Table, brand: str = "Brand#23",
+                   container: str = "MED BOX") -> int:
+    """Host oracle, loops over both tables: the kept prices' sum."""
+    sel = set()
+    pk = _host(part, P_PARTKEY).tolist()
+    pb = part.column(P_BRAND).to_pylist()
+    pc = part.column(P_CONTAINER).to_pylist()
+    for i in range(part.num_rows):
+        if pb[i] == brand and pc[i] == container:
+            sel.add(pk[i])
+    lkey = _host(lineitem, L19_PARTKEY).tolist()
+    qty = _host(lineitem, L19_QUANTITY).tolist()
+    price = _host(lineitem, L19_EXTENDEDPRICE).tolist()
+    by_part: dict = {}
+    for i in range(lineitem.num_rows):
+        if lkey[i] in sel:
+            by_part.setdefault(lkey[i], []).append(i)
+    total = 0
+    for rows in by_part.values():
+        avg = sum(qty[i] for i in rows) / len(rows)
+        for i in rows:
+            if qty[i] < 0.2 * avg:
+                total += price[i]
+    return total
+
+
+def _q17_selected(part: Table, lineitem: Table, brand: str,
+                  container: str):
+    """Host arrays of the lineitem rows of the selected parts: (quantity,
+    their part's quantity sum, their part's row count, price)."""
+    sel = (_host_codes(part.column(P_BRAND), (brand,)) == 0) \
+        & (_host_codes(part.column(P_CONTAINER), (container,)) == 0)
+    found, _ = _host_lookup(_host(part, P_PARTKEY)[sel],
+                            np.zeros(int(sel.sum()), np.int64),
+                            _host(lineitem, L19_PARTKEY))
+    lkey = _host(lineitem, L19_PARTKEY)[found]
+    qty = _host(lineitem, L19_QUANTITY)[found]
+    _, inv = np.unique(lkey, return_inverse=True)
+    sums = np.zeros(int(inv.max(initial=-1)) + 1, np.int64)
+    np.add.at(sums, inv, qty)
+    counts = np.bincount(inv, minlength=len(sums))
+    return qty, sums[inv], counts[inv], \
+        _host(lineitem, L19_EXTENDEDPRICE)[found]
+
+
+def tpch_q17_oracle(part: Table, lineitem: Table, brand: str = "Brand#23",
+                    container: str = "MED BOX",
+                    plan_association: bool = False) -> int:
+    """``tpch_q17_numpy`` vectorized: the kept prices' sum, keeping rows
+    with q < 0.2 * (sum / count). With ``plan_association`` it keeps the
+    rows the plan keeps, q < (0.2 * ((sum / count) * 0.01)) * 100.0 (the
+    reference's mean in value units, then its association): the two
+    differ on rows where q is within rounding of 0.2 * avg."""
+    qty, sums, counts, price = _q17_selected(part, lineitem, brand,
+                                             container)
+    avg = sums.astype(np.float64) / counts  # exact int64 sums, one division
+    if plan_association:
+        keep = qty.astype(np.float64) < 0.2 * (avg * 0.01) * 100.0
+    else:
+        keep = qty < 0.2 * avg
+    return int(price[keep].sum())
+
+
+# ---- TPC-H q10 (returned-item reporting): two dense-PK lookups and a
+# high-cardinality customer groupby ------------------------------------------
+
+_Q10_QTR_START = 8582   # 1993-07-01
+_Q10_QTR_END = 8674     # 1993-10-01
+L10_RETURNFLAG = 4      # q3's lineitem with a returnflag column appended
+
+
+class Q10Result(NamedTuple):
+    result: GroupByResult   # [c_custkey, c_nationkey, revenue] rev desc
+    join_total: torch.Tensor
+    pk_violation: torch.Tensor
+
+
+def tpch_q10(customer: Table, orders: Table, lineitem: Table,
+             qtr_start: int = _Q10_QTR_START,
+             qtr_end: int = _Q10_QTR_END) -> Q10Result:
+    """q10: the returned lineitem rows, joined through the quarter's
+    orders to the customer (both joins declared clustered dense-PK
+    lookups: no join kernel), grouped by customer with the sort-based
+    groupby (customers are too many for a declared domain), revenue
+    descending. ``lineitem`` is q3's layout with an INT8 l_returnflag
+    appended; ``customer`` is q5's [c_custkey, c_nationkey]. The LIMIT
+    20 head is the caller's compact and slice."""
+    n_cust, n_ord = customer.num_rows, orders.num_rows
+    rf = lineitem.column(L10_RETURNFLAG)
+    returned = rf.valid_mask() & (rf.data == ord("R"))
+    price = lineitem.column(L3_EXTENDEDPRICE)
+    disc = lineitem.column(L3_DISCOUNT)
+    revenue = Column(t.decimal64(-4), price.data * (100 - disc.data),
+                     price.valid_mask() & disc.valid_mask() & returned)
+    probe = Table([_null_where(lineitem.column(L3_ORDERKEY), ~returned),
+                   revenue])
+    od = orders.column(O_ORDERDATE)
+    in_qtr = od.valid_mask() & (od.data >= qtr_start) & (od.data < qtr_end)
+    ord_build = Table([_null_where(orders.column(O_ORDERKEY), ~in_qtr),
+                       orders.column(O_CUSTKEY)])
+    j_o = dense_pk_join(probe, ord_build, 0, 0, 1, n_ord, clustered=True)
+    j_c = dense_pk_join(Table([j_o.table.column(3)]), customer, 0,
+                        C5_CUSTKEY, 1, n_cust, clustered=True)
+    keep = j_o.matched & j_c.matched
+    keyed = Table([
+        _null_where(j_c.table.column(1), ~keep),
+        j_c.table.column(2),
+        Column(revenue.dtype, revenue.data, revenue.valid_mask() & keep),
+    ])
+    g = groupby_aggregate(keyed, [0, 1], [(2, "sum")])
+    srt = sort_table(g.table, [2], ascending=[False], nulls_first=[False])
+    return Q10Result(GroupByResult(srt, g.num_groups),
+                     keep.to(torch.int64).sum(),
+                     j_o.pk_violation | j_c.pk_violation)
+
+
+def tpch_q10_numpy(customer: Table, orders: Table, lineitem: Table,
+                   qtr_start: int = _Q10_QTR_START,
+                   qtr_end: int = _Q10_QTR_END) -> dict:
+    """Host oracle, loops over the tables: {c_custkey: (nationkey,
+    revenue)}."""
+    c_nat = dict(zip(_host(customer, C5_CUSTKEY).tolist(),
+                     _host(customer, C5_NATIONKEY).tolist()))
+    o_cust = {}
+    for k, c, d in zip(_host(orders, O_ORDERKEY).tolist(),
+                       _host(orders, O_CUSTKEY).tolist(),
+                       _host(orders, O_ORDERDATE).tolist()):
+        if qtr_start <= d < qtr_end:
+            o_cust[k] = c
+    out: dict = {}
+    lkey = _host(lineitem, L3_ORDERKEY).tolist()
+    price = _host(lineitem, L3_EXTENDEDPRICE).tolist()
+    disc = _host(lineitem, L3_DISCOUNT).tolist()
+    rf = _host(lineitem, L10_RETURNFLAG).tolist()
+    for i in range(lineitem.num_rows):
+        if rf[i] != ord("R"):
+            continue
+        cu = o_cust.get(lkey[i])
+        if cu is None or cu not in c_nat:
+            continue
+        prev = out.get(cu, (c_nat[cu], 0))
+        out[cu] = (c_nat[cu], prev[1] + price[i] * (100 - disc[i]))
+    return out
+
+
+def tpch_q10_oracle(customer: Table, orders: Table, lineitem: Table,
+                    qtr_start: int = _Q10_QTR_START,
+                    qtr_end: int = _Q10_QTR_END) -> dict:
+    """``tpch_q10_numpy`` vectorized, as arrays ``custkey, nationkey,
+    revenue`` in the query's order (revenue descending, then custkey
+    ascending, the groupby's key order)."""
+    odate = _host(orders, O_ORDERDATE)
+    in_qtr = (odate >= qtr_start) & (odate < qtr_end)
+    ret = _host(lineitem, L10_RETURNFLAG) == ord("R")
+    found, cust = _host_lookup(_host(orders, O_ORDERKEY)[in_qtr],
+                               _host(orders, O_CUSTKEY)[in_qtr],
+                               _host(lineitem, L3_ORDERKEY)[ret])
+    cust = cust[found]
+    has_c, nat = _host_lookup(_host(customer, C5_CUSTKEY),
+                              _host(customer, C5_NATIONKEY), cust)
+    rev = (_host(lineitem, L3_EXTENDEDPRICE)[ret]
+           * (100 - _host(lineitem, L3_DISCOUNT)[ret]))[found][has_c]
+    cust, nat = cust[has_c], nat[has_c]
+    keys, first, inv = np.unique(cust, return_index=True,
+                                 return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, rev)
+    order = np.lexsort((keys, -sums))
+    return {"custkey": keys[order], "nationkey": nat[first][order],
+            "revenue": sums[order]}

@@ -8,7 +8,8 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``tpcds_q72_planned``, ``tpcds_q64``, ``tpcds_q64_planned``,
 ``tpcds_q3``, ``tpch_q12``, ``tpch_q12_planned``, ``tpch_q4``,
 ``tpch_q4_planned``, ``tpch_q14``, ``tpch_q14_planned``, ``tpch_q5``,
-``tpch_q6``) select some of them.
+``tpch_q6``, ``cast_decimal``, ``cast_float``, ``cast_date``, ``q19``,
+``q19_planned``, ``q17``, ``q10``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -19,7 +20,12 @@ and planned, then for the TPC-DS plans at scale factor 10 (store_sales
 500,000; the generators' 730-day date_dim and 10,710,000-row
 inventory), then for the string TPC-H plans and q6 at scale factor 10
 (lineitem 59,986,052 rows, orders 15,000,000, part 2,000,000, customer
-1,500,000, supplier 100,000), after a warm-up: the wall time per run (host clock around
+1,500,000, supplier 100,000), then for the parse casts of SF10 lineitem
+text (l_extendedprice to decimal64(-2) and FLOAT64, l_shipdate to DATE,
+59,986,052 rows each, rendered by the port's own number -> string casts)
+and for TPC-H q19, planned q19, q17 and q10 at scale factor 10 (q10's
+lineitem is q3's with a seeded l_returnflag appended), after a warm-up:
+the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
 share of the window (their summed device time over the window's wall
@@ -37,7 +43,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import numpy as np
+
+from spark_rapids_jni_tpu_torch import types as t
+from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
@@ -53,6 +64,7 @@ DS_ITEMS, DS_CUSTOMERS = 102_000, 500_000
 REPS = 5
 Q3_REPS = 2
 Q1_PATHS = ("q1_planned", "q1_fused", "to_rows", "q1_general")
+MORE_PATHS = ("q19", "q19_planned", "q17", "q10")
 
 
 def device_us(evt) -> float:
@@ -118,6 +130,10 @@ def main(only: list[str]) -> int:
         profile_tpcds(run)
     if wanted("tpch_"):
         profile_strings(run)
+    if wanted("cast_"):
+        profile_casts(run)
+    if not only or set(only) & set(MORE_PATHS):
+        profile_more(run)
     return 0
 
 
@@ -178,6 +194,36 @@ def profile_strings(run) -> None:
     del q5
     li = tpch.lineitem_table(ROWS, seed=0)
     run("tpch_q6", lambda: tpch.tpch_q6(li))
+
+
+
+def profile_casts(run) -> None:
+    li = tpch.lineitem_table(ROWS, seed=0)
+    price = cs.decimal_to_string(li.column(tpch.L_EXTENDEDPRICE))
+    ship = cs.date_to_string(li.column(tpch.L_SHIPDATE))
+    del li
+    run("cast_decimal", lambda: cs.string_to_decimal(price, t.decimal64(-2)))
+    run("cast_float", lambda: cs.string_to_float(price, t.FLOAT64))
+    run("cast_date", lambda: cs.string_to_date(ship))
+    del price, ship
+    torch.cuda.empty_cache()
+
+
+def profile_more(run) -> None:
+    part = tpch.part_table(PARTS)
+    li = tpch.lineitem_q19_table(ROWS, PARTS)
+    run("q19", lambda: tpch.tpch_q19(part, li), Q3_REPS)
+    run("q19_planned", lambda: tpch.tpch_q19_planned(part, li), Q3_REPS)
+    run("q17", lambda: tpch.tpch_q17(part, li), Q3_REPS)
+    del part, li
+    li3 = tpch.lineitem_q3_table(ROWS, ORDERS)
+    flags = np.random.default_rng(10).choice(
+        np.frombuffer(b"ANR", np.int8), ROWS)
+    q10 = (tpch.customer_q5_table(CUSTOMERS),
+           tpch.orders_table(ORDERS, CUSTOMERS),
+           Table(list(li3.columns) + [Column.from_numpy(flags, t.INT8)]))
+    del li3
+    run("q10", lambda: tpch.tpch_q10(*q10), Q3_REPS)
 
 
 if __name__ == "__main__":

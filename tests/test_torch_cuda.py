@@ -37,7 +37,17 @@ from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     convert_from_rows,
     convert_to_rows,
 )
-from torch_parity import EDGE_ROWS, LEVEL_CASES, level_case
+from spark_rapids_jni_tpu_torch.ops import cast_strings as pcs
+from torch_parity import (
+    EDGE_ROWS,
+    LEVEL_CASES,
+    arrow_strings,
+    bench_strings,
+    level_case,
+    mixed_float_strings,
+    null_tail,
+    seeded_cast_strings,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -663,3 +673,142 @@ def test_probe_kernel_at_q4_semi_join(dev):
     assert 0.55 < s / build.shape[0] < 0.75
     assert int(build[:s].unique().numel()) < s // 4
     _probe_kernel_equal(build, probe)
+
+
+# ---- CastStrings and TPC-H q19, q17, q10 --------------------------------------
+
+def _same_bytes(a: Column, b: Column) -> None:
+    """Two columns of one cast on two devices: the same type, every data
+    byte (under nulls too), the validity tri-state and, for STRING, the
+    offsets and chars."""
+    assert a.dtype == b.dtype
+    assert a.data.dtype == b.data.dtype and a.data.shape == b.data.shape
+    assert a.data.cpu().numpy().tobytes() == b.data.cpu().numpy().tobytes()
+    assert (a.validity is None) == (b.validity is None)
+    if a.validity is not None:
+        assert torch.equal(a.validity.cpu(), b.validity.cpu())
+    assert (a.chars is None) == (b.chars is None)
+    if a.chars is not None:
+        assert torch.equal(a.chars.cpu(), b.chars.cpu())
+
+
+_CAST_TARGETS = [("string_to_integer", t.INT64), ("string_to_integer", t.INT8),
+                 ("string_to_integer", t.UINT64),
+                 ("string_to_integer", t.UINT32),
+                 ("string_to_decimal", t.decimal64(-2)),
+                 ("string_to_decimal", t.decimal32(-3)),
+                 ("string_to_decimal", t.decimal64(2)),
+                 ("string_to_float", t.FLOAT64), ("string_to_float", t.FLOAT32),
+                 ("string_to_boolean", None), ("string_to_date", None),
+                 ("string_to_timestamp", None)]
+
+
+def _cast_string_columns(values, valid, device):
+    offsets, chars, vmask = arrow_strings(values, valid)
+    return Column.from_numpy(offsets, t.STRING, vmask, device=device,
+                             chars=chars)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_parse_casts_on_the_card_match_cpu(dev, n):
+    # every parse cast on CUDA tensors against the same function on the
+    # CPU over the same bytes: exact, the float parses included
+    vals = seeded_cast_strings(n, n)
+    valid = null_tail(n, n)
+    card = _cast_string_columns(vals, valid, dev)
+    cpu = _cast_string_columns(vals, valid, "cpu")
+    for fn, dtype in _CAST_TARGETS:
+        args = () if dtype is None else (dtype,)
+        _same_bytes(getattr(pcs, fn)(card, *args),
+                    getattr(pcs, fn)(cpu, *args))
+
+
+@pytest.mark.parametrize("which", ["mixed", "bench"])
+def test_float_parse_on_the_card_is_bit_equal_to_cpu(dev, which):
+    vals = mixed_float_strings(20_000, 17) if which == "mixed" \
+        else bench_strings(20_000)
+    card = _cast_string_columns(vals, None, dev)
+    cpu = _cast_string_columns(vals, None, "cpu")
+    for dtype in (t.FLOAT64, t.FLOAT32):
+        _same_bytes(pcs.string_to_float(card, dtype),
+                    pcs.string_to_float(cpu, dtype))
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_number_to_string_on_the_card_matches_cpu(dev, n):
+    rng = np.random.default_rng(n)
+    valid = null_tail(n, n)
+    cases = [
+        ("integer_to_string", rng.integers(-2**63, 2**63 - 1, n,
+                                           dtype=np.int64), t.INT64),
+        ("integer_to_string", rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                                           endpoint=True), t.UINT64),
+        ("integer_to_string", rng.integers(0, 2**32, n).astype(np.uint32),
+         t.UINT32),
+        ("integer_to_string", rng.integers(-128, 128, n).astype(np.int8),
+         t.INT8),
+        ("decimal_to_string", rng.integers(-10**12, 10**12, n),
+         t.decimal64(-2)),
+        ("decimal_to_string", rng.integers(-10**9 + 1, 10**9, n).astype(
+            np.int32), t.decimal32(-9)),
+        ("decimal_to_string", rng.integers(-10**6, 10**6, n),
+         t.decimal64(3)),
+        ("boolean_to_string", rng.integers(0, 2, n).astype(np.uint8),
+         t.BOOL8),
+        ("date_to_string", rng.integers(-2**31, 2**31, n,
+                                        dtype=np.int64).astype(np.int32),
+         t.TIMESTAMP_DAYS),
+    ]
+    for fn, data, dtype in cases:
+        for vmask in (None, valid):
+            card = Column.from_numpy(data, dtype, vmask, device=dev)
+            cpu = Column.from_numpy(data, dtype, vmask, device="cpu")
+            _same_bytes(getattr(pcs, fn)(card), getattr(pcs, fn)(cpu))
+
+
+def _tpch_more_tables(device):
+    """Small tables of q19, q17 and q10 (q10's lineitem is q3's with an
+    INT8 l_returnflag drawn from b"ANR" appended)."""
+    part = tpch.part_table(3000, device=device)
+    li19 = tpch.lineitem_q19_table(40000, 3000, device=device)
+    flags = np.random.default_rng(3).choice(np.frombuffer(b"ANR", np.int8),
+                                            40000)
+    li3 = tpch.lineitem_q3_table(40000, 3000, device=device)
+    li10 = Table(list(li3.columns)
+                 + [Column.from_numpy(flags, t.INT8, device=device)])
+    return dict(q19=(part, li19), q17=(part, li19),
+                q10=(tpch.customer_q5_table(300, device=device),
+                     tpch.orders_table(3000, 300, device=device), li10))
+
+
+@pytest.mark.parametrize("plan,tables,want", [
+    ("tpch_q19", "q19", {khp.NAME: 1}),
+    ("tpch_q19_planned", "q19", {}),
+    ("tpch_q17", "q17", {khp.NAME: 2}),
+    ("tpch_q10", "q10", {})])
+def test_more_tpch_plans_launch_their_kernels(dev, plan, tables, want):
+    # D once per general join, nothing else; the card's result equals
+    # the CPU's
+    card = _tpch_more_tables(dev)[tables]
+    cpu = _tpch_more_tables("cpu")[tables]
+    kernels.reset_counts()
+    got = getattr(tpch, plan)(*card)
+    torch.cuda.synchronize()
+    assert kernels.launches() == want
+    assert kernels.fallbacks() == {}
+    ref = getattr(tpch, plan)(*cpu)
+    if plan == "tpch_q10":
+        assert got.result.compact().equals(ref.result.compact())
+        assert int(got.join_total) == int(ref.join_total)
+        assert not bool(got.pk_violation)
+    else:
+        assert [int(v) for v in got] == [int(v) for v in ref]
+
+
+def test_probe_kernel_at_q19_and_q17_joins(dev):
+    part, li = _tpch_more_tables(dev)["q19"]
+    build, _, probe = tpch.q19_probe_inputs(part, li)
+    _probe_kernel_equal(build, probe)
+    for build, n_valid, probe in tpch.q17_probe_inputs(part, li):
+        assert 0 < int(n_valid) < build.shape[0]
+        _probe_kernel_equal(build, probe)

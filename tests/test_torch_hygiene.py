@@ -53,6 +53,8 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.ops.kernels.q1, "
             "spark_rapids_jni_tpu_torch.ops.row_conversion, "
             "spark_rapids_jni_tpu_torch.ops.join, "
+            "spark_rapids_jni_tpu_torch.ops.cast_strings, "
+            "spark_rapids_jni_tpu_torch.telemetry, "
             "spark_rapids_jni_tpu_torch.profile_paths, "
             "spark_rapids_jni_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -70,6 +72,8 @@ def test_entry_point_refuses_quiet_cpu_fallback():
         tpch.lineitem_table(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpcds.store_sales_table(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpch.lineitem_q19_table(8, 4)
 
 
 def test_registered_kernels_declare_oracle_and_source():

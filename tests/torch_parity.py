@@ -6,6 +6,8 @@ tests, which run where JAX is absent, can import this module."""
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -209,3 +211,196 @@ def level_case(case, dtype, top_keys, seed=11):
         keys + np.asarray(1, dtype),  # the max wraps to the min
         rng.integers(-200, 200, 513).astype(dtype)])
     return build, probe
+
+
+# ---- CastStrings: inputs shared by the CPU and card tests, and the parity
+# helpers of the CPU tests -----------------------------------------------------
+
+def arrow_strings(values, valid=None):
+    """(offsets, chars, validity) of a list of str/bytes (None: an empty
+    null row); ``valid`` overrides the validity, keeping every row's
+    bytes."""
+    chunks = [b"" if v is None else v.encode() if isinstance(v, str) else v
+              for v in values]
+    offsets = np.zeros(len(chunks) + 1, np.int32)
+    np.cumsum([len(c) for c in chunks], out=offsets[1:])
+    chars = np.frombuffer(b"".join(chunks), np.uint8).copy()
+    if valid is None:
+        valid = np.array([v is not None for v in values], bool)
+    return offsets, chars, None if valid.all() else valid
+
+
+def seeded_cast_strings(n: int, seed: int) -> list:
+    """Mixed numeric, date, boolean and garbage strings, with whitespace
+    and overlong rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in rng.integers(0, 10, n):
+        if k == 0:
+            out.append(str(int(rng.integers(-2**63, 2**63 - 1))))
+        elif k == 1:
+            out.append(f"{int(rng.integers(-10**7, 10**7))}."
+                       f"{int(rng.integers(0, 100)):02d}")
+        elif k == 2:
+            out.append(repr(float(rng.standard_normal()
+                                  * 10.0 ** rng.integers(-30, 30))))
+        elif k == 3:
+            y, m, d = (int(rng.integers(1, 10000)), int(rng.integers(0, 14)),
+                       int(rng.integers(0, 33)))
+            out.append(f"{y:04d}-{m}-{d:02d}")
+        elif k == 4:
+            out.append(["true", "F", "yes", "0", "no", "maybe"][
+                int(rng.integers(0, 6))])
+        elif k == 5:
+            out.append(" " * int(rng.integers(0, 4))
+                       + str(int(rng.integers(-999, 999)))
+                       + "\t" * int(rng.integers(0, 3)))
+        elif k == 6:
+            out.append(f"{rng.uniform(-1e6, 1e6):.6f}e"
+                       f"{int(rng.integers(-40, 40))}")
+        elif k == 7:
+            out.append("9" * int(rng.integers(17, 36)))
+        elif k == 8:
+            out.append(f"2020-0{int(rng.integers(1, 10))}-1"
+                       f"{int(rng.integers(0, 10))} "
+                       f"{int(rng.integers(0, 25))}:0{int(rng.integers(0, 10))}"
+                       f":3{int(rng.integers(0, 10))}."
+                       f"{int(rng.integers(0, 10**7))}")
+        else:
+            out.append(bytes(rng.integers(0, 256, int(rng.integers(0, 12)))
+                             .astype(np.uint8)))
+    return out
+
+
+def null_tail(n: int, seed: int) -> np.ndarray:
+    """Validity with random nulls and the last quarter null."""
+    rng = np.random.default_rng(seed + 1)
+    valid = rng.random(n) > 0.2
+    valid[-max(1, n // 4):] = False
+    return valid
+
+
+def mixed_float_strings(n: int, seed: int) -> list:
+    """m.ff, repr of floats across 1e+-20, 17-digit fractions, and
+    integers with exponents out to +-330."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in rng.integers(0, 5, n):
+        if k == 0:
+            out.append(f"{int(rng.integers(-10**7, 10**7))}."
+                       f"{int(rng.integers(0, 100)):02d}")
+        elif k == 1:
+            out.append(repr(float((-1) ** int(rng.integers(0, 2))
+                                  * 10.0 ** rng.uniform(-20, 20))))
+        elif k == 2:
+            out.append(f"{int(rng.integers(0, 1000))}."
+                       + "".join(str(d) for d in rng.integers(0, 10, 17)))
+        elif k == 3:
+            out.append(f"{int(rng.integers(1, 10**6))}e"
+                       f"{int(rng.integers(-330, 331))}")
+        else:
+            out.append(f"{int(rng.integers(1, 10**15))}e"
+                       f"{int(rng.integers(-40, 41))}")
+    return out
+
+
+def bench_strings(n: int) -> list:
+    """``bench.py``'s CastStrings column: 4,096 ``"{m}.{ff}"`` templates
+    (|m| < 1e7) from seed 0, tiled to n rows."""
+    rng = np.random.default_rng(0)
+    pool = []
+    for _ in range(min(n, 4096)):
+        mant = rng.integers(-10_000_000, 10_000_000)
+        frac = rng.integers(0, 100)
+        pool.append(f"{mant}.{frac:02d}")
+    return (pool * (n // len(pool) + 1))[:n]
+
+
+def both_strings(values, valid=None):
+    """The same Arrow STRING column in the port (CPU) and the reference."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    offsets, chars, vmask = arrow_strings(values, valid)
+    port = Column.from_numpy(offsets, t.STRING, vmask, device="cpu",
+                             chars=chars)
+    ref = jax_table([(int(t.TypeId.STRING), 0, (offsets, chars),
+                      vmask)]).column(0)
+    return port, ref
+
+
+def both_fixed(data: np.ndarray, tid, scale=0, valid=None):
+    """The same fixed-width column in the port (CPU) and the reference."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    port = Column.from_numpy(data, t.DType(t.TypeId(int(tid)), scale),
+                             valid, device="cpu")
+    return port, jax_table([(int(tid), scale, data, valid)]).column(0)
+
+
+def assert_same_column(got, want) -> None:
+    """``assert_same_table`` of one port column and one JAX column."""
+    from spark_rapids_jni_tpu.columnar import Table as JTable
+    from spark_rapids_jni_tpu_torch.columnar import Table
+
+    assert_same_table(Table([got]), JTable([want]))
+
+
+# the parse casts by kind: (function name, takes a dtype)
+CASTS = {"integer": ("string_to_integer", True),
+         "decimal": ("string_to_decimal", True),
+         "float": ("string_to_float", True),
+         "boolean": ("string_to_boolean", False),
+         "date": ("string_to_date", False),
+         "timestamp": ("string_to_timestamp", False)}
+_cast_references: dict = {}
+
+
+def cast_dtypes(name):
+    """(port dtype, reference dtype) by name: "INT64", "decimal64:-2"."""
+    from spark_rapids_jni_tpu import types as jt
+    from spark_rapids_jni_tpu_torch import types as t
+
+    if name.startswith("decimal"):
+        kind, scale = name.split(":")
+        return getattr(t, kind)(int(scale)), getattr(jt, kind)(int(scale))
+    return getattr(t, name), getattr(jt, name)
+
+
+def cast_port(kind, dtype_name, col):
+    """The port's parse cast ``kind`` (to ``dtype_name``) of ``col``."""
+    from spark_rapids_jni_tpu_torch.ops import cast_strings as pcs
+
+    fn, typed = CASTS[kind]
+    if typed:
+        return getattr(pcs, fn)(col, cast_dtypes(dtype_name)[0])
+    return getattr(pcs, fn)(col)
+
+
+def cast_reference(kind, dtype_name):
+    """The reference's parse cast, one callable per (kind, dtype) so that
+    its compiles are shared between tests: traced into one XLA program
+    for the exact casts (one compile per shape, not one per operation),
+    eager for the float parse, which the trace could fuse differently."""
+    import jax
+
+    from spark_rapids_jni_tpu.ops import cast_strings as jcs
+
+    key = (kind, dtype_name)
+    if key not in _cast_references:
+        fn, typed = CASTS[kind]
+        fn = getattr(jcs, fn)
+        if typed:
+            fn = partial(fn, dtype=cast_dtypes(dtype_name)[1])
+        _cast_references[key] = fn if kind == "float" else jax.jit(fn)
+    return _cast_references[key]
+
+
+def check_parse(kind, dtype_name, values, valid=None):
+    """The port's and the reference's cast of the same strings are the
+    same column; returns the port's."""
+    port, ref = both_strings(values, valid)
+    got = cast_port(kind, dtype_name, port)
+    assert_same_column(got, cast_reference(kind, dtype_name)(ref))
+    return got

@@ -74,7 +74,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    it and the loop oracle's differ must be exact ties, and are
    reported) and planned q19 to q19, their host times and the phase's
    peak device memory;
-11. one ``{"kernels": [...]}`` line, the card line, and the final
+11. Spark's row hash, hash partitioning, the runtime bloom filter, the
+   datetime ops, string-keyed q1 and q13 at scale factor 10, none of
+   which launches a kernel of A-D (checked with the counts reset before
+   each): ``table_xxhash64`` over lineitem (59,986,052 rows, 7 columns),
+   over q12's lineitem (a STRING l_shipmode) and over one DECIMAL128
+   column at every byte count, and ``partition_hash`` of q3's l_orderkey
+   into 200 partitions, each equal on a seeded 4,000,000-row sample to a
+   numpy XXH64 written here from the public spec; the q3-shaped runtime
+   filter (``bloom_put_spark`` of the 15,000,000 orders before q3's
+   cutoff, sized by ``optimal_params(n, 0.03)``) with its bits equal to
+   a numpy putLong oracle, the merge of two halves equal to the whole,
+   and ``bloom_might_contain_spark`` of every lineitem order key with no
+   false negative and a false-positive share of at most 0.035; every
+   datetime function over l_shipdate, a microsecond timestamp made from
+   it and q12's receipt and commit dates, equal to a per-day table from
+   Python's datetime; the general q1 over ``lineitem_table_strings``
+   equal to the INT8 general q1 and the numpy oracle, and
+   ``tpch_q13_reference`` over the SF10 orders equal to ``np.bincount``;
+   each path's host time (median of 3) beside its byte bound, and each
+   part's peak device memory (under 40 GiB);
+12. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -377,7 +397,8 @@ def path_phases(li):
     s_fused = host_median_s(lambda: kq1.tpch_q1_pallas(li))
     log(f"q1 planned: {s_planned * 1e3:.3f} ms, {n / s_planned:.4g} rows/s; "
         f"q1 fused: {s_fused * 1e3:.3f} ms, {n / s_fused:.4g} rows/s")
-    return launches, {"q1_planned_s": s_planned, "q1_fused_s": s_fused}
+    return launches, {"q1_planned_s": s_planned, "q1_fused_s": s_fused}, \
+        oracle
 
 
 def general_q1_phase(li) -> dict:
@@ -399,7 +420,7 @@ def general_q1_phase(li) -> dict:
     s = host_median_s(lambda: tpch.tpch_q1(li))
     log(f"general q1: first 6 rows bit-identical to planned; "
         f"{s * 1e3:.3f} ms, {li.num_rows / s:.4g} rows/s")
-    return {"q1_general_s": s}
+    return {"q1_general_s": s}, general
 
 
 def q3_tables():
@@ -1178,6 +1199,627 @@ def more_plans_phase() -> tuple:
     return d_rows, launches, {"plans": times, "peak_gib": peak}
 
 
+# ---- phase 11: Spark's row hash, hash partitioning, the runtime bloom
+# filter, the datetime ops, string-keyed q1 and q13 ---------------------------
+
+HASH_SAMPLE = 4_000_000  # rows of the numpy XXH64 oracle (seeded sample)
+SHUFFLE_PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
+
+
+def np_xxh64_fixed(mat, seeds):
+    """XXH64 (the public spec) of each row of the (n, L) uint8 matrix, all
+    rows L bytes long, with per-row uint64 seeds; numpy uint64 lanes."""
+    import numpy as np
+
+    p1, p2, p3, p4, p5 = (np.uint64(p) for p in (
+        0x9E3779B185EBCA87, 0xC2B2AE3D4F54DE4F, 0x165667B19E3779F9,
+        0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5))
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    n, length = mat.shape
+    u = mat.astype(np.uint64)
+
+    def word(p, k):
+        w = np.zeros(n, np.uint64)
+        for i in range(k):
+            w |= u[:, p + i] << np.uint64(8 * i)
+        return w
+
+    pos = 0
+    with np.errstate(over="ignore"):
+        if length >= 32:
+            v = [seeds + p1 + p2, seeds + p2, seeds.copy(), seeds - p1]
+            while pos + 32 <= length:
+                for i in range(4):
+                    v[i] = rotl(v[i] + word(pos + 8 * i, 8) * p2, 31) * p1
+                pos += 32
+            h = rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) \
+                + rotl(v[3], 18)
+            for vi in v:
+                h = (h ^ (rotl(vi * p2, 31) * p1)) * p1 + p4
+        else:
+            h = seeds + p5
+        h = h + np.uint64(length)
+        while pos + 8 <= length:
+            h = rotl(h ^ (rotl(word(pos, 8) * p2, 31) * p1), 27) * p1 + p4
+            pos += 8
+        if pos + 4 <= length:
+            h = rotl(h ^ (word(pos, 4) * p1), 23) * p2 + p3
+            pos += 4
+        while pos < length:
+            h = rotl(h ^ (u[:, pos] * p5), 11) * p1
+            pos += 1
+        h ^= h >> np.uint64(33)
+        h *= p2
+        h ^= h >> np.uint64(29)
+        h *= p3
+        h ^= h >> np.uint64(32)
+    return h
+
+
+def np_xxh64_rows(mat, lengths, seeds):
+    """XXH64 of each row's first ``lengths[i]`` bytes of ``mat``, rows
+    grouped by length."""
+    import numpy as np
+
+    out = np.empty(len(lengths), np.uint64)
+    for length in np.unique(lengths):
+        rows = lengths == length
+        out[rows] = np_xxh64_fixed(mat[rows, :length], seeds[rows])
+    return out
+
+
+def _le_bytes(values, dtype):
+    """(n, itemsize) little-endian bytes of ``values`` as ``dtype``."""
+    import numpy as np
+
+    v = np.ascontiguousarray(values.astype(np.dtype(dtype).newbyteorder("<")))
+    return v.view(np.uint8).reshape(len(v), -1)
+
+
+def _decimal128_bytes(limbs):
+    """(n, 16) big-endian bytes and the minimal byte count (Java's
+    BigInteger.toByteArray: bitLength // 8 + 1, bitLength of v or ~v)."""
+    import numpy as np
+
+    lo, hi = limbs[:, 0], limbs[:, 1]
+    be = np.concatenate([hi.astype(">i8").view(np.uint8).reshape(-1, 8),
+                         lo.astype(">i8").view(np.uint8).reshape(-1, 8)], 1)
+    neg = hi < 0
+
+    def bit_length(x):
+        x = x.view(np.uint64).copy()
+        n = (x != 0).astype(np.int64)
+        for s in (32, 16, 8, 4, 2, 1):
+            big = (x >> np.uint64(s)) != 0
+            n += np.where(big, s, 0)
+            x = np.where(big, x >> np.uint64(s), x)
+        return n
+
+    xh = np.where(neg, ~hi, hi)
+    bits = np.where(xh != 0, 64 + bit_length(xh),
+                    bit_length(np.where(neg, ~lo, lo)))
+    return be, bits // 8 + 1
+
+
+def _host_string_rows(col, rows):
+    """(uint8 (k, W) zero-padded bytes, int64 lengths) of the given rows
+    of an Arrow STRING column, read from its buffers on the host."""
+    import numpy as np
+
+    offsets = col.data.cpu().numpy().astype(np.int64)
+    chars = col.chars.cpu().numpy()
+    starts, lens = offsets[rows], offsets[rows + 1] - offsets[rows]
+    mat = np.zeros((len(rows), max(int(lens.max(initial=0)), 1)), np.uint8)
+    for j in range(mat.shape[1]):
+        has = lens > j
+        mat[has, j] = chars[starts[has] + j]
+    return mat, lens
+
+
+def np_table_hash(table, rows, seed: int = 42):
+    """Spark's row hash of ``rows`` of the table on the host: each value's
+    bytes (hashInt: the int32 value, hashLong: the 8 bytes, -0.0 made
+    0.0, DECIMAL128: the minimal big-endian bytes, STRING: its bytes)
+    hashed with the running hash as seed; int64 bits."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.types import TypeId
+
+    rows_t = torch.from_numpy(rows)
+    h = np.full(len(rows), seed, np.uint64)
+    for col in table.columns:
+        tid = col.dtype.type_id
+        valid = col.valid_mask()[rows_t.to(col.device)].cpu().numpy()
+        if tid == TypeId.STRING:
+            mat, lens = _host_string_rows(col, rows)
+            hashed = np_xxh64_rows(mat, lens, h)
+        elif col.dtype.is_decimal128:
+            be, nbytes = _decimal128_bytes(
+                col.data[rows_t.to(col.device)].cpu().numpy())
+            left = np.zeros_like(be)
+            for k in range(16):  # left-align the minimal bytes
+                src = np.clip(16 - nbytes + k, 0, 15)
+                left[:, k] = be[np.arange(len(be)), src]
+            hashed = np_xxh64_rows(left, nbytes, h)
+        else:
+            v = col.data[rows_t.to(col.device)].cpu().numpy()
+            if v.dtype.kind == "f":
+                v = np.where(v == 0, v.dtype.type(0), v)
+                hashed = np_xxh64_fixed(v.view(np.uint8).reshape(
+                    len(v), -1), h)
+            elif v.dtype.itemsize <= 4:
+                hashed = np_xxh64_fixed(_le_bytes(v, np.int32), h)
+            else:
+                hashed = np_xxh64_fixed(_le_bytes(v, np.int64), h)
+        h = np.where(valid, hashed, h)
+    return h.view(np.int64)
+
+
+def np_murmur3_long(values, seed):
+    """Murmur3_x86_32.hashLong (Spark) in numpy uint32 lanes."""
+    import numpy as np
+
+    def rotl32(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    v = values.view(np.uint64)
+    h1 = np.broadcast_to(np.asarray(seed, np.uint32), v.shape).copy()
+    with np.errstate(over="ignore"):
+        for word in ((v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                     (v >> np.uint64(32)).astype(np.uint32)):
+            k1 = rotl32(word * np.uint32(0xCC9E2D51), 15) \
+                * np.uint32(0x1B873593)
+            h1 = rotl32(h1 ^ k1, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+        h1 ^= np.uint32(8)
+        h1 = (h1 ^ (h1 >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+        h1 = (h1 ^ (h1 >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        return h1 ^ (h1 >> np.uint32(16))
+
+
+def np_spark_bloom_bits(keys, num_bits: int, num_hashes: int):
+    """Spark's BloomFilterAggregate on the host: xxhash64(key, 42), then
+    BloomFilterImpl.putLong; one byte per bit."""
+    import numpy as np
+
+    pre = np_xxh64_fixed(_le_bytes(keys, np.int64),
+                         np.full(len(keys), 42, np.uint64)).view(np.int64)
+    h1 = np_murmur3_long(pre, np.uint32(0))
+    h2 = np_murmur3_long(pre, h1)
+    bits = np.zeros(num_bits, np.uint8)
+    with np.errstate(over="ignore"):
+        for i in range(1, num_hashes + 1):
+            c = (h1 + np.uint32(i) * h2).view(np.int32)
+            c = np.where(c < 0, ~c, c)
+            bits[c.astype(np.int64) % num_bits] = 1
+    return bits
+
+
+def _timed(what: str, fn, nbytes: int, rows: int) -> dict:
+    """Host median of 3 of ``fn()`` beside its byte bound."""
+    s = host_median_s(fn)
+    b_ms, _ = bound(nbytes, 0)
+    log(f"{what}: {s * 1e3:.3f} ms, {rows / s:.4g} rows/s (byte bound "
+        f"{b_ms:.3f} ms)")
+    return {"s": s, "rows_per_s": rows / s, "bound_ms": b_ms}
+
+
+def _no_launch(name: str, fn):
+    """``fn()`` with the counts set to 0 just before it and read just
+    after: these paths launch no kernel of A-D and fall back nowhere."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    require(kernels.launches() == {} and not kernels.fallbacks(),
+            f"{name}: launches {kernels.launches()}, fallbacks "
+            f"{kernels.fallbacks()}")
+    return res
+
+
+def _sample_rows(n: int, k: int, seed: int):
+    import numpy as np
+
+    return np.sort(np.random.default_rng(seed).choice(n, min(k, n),
+                                                      replace=False))
+
+
+def hash_phase(li, li12, dev) -> dict:
+    """``table_xxhash64`` over lineitem, q12's lineitem (a STRING column)
+    and one DECIMAL128 column, ``partition_hash`` over q3's l_orderkey,
+    each held to the numpy oracle on a seeded sample."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops.hash import (
+        partition_hash,
+        table_xxhash64,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    rows = _sample_rows(ROWS, HASH_SAMPLE, 12)
+
+    def check(what, table, got):
+        t0 = time.perf_counter()
+        want = np_table_hash(table, rows)
+        require(np.array_equal(got[torch.from_numpy(rows).to(dev)].cpu()
+                               .numpy(), want),
+                f"{what}: row hash differs from the numpy XXH64")
+        log(f"{what}: {len(rows)} sampled rows equal to the numpy XXH64 "
+            f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    got = _no_launch("hash lineitem", lambda: table_xxhash64(li))
+    check("table_xxhash64(lineitem, 7 columns)", li, got)
+    times["hash_lineitem"] = _timed(
+        "table_xxhash64(lineitem)", lambda: table_xxhash64(li),
+        distinct_bytes([c.data for c in li.columns]) + got.nbytes, ROWS)
+    del got
+
+    got = _no_launch("hash q12 lineitem", lambda: table_xxhash64(li12))
+    check("table_xxhash64(q12 lineitem, STRING l_shipmode)", li12, got)
+    times["hash_q12_lineitem"] = _timed(
+        "table_xxhash64(q12 lineitem)", lambda: table_xxhash64(li12),
+        distinct_bytes([c.data for c in li12.columns]
+                       + [li12.column(1).chars]) + got.nbytes, ROWS)
+    del got
+
+    # one DECIMAL128 column across the signed range, at every byte count:
+    # the high limb shifted right by 0..63 bits, and where that leaves
+    # only sign bits, the low limb shifted too
+    rng = np.random.default_rng(13)
+    hi = rng.integers(-2**63, 2**63 - 1, ROWS, dtype=np.int64, endpoint=True)
+    hi >>= rng.integers(0, 64, ROWS)
+    lo = rng.integers(-2**63, 2**63 - 1, ROWS, dtype=np.int64, endpoint=True)
+    short = rng.integers(0, 64, ROWS)
+    mag = np.abs(lo >> 1) >> short
+    lo = np.where(hi == 0, mag, np.where(hi == -1, ~mag, lo))
+    dec = Table([Column.from_numpy(np.stack([lo, hi], 1), t.decimal128(-2))])
+    del hi, lo, short, mag
+    got = _no_launch("hash decimal128", lambda: table_xxhash64(dec))
+    check("table_xxhash64(DECIMAL128)", dec, got)
+    times["hash_decimal128"] = _timed(
+        "table_xxhash64(DECIMAL128)", lambda: table_xxhash64(dec),
+        dec.column(0).data.nbytes + got.nbytes, ROWS)
+    del dec, got
+
+    li3 = tpch.lineitem_q3_table(ROWS, Q3_ORDERS)
+    keys = Table([li3.column(tpch.L3_ORDERKEY)])
+    del li3
+    parts = _no_launch("partition_hash", lambda: partition_hash(
+        keys, [0], SHUFFLE_PARTITIONS))
+    want = np_table_hash(keys, rows) % SHUFFLE_PARTITIONS
+    require(np.array_equal(parts[torch.from_numpy(rows).to(dev)].cpu()
+                           .numpy(), want.astype(np.int32)),
+            "partition_hash differs from the numpy oracle")
+    counts = torch.bincount(parts.to(torch.int64),
+                            minlength=SHUFFLE_PARTITIONS)
+    require(int(counts.sum()) == ROWS and len(counts) == SHUFFLE_PARTITIONS,
+            "partition counts do not sum to the rows")
+    log(f"partition_hash(l_orderkey, {SHUFFLE_PARTITIONS}): {len(rows)} "
+        f"sampled rows equal to the numpy oracle; counts sum to {ROWS}; "
+        f"largest {int(counts.max())}, smallest {int(counts.min())}")
+    times["partition_hash"] = _timed(
+        f"partition_hash(l_orderkey, {SHUFFLE_PARTITIONS})",
+        lambda: partition_hash(keys, [0], SHUFFLE_PARTITIONS),
+        keys.column(0).data.nbytes + parts.nbytes, ROWS)
+    times["partition_hash"].update(largest=int(counts.max()),
+                                   smallest=int(counts.min()))
+    del keys, parts, counts
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"hash phase peak {peak:.2f} GiB")
+    log(f"peak device memory of the hash phase {peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak}
+
+
+def bloom_phase() -> dict:
+    """Spark's runtime join filter shaped on q3: built from the orders
+    before q3's cutoff, probed with every lineitem order key."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as bf
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    okey = orders.column(tpch.O_ORDERKEY).data
+    keep = orders.column(tpch.O_ORDERDATE).data < tpch._Q3_CUTOFF_DAYS
+    del orders
+    n_build = int(keep.sum())
+    m, k = bf.optimal_params(n_build, 0.03)
+    empty = bf.BloomFilter.empty(m, k)
+
+    def build():
+        return bf.bloom_put_spark(empty, okey, keep)
+
+    f = _no_launch("bloom build", build)
+    keys_host = okey.cpu().numpy()[keep.cpu().numpy()]
+    t0 = time.perf_counter()
+    want = np_spark_bloom_bits(keys_host, m, k)
+    require(np.array_equal(f.bits.cpu().numpy(), want),
+            "bloom bits differ from the numpy putLong oracle")
+    log(f"bloom build: {n_build} keys, {m} bits, {k} hashes; bits equal to "
+        f"the numpy putLong oracle ({time.perf_counter() - t0:.1f} s on "
+        f"the host)")
+    half = Q3_ORDERS // 2
+    merged = bf.bloom_merge(
+        bf.bloom_put_spark(empty, okey[:half], keep[:half]),
+        bf.bloom_put_spark(empty, okey[half:], keep[half:]))
+    require(torch.equal(merged.bits, f.bits),
+            "bloom_merge of the halves differs from the whole build")
+    require(torch.equal(bf.BloomFilter.from_packed(
+        f.to_packed(), m, k).bits, f.bits), "packed round trip differs")
+    del merged
+
+    lkey = tpch.lineitem_q3_table(ROWS, Q3_ORDERS).column(
+        tpch.L3_ORDERKEY).data
+    hit = _no_launch("bloom probe",
+                     lambda: bf.bloom_might_contain_spark(f, lkey))
+    member = np.zeros(Q3_ORDERS + 1, bool)
+    member[keys_host] = True
+    in_build = member[lkey.cpu().numpy()]
+    hit_h = hit.cpu().numpy()
+    require(bool(hit_h[in_build].all()), "bloom probe: a false negative")
+    fp = float(hit_h[~in_build].mean())
+    require(fp <= 0.035, f"bloom false-positive share {fp:.5f} > 0.035")
+    log(f"bloom probe: {ROWS} lineitem keys, {int(in_build.sum())} in the "
+        f"build, no false negative; false-positive share {fp:.5f} of "
+        f"{int((~in_build).sum())} (design 0.03)")
+    times["bloom_build"] = _timed(
+        "bloom_put_spark (q3 orders)", build,
+        okey.nbytes + keep.nbytes + f.bits.nbytes, Q3_ORDERS)
+    times["bloom_probe"] = _timed(
+        "bloom_might_contain_spark (lineitem)",
+        lambda: bf.bloom_might_contain_spark(f, lkey),
+        lkey.nbytes + f.bits.nbytes + hit.nbytes, ROWS)
+    times["bloom_probe"].update(false_positive_share=fp, num_bits=m,
+                                num_hashes=k, build_keys=n_build)
+    del f, lkey, hit, okey, keep, empty
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"bloom phase peak {peak:.2f} GiB")
+    log(f"peak device memory of the bloom phase {peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak}
+
+
+def _day_tables(lo: int, hi: int) -> dict:
+    """Per-day answers for days lo..hi since 1970-01-01 from Python's
+    datetime (the oracle of the date functions)."""
+    import calendar
+    import datetime as pydt
+
+    import numpy as np
+
+    epoch = pydt.date(1970, 1, 1)
+    cols = {k: [] for k in (
+        "year", "month", "day", "day_of_week", "day_of_week_spark",
+        "day_of_year", "quarter", "last_day", "weekofyear", "trunc_year",
+        "trunc_quarter", "trunc_month", "trunc_week", "next_day_tu",
+        "add_months_1", "date_add_-45", "month_end")}
+
+    def days(d):
+        return (d - epoch).days
+
+    for z in range(lo, hi + 1):
+        d = epoch + pydt.timedelta(days=z)
+        last = calendar.monthrange(d.year, d.month)[1]
+        ny, nm = (d.year + 1, 1) if d.month == 12 else (d.year, d.month + 1)
+        for key, val in (
+                ("year", d.year), ("month", d.month), ("day", d.day),
+                ("day_of_week", d.isoweekday()),
+                ("day_of_week_spark", d.isoweekday() % 7 + 1),
+                ("day_of_year", d.timetuple().tm_yday),
+                ("quarter", (d.month - 1) // 3 + 1),
+                ("last_day", days(d.replace(day=last))),
+                ("weekofyear", d.isocalendar()[1]),
+                ("trunc_year", days(pydt.date(d.year, 1, 1))),
+                ("trunc_quarter", days(pydt.date(
+                    d.year, (d.month - 1) // 3 * 3 + 1, 1))),
+                ("trunc_month", days(d.replace(day=1))),
+                ("trunc_week", z - d.weekday()),
+                ("next_day_tu", z + (1 - d.weekday() + 6) % 7 + 1),
+                ("add_months_1", days(pydt.date(ny, nm, min(
+                    d.day, calendar.monthrange(ny, nm)[1])))),
+                ("date_add_-45", z - 45), ("month_end", d.day == last)):
+            cols[key].append(val)
+    return {k: np.array(v) for k, v in cols.items()}
+
+
+def _np_months_between(tab, lo, z1, s1, z2, s2):
+    """Spark's months_between from the per-day calendar: whole months,
+    plus ((dom1 - dom2) * 86400 + secs1 - secs2) / (31 * 86400) unless
+    the days of month match or both are month ends; 8 decimals."""
+    import numpy as np
+
+    i1, i2 = z1 - lo, z2 - lo
+    months = ((tab["year"][i1] - tab["year"][i2]) * 12
+              + tab["month"][i1] - tab["month"][i2]).astype(np.float64)
+    whole = (tab["day"][i1] == tab["day"][i2]) | (
+        tab["month_end"][i1] & tab["month_end"][i2])
+    secs = ((tab["day"][i1] - tab["day"][i2]) * 86_400 + s1 - s2)
+    out = np.where(whole, months, months + secs.astype(np.float64)
+                   / (31.0 * 86_400.0))
+    return np.round(out * 1e8) / 1e8
+
+
+def datetime_phase(li, li12, dev) -> dict:
+    """Every datetime function over l_shipdate (and the timestamps made
+    from it), datediff and months_between over q12's receipt and commit
+    dates, each against the per-day Python datetime table."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import datetime as dt
+
+    torch.cuda.reset_peak_memory_stats()
+    ship = li.column(tpch.L_SHIPDATE)
+    commit = li12.column(tpch.L12_COMMITDATE)
+    receipt = li12.column(tpch.L12_RECEIPTDATE)
+    micros = np.random.default_rng(14).integers(0, 86_400_000_000, ROWS)
+    ship_h = ship.data.cpu().numpy().astype(np.int64)
+    ts = Column.from_numpy(ship_h * 86_400_000_000 + micros,
+                           t.TIMESTAMP_MICROSECONDS)
+    lo = int(min(commit.data.min(), receipt.data.min(), ship.data.min()))
+    hi = int(max(commit.data.max(), receipt.data.max(), ship.data.max()))
+    t0 = time.perf_counter()
+    tab = _day_tables(lo, hi)
+    dev_tab = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+               for k, v in tab.items()}
+    log(f"datetime oracle: {hi - lo + 1} days from Python's datetime in "
+        f"{time.perf_counter() - t0:.1f} s")
+    idx = ship.data.to(torch.int64) - lo
+
+    cases = {
+        "year": ("year", dt.year), "month": ("month", dt.month),
+        "day": ("day", dt.day), "day_of_week": ("day_of_week",
+                                                dt.day_of_week),
+        "day_of_week_spark": ("day_of_week_spark", dt.day_of_week_spark),
+        "day_of_year": ("day_of_year", dt.day_of_year),
+        "quarter": ("quarter", dt.quarter),
+        "last_day": ("last_day", dt.last_day),
+        "weekofyear": ("weekofyear", dt.weekofyear),
+        "trunc(year)": ("trunc_year", lambda c: dt.trunc(c, "year")),
+        "trunc(quarter)": ("trunc_quarter",
+                           lambda c: dt.trunc(c, "quarter")),
+        "trunc(month)": ("trunc_month", lambda c: dt.trunc(c, "month")),
+        "trunc(week)": ("trunc_week", lambda c: dt.trunc(c, "week")),
+        "next_day(TU)": ("next_day_tu", lambda c: dt.next_day(c, "TU")),
+        "add_months(1)": ("add_months_1", lambda c: dt.add_months(c, 1)),
+        "date_add(-45)": ("date_add_-45", lambda c: dt.date_add(c, -45)),
+    }
+    times = {}
+    # 4-byte days in; 4-byte result and a 1-byte validity out
+    day_bytes = 9 * ROWS
+    for what, (key, fn) in cases.items():
+        out = _no_launch(what, lambda: fn(ship))
+        require(torch.equal(out.data.to(torch.int64), dev_tab[key][idx])
+                and bool(out.validity.all()),
+                f"{what} differs from Python's datetime")
+        times[what] = _timed(what, lambda: fn(ship), day_bytes, ROWS)
+    for what, fn, key in (("year(timestamp)", dt.year, "year"),
+                          ("weekofyear(timestamp)", dt.weekofyear,
+                           "weekofyear")):
+        out = _no_launch(what, lambda: fn(ts))
+        require(torch.equal(out.data.to(torch.int64), dev_tab[key][idx]),
+                f"{what} differs from Python's datetime")
+    micros_d = torch.from_numpy(micros).to(dev)
+    for what, fn, want in (
+            ("hour", dt.hour, micros_d // 3_600_000_000),
+            ("minute", dt.minute, micros_d // 60_000_000 % 60),
+            ("second", dt.second, micros_d // 1_000_000 % 60)):
+        out = _no_launch(what, lambda: fn(ts))
+        require(torch.equal(out.data.to(torch.int64), want),
+                f"{what} differs from the intraday microseconds")
+        times[what] = _timed(what, lambda: fn(ts), 14 * ROWS, ROWS)
+    del micros_d
+
+    out = _no_launch("datediff", lambda: dt.datediff(receipt, commit))
+    require(torch.equal(out.data, receipt.data - commit.data),
+            "datediff(receipt, commit) differs")
+    times["datediff(receipt, commit)"] = _timed(
+        "datediff(receipt, commit)", lambda: dt.datediff(receipt, commit),
+        13 * ROWS, ROWS)
+    r_h = receipt.data.cpu().numpy().astype(np.int64)
+    c_h = commit.data.cpu().numpy().astype(np.int64)
+    zeros = np.zeros(ROWS, np.int64)
+    for what, a, b, want in (
+            ("months_between(receipt, commit)", receipt, commit,
+             _np_months_between(tab, lo, r_h, zeros, c_h, zeros)),
+            ("months_between(timestamp, receipt)", ts, receipt,
+             _np_months_between(tab, lo, ship_h, micros // 1_000_000,
+                                r_h, zeros))):
+        out = _no_launch(what, lambda: dt.months_between(a, b))
+        require(np.array_equal(out.data.cpu().numpy(), want),
+                f"{what} differs from the per-day oracle")
+        in_bytes = a.data.element_size() + b.data.element_size()
+        times[what] = _timed(what, lambda: dt.months_between(a, b),
+                             (in_bytes + 9) * ROWS, ROWS)
+    log(f"datetime: {len(cases) + 7} functions over {ROWS} rows equal to "
+        f"Python's datetime (per-day table) and the intraday arithmetic")
+    del ship, ts, commit, receipt, dev_tab, idx, out
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"datetime phase peak {peak:.2f} GiB")
+    log(f"peak device memory of the datetime phase {peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak}
+
+
+def string_q1_q13_phase(q1_oracle: dict, flags) -> dict:
+    """The general q1 over STRING flags against ``flags``, the INT8
+    general q1 of the same lineitem, and the numpy oracle; q13's
+    single-pass reference against np.bincount."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    li_s = tpch.lineitem_table_strings(ROWS, seed=0)
+    got = _no_launch("string q1", lambda: tpch.tpch_q1(li_s))
+    for i, (a, b) in enumerate(zip(got.columns, flags.columns)):
+        v = b.valid_mask()
+        require(torch.equal(a.valid_mask(), v), f"string q1 column {i} "
+                "validity differs from the INT8 q1")
+        if i < 2:
+            require(bool((a.data[v] == 1).all()) and torch.equal(
+                a.chars[v, 0], b.data[v].view(torch.uint8)),
+                f"string q1 key {i} differs from the INT8 flags")
+        else:
+            require(torch.equal(a.data[v], b.data[v]),
+                    f"string q1 column {i} differs from the INT8 q1")
+    keys = [(int(a), int(b)) for a, b in zip(
+        got.column(0).chars[:6, 0].tolist(), got.column(1).chars[:6, 0]
+        .tolist())]
+    require(sorted(q1_oracle) == keys, f"string q1 groups {keys}")
+    for g, key in enumerate(keys):
+        for j, name in enumerate(("sum_qty", "sum_base_price",
+                                  "sum_disc_price", "sum_charge")):
+            require(int(got.column(2 + j).data[g]) == q1_oracle[key][name],
+                    f"string q1 {key} {name}")
+        require(int(got.column(9).data[g]) == q1_oracle[key]["count"],
+                f"string q1 {key} count")
+    log("string q1: the 6 groups equal the INT8 general q1 (flag bytes as "
+        "one-character strings) and the numpy oracle; no launch")
+    times["tpch_q1_strings"] = _timed(
+        "tpch_q1(lineitem_table_strings)", lambda: tpch.tpch_q1(li_s),
+        distinct_bytes([c.data for c in li_s.columns]
+                       + [c.chars for c in li_s.columns]), ROWS)
+    del li_s, got
+
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    got = _no_launch("q13", lambda: tpch.tpch_q13_reference(orders))
+    t0 = time.perf_counter()
+    want = tpch.tpch_q13_oracle(orders)
+    require(np.array_equal(got.column(0).data.cpu().numpy(),
+                           want["custkey"])
+            and np.array_equal(got.column(1).data.cpu().numpy(),
+                               want["count"]),
+            "q13 counts differ from np.bincount")
+    log(f"q13: {len(want['custkey'])} customers with orders, counts equal "
+        f"to np.bincount in key order ({time.perf_counter() - t0:.1f} s on "
+        f"the host); no launch")
+    times["tpch_q13_reference"] = _timed(
+        "tpch_q13_reference(orders)",
+        lambda: tpch.tpch_q13_reference(orders),
+        distinct_bytes([c.data for c in orders.columns[:2]])
+        + got.column(0).data.nbytes + got.column(1).data.nbytes, Q3_ORDERS)
+    del orders, got
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"string q1 and q13 peak {peak:.2f} GiB")
+    log(f"peak device memory of string q1 and q13 {peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1204,8 +1846,9 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     kernel_rows = kernel_phases(li, dev)
-    launches, path_times = path_phases(li)
-    path_times.update(general_q1_phase(li))
+    launches, path_times, q1_oracle = path_phases(li)
+    q1_times, q1_general = general_q1_phase(li)
+    path_times.update(q1_times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"peak device memory of the q1 and row phases {peak:.2f} GiB")
     del li
@@ -1230,6 +1873,15 @@ def main() -> int:
     path_times["cast_strings"] = cast_phase(dev)
     d_rows, more_launches, path_times["tpch_more"] = more_plans_phase()
     path_times["tpch_more"].update(probe_joins=d_rows)
+    # each path of the last phase launches none of A-D (_no_launch)
+    li = tpch.lineitem_table(ROWS, seed=0)
+    li12 = tpch.lineitem_q12_table(ROWS, Q3_ORDERS)
+    path_times["hash"] = hash_phase(li, li12, dev)
+    path_times["datetime"] = datetime_phase(li, li12, dev)
+    del li, li12
+    torch.cuda.empty_cache()
+    path_times["bloom"] = bloom_phase()
+    path_times["string_q1_q13"] = string_q1_q13_phase(q1_oracle, q1_general)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches}

@@ -24,3 +24,9 @@ def pack_bits_last_axis(bits: torch.Tensor) -> torch.Tensor:
     return (padded.reshape(*lead, n_bytes, 8) << shifts).sum(
         dim=-1, dtype=torch.uint8)
 
+
+def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Unpack a little-endian uint8 bitmask into bool[n]; the inverse of
+    :func:`pack_bits_last_axis` on one axis."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).reshape(-1)[:n].bool()

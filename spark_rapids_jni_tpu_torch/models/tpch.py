@@ -17,7 +17,8 @@ order: the general q1 is the filter/derive work table, the sort-based
 groupby with the plan's group budget, and the ORDER BY; the planned q1
 lowers the groupby through ``plan_groupby`` with the DDL flag domains.
 The fused single-kernel q1 is ``ops/kernels/q1.py::tpch_q1_pallas``.
-TPC-H q3, q6, q5, q12, q14, q4, q19, q17 and q10 are further down.
+The general q1 also takes STRING flags (``lineitem_table_strings``).
+TPC-H q3, q6, q5, q12, q14, q4, q19, q17, q10 and q13 are further down.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from spark_rapids_jni_tpu_torch.ops.strings import (
     pad_strings,
     static_strings,
 )
+from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 # lineitem columns used by q1 (positions in the table below)
@@ -124,12 +126,29 @@ def lineitem_table(num_rows: int, seed: int = 0, device=None) -> Table:
     ])
 
 
+def lineitem_table_strings(num_rows: int, seed: int = 0,
+                           device=None) -> Table:
+    """``lineitem_table`` with STRING returnflag and linestatus columns
+    (CHAR(1) in TPC-H), the reference's ``lineitem_table_strings`` built
+    on the device: each flag is one byte, so the offsets are 0..n and
+    the chars are the flag bytes."""
+    base = lineitem_table(num_rows, seed, device)
+    cols = list(base.columns)
+    offsets = torch.arange(num_rows + 1, dtype=torch.int32,
+                           device=cols[0].device)
+    for i in (L_RETURNFLAG, L_LINESTATUS):
+        cols[i] = Column(t.STRING, offsets, None,
+                         chars=cols[i].data.view(torch.uint8))
+    return Table(cols)
+
+
 def _q1_work_table(lineitem: Table) -> Table:
     """Shared q1 front half: WHERE filter + derived decimal columns.
 
     The filter keeps shapes static by masking validity instead of
     compacting rows (masked rows fall out of every null-skipping
-    aggregate). Keys are fixed-width only in this port."""
+    aggregate). STRING keys are padded first (a read of the longest row
+    to the host)."""
     ship = lineitem.column(L_SHIPDATE)
     keep = (ship.data <= _Q1_CUTOFF_DAYS) & ship.valid_mask()
 
@@ -155,9 +174,10 @@ def _q1_work_table(lineitem: Table) -> Table:
 
     # Masked rows must not create key groups: zero out key bytes for them.
     def masked_key(c: Column) -> Column:
-        if not c.dtype.is_fixed_width:
-            raise NotImplementedError(
-                "q1 string flag columns are not ported yet")
+        if c.dtype.is_string:
+            p = pad_strings(c)
+            return Column(p.dtype, p.data.masked_fill(~keep, 0), keep,
+                          chars=p.chars.masked_fill(~keep[:, None], 0))
         return Column(c.dtype, c.data.masked_fill(~keep, 0), keep)
 
     return Table(
@@ -2017,3 +2037,24 @@ def tpch_q10_oracle(customer: Table, orders: Table, lineitem: Table,
     order = np.lexsort((keys, -sums))
     return {"custkey": keys[order], "nationkey": nat[first][order],
             "revenue": sums[order]}
+
+
+# ---- TPC-H q13 (customer distribution), the single-pass reference --------
+
+def tpch_q13_reference(orders: Table) -> Table:
+    """q13's order count per customer as one general groupby of orders on
+    ``o_custkey`` (every group kept), trimmed to its groups, in key
+    order. The local and exchange plans are not ported yet."""
+    g = groupby_aggregate(orders, [O_CUSTKEY], [(O_ORDERKEY, "count")],
+                          max_groups=None)
+    return trim_table(g.table, int(g.num_groups))
+
+
+def tpch_q13_oracle(orders: Table) -> dict:
+    """``tpch_q13_reference`` on the host: ``np.bincount`` of the
+    customer keys (valid rows with a valid order key), restricted to the
+    keys that occur, ascending."""
+    ok = _host_valid(orders, O_CUSTKEY) & _host_valid(orders, O_ORDERKEY)
+    counts = np.bincount(_host(orders, O_CUSTKEY)[ok])
+    keys = np.flatnonzero(counts)
+    return {"custkey": keys.astype(np.int64), "count": counts[keys]}

@@ -14,8 +14,10 @@ longest row: on the card that is a device sync. The reference took it
 outside jit; the plans that pad inside a timed run keep it, since the
 padded width decides the null-slot bytes and the sort-key word count.
 
-Substring, case mapping, the regex functions and the string xxhash are
-not ported yet (ROADMAP.md Queue 1 entry 7).
+The string xxhash (Spark's hashUnsafeBytes) hashes a position-major
+(W, n) byte image, one 1-D lane per byte position. Substring, case
+mapping and the regex functions are not ported yet (ROADMAP.md Queue 1
+entry 7).
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.columnar import Column
+from spark_rapids_jni_tpu_torch.ops._xxh64 import (
+    P1, P2, P3, P4, P5, avalanche, rotl,
+)
 from spark_rapids_jni_tpu_torch.types import BOOL8, STRING
 
 
@@ -155,6 +160,121 @@ def strings_equal_prev(col: Column) -> torch.Tensor:
     col = pad_strings(col)
     mat, lengths = col.chars, col.data
     return (lengths[1:] == lengths[:-1]) & (mat[1:] == mat[:-1]).all(1)
+
+
+# ---- variable-length xxhash64 (Spark hashUnsafeBytes) ----------------------
+
+def position_major(col: Column) -> torch.Tensor:
+    """The (W, n) uint8 image of a string column, row i's byte j at
+    [j, i], zero past each row's length: one contiguous lane per byte
+    position. An Arrow column is read a position at a time (W from the
+    host, one read of the offsets), never through an (n, W) matrix."""
+    if is_padded(col):
+        return col.chars.t().contiguous()
+    width = max(max_string_width(col), 1)
+    offsets, chars = col.data, col.chars
+    n = int(offsets.shape[0]) - 1
+    img = torch.zeros((width, n), dtype=torch.uint8, device=chars.device)
+    if n == 0 or int(chars.shape[0]) == 0:
+        return img
+    starts = offsets[:-1].to(torch.int64)
+    lengths = offsets[1:] - offsets[:-1]
+    last = int(chars.shape[0]) - 1
+    for j in range(width):
+        img[j] = chars[(starts + j).clamp_(max=last)].masked_fill_(
+            lengths <= j, 0)
+    return img
+
+
+def _le_word(img: torch.Tensor, first: int, nbytes: int) -> torch.Tensor:
+    """Each row's little-endian word of the bytes at positions
+    first..first+nbytes-1 of the image, widened a byte lane at a time
+    and OR-ed together (positions past the image read as 0)."""
+    word = torch.zeros(img.shape[1], dtype=torch.int64, device=img.device)
+    for i in range(min(nbytes, int(img.shape[0]) - first)):
+        word |= img[first + i].to(torch.int64) << (8 * i)
+    return word
+
+
+def _byte_at(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Each row's byte at its own position ``pos`` (clamped into the
+    image), widened to int64."""
+    idx = pos.clamp(0, int(img.shape[0]) - 1)[None, :]
+    return img.gather(0, idx)[0].to(torch.int64)
+
+
+def xxhash64_image(img: torch.Tensor, lengths: torch.Tensor,
+                   seeds: torch.Tensor) -> torch.Tensor:
+    """Full XXH64 of each row's first ``lengths[i]`` bytes of the
+    position-major (W, n) uint8 image, with per-row int64 seeds: the
+    32-byte stripes, the 8-byte words, one 4-byte lane and the byte tail
+    as masked 1-D passes (W/8 word updates, at most 3 tail bytes). Returns
+    int64 lanes holding the uint64 hash bits."""
+    width = int(img.shape[0])
+    lengths = lengths.to(torch.int64)
+    full_stripes = torch.where(lengths >= 32, lengths // 32, 0)
+    h = seeds + P5
+    if width >= 32:
+        v = [seeds + P1 + P2, seeds + P2, seeds, seeds - P1]
+        for s in range(width // 32):
+            active = s < full_stripes
+            for i in range(4):
+                lane = _le_word(img, 32 * s + 8 * i, 8)
+                v[i] = torch.where(
+                    active, rotl(v[i] + lane * P2, 31) * P1, v[i])
+        h_long = rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) \
+            + rotl(v[3], 18)
+        for vi in v:
+            h_long = (h_long ^ (rotl(vi * P2, 31) * P1)) * P1 + P4
+        h = torch.where(lengths >= 32, h_long, h)
+    h = h + lengths
+
+    # the 8-byte words after the stripes (a row's words lie below W/8)
+    full_words = lengths // 8
+    consumed = full_stripes * 4
+    for w in range(width // 8):
+        active = (w >= consumed) & (w < full_words)
+        upd = h ^ (rotl(_le_word(img, 8 * w, 8) * P2, 31) * P1)
+        h = torch.where(active, rotl(upd, 27) * P1 + P4, h)
+
+    # one optional 4-byte lane, at the row's own offset
+    has4 = (lengths % 8) >= 4
+    p0 = full_words * 8
+    if width >= 4:
+        lane4 = _byte_at(img, p0)
+        for i in range(1, 4):
+            lane4 |= _byte_at(img, p0 + i) << (8 * i)
+        upd = rotl(h ^ (lane4 * P1), 23) * P2 + P3
+        h = torch.where(has4, upd, h)
+
+    # the byte tail: at most 3 bytes after the words and the 4-byte lane
+    tail = p0 + torch.where(has4, 4, 0)
+    for b in range(min(3, width)):
+        upd = rotl(h ^ (_byte_at(img, tail + b) * P5), 11) * P1
+        h = torch.where(tail + b < lengths, upd, h)
+    return avalanche(h)
+
+
+def xxhash64_bytes(mat: torch.Tensor, lengths: torch.Tensor,
+                   seeds: torch.Tensor) -> torch.Tensor:
+    """XXH64 of each row's first ``lengths[i]`` bytes of the (n, W) byte
+    matrix (the reference's signature; bytes past a row's length are
+    never read into the hash)."""
+    return xxhash64_image(mat.t().contiguous(), lengths, seeds)
+
+
+def hash_string_column(col: Column, seeds: torch.Tensor) -> torch.Tensor:
+    """Chainable per-row hash of a string column: XXH64 over each row's
+    UTF-8 bytes with the running hash as seed; null rows pass the seed
+    through (Spark's HashExpression chaining)."""
+    if is_padded(col):
+        lengths = col.data
+    else:
+        lengths = col.data[1:] - col.data[:-1]
+    hashed = xxhash64_image(position_major(col), lengths, seeds)
+    if col.validity is None:
+        return hashed
+    return torch.where(col.validity, hashed, seeds)
 
 
 # ---- search predicates ------------------------------------------------------

@@ -9,7 +9,9 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``tpcds_q3``, ``tpch_q12``, ``tpch_q12_planned``, ``tpch_q4``,
 ``tpch_q4_planned``, ``tpch_q14``, ``tpch_q14_planned``, ``tpch_q5``,
 ``tpch_q6``, ``cast_decimal``, ``cast_float``, ``cast_date``, ``q19``,
-``q19_planned``, ``q17``, ``q10``) select some of them.
+``q19_planned``, ``q17``, ``q10``, ``hash_lineitem``, ``hash_q12``,
+``partition_hash``, ``bloom_build``, ``bloom_probe``, ``q1_strings``,
+``q13``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -24,7 +26,12 @@ inventory), then for the string TPC-H plans and q6 at scale factor 10
 text (l_extendedprice to decimal64(-2) and FLOAT64, l_shipdate to DATE,
 59,986,052 rows each, rendered by the port's own number -> string casts)
 and for TPC-H q19, planned q19, q17 and q10 at scale factor 10 (q10's
-lineitem is q3's with a seeded l_returnflag appended), after a warm-up:
+lineitem is q3's with a seeded l_returnflag appended), and for Spark's
+row hash over SF10 lineitem and q12's lineitem, ``partition_hash`` of
+q3's l_orderkey into 200 partitions, the q3-shaped runtime bloom filter
+(built from the 15,000,000 orders before q3's cutoff, probed with
+59,986,052 lineitem keys), the general q1 over STRING flags and q13's
+single-pass reference, after a warm-up:
 the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
@@ -48,8 +55,10 @@ import numpy as np
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+from spark_rapids_jni_tpu_torch.ops import bloom_filter as bf
 from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+from spark_rapids_jni_tpu_torch.ops.hash import partition_hash, table_xxhash64
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
 from spark_rapids_jni_tpu_torch.utils.platform import card_line
@@ -65,6 +74,8 @@ REPS = 5
 Q3_REPS = 2
 Q1_PATHS = ("q1_planned", "q1_fused", "to_rows", "q1_general")
 MORE_PATHS = ("q19", "q19_planned", "q17", "q10")
+HASH_PATHS = ("hash_lineitem", "hash_q12", "partition_hash", "bloom_build",
+              "bloom_probe", "q1_strings", "q13")
 
 
 def device_us(evt) -> float:
@@ -134,6 +145,8 @@ def main(only: list[str]) -> int:
         profile_casts(run)
     if not only or set(only) & set(MORE_PATHS):
         profile_more(run)
+    if not only or set(only) & set(HASH_PATHS):
+        profile_hashing(run)
     return 0
 
 
@@ -224,6 +237,32 @@ def profile_more(run) -> None:
            Table(list(li3.columns) + [Column.from_numpy(flags, t.INT8)]))
     del li3
     run("q10", lambda: tpch.tpch_q10(*q10), Q3_REPS)
+
+
+
+def profile_hashing(run) -> None:
+    li = tpch.lineitem_table(ROWS, seed=0)
+    run("hash_lineitem", lambda: table_xxhash64(li))
+    del li
+    li = tpch.lineitem_q12_table(ROWS, ORDERS)
+    run("hash_q12", lambda: table_xxhash64(li))
+    del li
+    keys = Table([tpch.lineitem_q3_table(ROWS, ORDERS).column(
+        tpch.L3_ORDERKEY)])
+    run("partition_hash", lambda: partition_hash(keys, [0], 200))
+    orders = tpch.orders_table(ORDERS, CUSTOMERS)
+    okey = orders.column(tpch.O_ORDERKEY).data
+    keep = orders.column(tpch.O_ORDERDATE).data < tpch._Q3_CUTOFF_DAYS
+    empty = bf.BloomFilter.optimal(int(keep.sum()), 0.03)
+    run("bloom_build", lambda: bf.bloom_put_spark(empty, okey, keep))
+    f = bf.bloom_put_spark(empty, okey, keep)
+    run("bloom_probe", lambda: bf.bloom_might_contain_spark(
+        f, keys.column(0).data))
+    del keys, f, empty, okey, keep
+    run("q13", lambda: tpch.tpch_q13_reference(orders), Q3_REPS)
+    del orders
+    li = tpch.lineitem_table_strings(ROWS, seed=0)
+    run("q1_strings", lambda: tpch.tpch_q1(li), Q3_REPS)
 
 
 if __name__ == "__main__":

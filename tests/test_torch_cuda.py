@@ -37,16 +37,25 @@ from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     convert_from_rows,
     convert_to_rows,
 )
+from spark_rapids_jni_tpu_torch.ops import bloom_filter as pbf
 from spark_rapids_jni_tpu_torch.ops import cast_strings as pcs
+from spark_rapids_jni_tpu_torch.ops import datetime as pdt
+from spark_rapids_jni_tpu_torch.ops import hash as phash
+from spark_rapids_jni_tpu_torch.interop import table_from_numpy
 from torch_parity import (
     EDGE_ROWS,
     LEVEL_CASES,
+    TIMESTAMP_DIVS,
     arrow_strings,
     bench_strings,
+    bloom_values,
+    hash_host_columns,
     level_case,
     mixed_float_strings,
     null_tail,
     seeded_cast_strings,
+    seeded_days,
+    seeded_timestamps,
 )
 
 pytestmark = pytest.mark.cuda
@@ -812,3 +821,87 @@ def test_probe_kernel_at_q19_and_q17_joins(dev):
     for build, n_valid, probe in tpch.q17_probe_inputs(part, li):
         assert 0 < int(n_valid) < build.shape[0]
         _probe_kernel_equal(build, probe)
+
+
+# ---- row hash, bloom filter, datetime, string q1 and q13 ---------------------
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_row_hash_on_the_card_matches_cpu(dev, n):
+    # every hashed type, chained and alone, and the partitions
+    cols = hash_host_columns(n, n)
+    card, cpu = (table_from_numpy(cols, device=d) for d in (dev, "cpu"))
+    assert torch.equal(phash.table_xxhash64(card).cpu(),
+                       phash.table_xxhash64(cpu))
+    for i in range(card.num_columns):
+        assert torch.equal(phash.table_xxhash64(card, [i], seed=7).cpu(),
+                           phash.table_xxhash64(cpu, [i], seed=7)), cols[i][0]
+    for parts in (1, 7, 200):
+        assert torch.equal(phash.partition_hash(card, [4, 16], parts).cpu(),
+                           phash.partition_hash(cpu, [4, 16], parts))
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_bloom_filter_on_the_card_matches_cpu(dev, n):
+    v, valid = bloom_values(n, n)
+    m, k = pbf.optimal_params(max(n // 2, 1), 0.03)
+    built = {}
+    for d in (dev, "cpu"):
+        f = pbf.bloom_put_spark(pbf.BloomFilter.empty(m, k, device=d),
+                                torch.from_numpy(v).to(d),
+                                torch.from_numpy(valid).to(d))
+        hit = pbf.bloom_might_contain_spark(f, torch.from_numpy(v).to(d))
+        built[str(d)] = (f.bits.cpu(), f.to_packed().cpu(), hit.cpu())
+    for a, b in zip(built[str(dev)], built["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_datetime_on_the_card_matches_cpu(dev, n):
+    def cols(d):
+        days = Column.from_numpy(seeded_days(n, n), t.TIMESTAMP_DAYS,
+                                 null_tail(n, n), device=d)
+        other = Column.from_numpy(seeded_days(n, n + 1), t.TIMESTAMP_DAYS,
+                                  device=d)
+        ts = Column.from_numpy(
+            seeded_timestamps(n, n, "TIMESTAMP_MICROSECONDS"),
+            t.TIMESTAMP_MICROSECONDS, null_tail(n, n + 2), device=d)
+        return days, other, ts
+
+    (days, other, ts), (cdays, cother, cts) = cols(dev), cols("cpu")
+    for name in ("year", "month", "day", "day_of_week", "day_of_week_spark",
+                 "day_of_year", "quarter", "last_day", "weekofyear"):
+        _same_bytes(getattr(pdt, name)(days), getattr(pdt, name)(cdays))
+        _same_bytes(getattr(pdt, name)(ts), getattr(pdt, name)(cts))
+    for name in ("hour", "minute", "second"):
+        _same_bytes(getattr(pdt, name)(ts), getattr(pdt, name)(cts))
+    for unit in ("year", "quarter", "month", "week"):
+        _same_bytes(pdt.trunc(days, unit), pdt.trunc(cdays, unit))
+    _same_bytes(pdt.next_day(days, "fri"), pdt.next_day(cdays, "fri"))
+    _same_bytes(pdt.date_add(days, -45), pdt.date_add(cdays, -45))
+    _same_bytes(pdt.add_months(days, 13), pdt.add_months(cdays, 13))
+    _same_bytes(pdt.datediff(days, other), pdt.datediff(cdays, cother))
+    _same_bytes(pdt.months_between(days, other),
+                pdt.months_between(cdays, cother))
+    _same_bytes(pdt.months_between(ts, other),
+                pdt.months_between(cts, cother))
+    for unit in TIMESTAMP_DIVS:
+        x = seeded_timestamps(n, n, unit)
+        a = Column.from_numpy(x, t.DType(t.TypeId[unit]), device=dev)
+        b = Column.from_numpy(x, t.DType(t.TypeId[unit]), device="cpu")
+        for name in ("year", "hour", "second", "weekofyear"):
+            _same_bytes(getattr(pdt, name)(a), getattr(pdt, name)(b))
+
+
+def test_string_q1_and_q13_on_the_card_match_cpu(dev):
+    # no kernel launch: the general sort-based groupby
+    got = {}
+    for d in (dev, "cpu"):
+        kernels.reset_counts()
+        q1 = tpch.tpch_q1(tpch.lineitem_table_strings(5000, 1, device=d))
+        q13 = tpch.tpch_q13_reference(tpch.orders_table(3000, 400, device=d))
+        assert kernels.launches() == {} and kernels.fallbacks() == {}
+        got[str(d)] = (q1, q13)
+    (q1, q13), (cq1, cq13) = got[str(dev)], got["cpu"]
+    assert q13.equals(cq13)
+    for a, b in zip(q1.columns, cq1.columns):
+        assert a.equals(b)

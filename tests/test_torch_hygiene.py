@@ -54,15 +54,36 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.ops.row_conversion, "
             "spark_rapids_jni_tpu_torch.ops.join, "
             "spark_rapids_jni_tpu_torch.ops.cast_strings, "
+            "spark_rapids_jni_tpu_torch.ops.hash, "
+            "spark_rapids_jni_tpu_torch.ops.bloom_filter, "
+            "spark_rapids_jni_tpu_torch.ops.datetime, "
+            "spark_rapids_jni_tpu_torch.columnar.arrow, "
             "spark_rapids_jni_tpu_torch.telemetry, "
             "spark_rapids_jni_tpu_torch.profile_paths, "
             "spark_rapids_jni_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'spark_rapids_jni_tpu')]; "
+            "('jax', 'jaxlib', 'spark_rapids_jni_tpu', 'pyarrow')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_pyarrow_is_imported_only_inside_the_arrow_functions():
+    # the card's machine has no pyarrow: no module of the port may need
+    # it to import, and only columnar/arrow.py's functions use it
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {m.split(".")[0] for m in _imported_modules(path)}
+        top_names = {a.name.split(".")[0] for n in top
+                     if isinstance(n, ast.Import) for a in n.names} | {
+            n.module.split(".")[0] for n in top
+            if isinstance(n, ast.ImportFrom) and n.module}
+        assert "pyarrow" not in top_names, path.name
+        if path.name != "arrow.py":
+            assert "pyarrow" not in names, path.name
 
 
 def test_entry_point_refuses_quiet_cpu_fallback():
@@ -74,6 +95,11 @@ def test_entry_point_refuses_quiet_cpu_fallback():
         tpcds.store_sales_table(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpch.lineitem_q19_table(8, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpch.lineitem_table_strings(8)
+    from spark_rapids_jni_tpu_torch.ops.bloom_filter import BloomFilter
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BloomFilter.empty(64)
 
 
 def test_registered_kernels_declare_oracle_and_source():

@@ -6,12 +6,16 @@ against its loop oracle and against the plan, and planned q19 against
 q19. Exact: q19 and q17 give the same revenue integer, q10 the same
 groups, nation keys and revenues in the reference's order. The
 reference's q19 and q10 run traced into one XLA program per size
-(integer results); q17, which compares a float mean, runs eagerly."""
+(integer results); q17, which compares a float mean, runs eagerly.
+Then the general q1 over STRING flags (``lineitem_table_strings``, byte
+for byte with the reference's generator) and q13's single-pass
+reference, with null tails, at the reference's edge row counts."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from spark_rapids_jni_tpu.columnar import Column as JColumn, Table as JTable
 from spark_rapids_jni_tpu.models import tpch as jtpch
@@ -20,10 +24,12 @@ from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.models import tpch
 from spark_rapids_jni_tpu_torch.ops import kernels
 from torch_parity import (
+    EDGE_ROWS,
     assert_same_table,
     assert_same_valid_table,
     host_columns,
     jax_table,
+    null_tail,
     to_port,
     traced_reference,
 )
@@ -186,3 +192,60 @@ def test_q10_matches_reference(n_cust, n_ord, n):
     for col, name in enumerate(("custkey", "nationkey", "revenue")):
         assert rows.column(col).to_pylist()[:k] == oracle[name].tolist()
     assert all(v is None for v in rows.column(0).to_pylist()[k:])
+
+
+# ---- string-keyed q1 and q13 -------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("rows", [1, 2049])
+def test_lineitem_strings_generator_matches_reference(rows, seed):
+    assert_same_table(
+        tpch.lineitem_table_strings(rows, seed, device="cpu"),
+        jtpch.lineitem_table_strings(rows, seed))
+
+
+def _with_null_tails(jtable, cols, seed):
+    """The reference table with null tails on columns ``cols``, in the
+    port and in the reference."""
+    host = host_columns(jtable)
+    n = jtable.num_rows
+    for i in cols:
+        tid, scale, data, _ = host[i]
+        host[i] = (tid, scale, data, null_tail(n, seed + i))
+    return to_port(jax_table(host)), jax_table(host)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_string_q1_matches_reference(n):
+    """The general q1 over STRING flags (a sort-based groupby on two
+    STRING keys) with null flags and shipdates, against the reference's
+    fused q1 (its null slots hold padding bytes: compared under
+    validity); without nulls it equals the INT8 q1 at the same seed."""
+    port, ref = _with_null_tails(
+        jtpch.lineitem_table_strings(n, n % 3),
+        (tpch.L_RETURNFLAG, tpch.L_LINESTATUS, tpch.L_SHIPDATE), n)
+    assert_same_valid_table(_run(tpch.tpch_q1, port), jtpch.tpch_q1(ref))
+    got = _run(tpch.tpch_q1, tpch.lineitem_table_strings(n, 1, "cpu"))
+    flags = tpch.tpch_q1(tpch.lineitem_table(n, 1, "cpu"))
+    for i, (a, b) in enumerate(zip(got.columns, flags.columns)):
+        assert torch.equal(a.valid_mask(), b.valid_mask())
+        if i < 2:  # one-byte strings: the flag bytes under validity
+            v = a.valid_mask()
+            assert bool((a.data[v] == 1).all())
+            assert torch.equal(a.chars[v, 0], b.data[v].view(torch.uint8))
+        else:
+            assert torch.equal(a.data, b.data)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_q13_matches_reference(n):
+    ref = jtpch.orders_table(n, max(n // 8, 1), seed=n)
+    got = _run(tpch.tpch_q13_reference, to_port(ref))
+    assert_same_table(got, jtpch.tpch_q13_reference(ref))
+    want = tpch.tpch_q13_oracle(to_port(ref))
+    assert got.column(0).data.numpy().tolist() == want["custkey"].tolist()
+    assert got.column(1).data.numpy().tolist() == want["count"].tolist()
+    # null customer keys form one group; null order keys are not counted
+    port, ref = _with_null_tails(ref, (tpch.O_ORDERKEY, tpch.O_CUSTKEY), n)
+    assert_same_table(_run(tpch.tpch_q13_reference, port),
+                      jtpch.tpch_q13_reference(ref))

@@ -404,3 +404,134 @@ def check_parse(kind, dtype_name, values, valid=None):
     got = cast_port(kind, dtype_name, port)
     assert_same_column(got, cast_reference(kind, dtype_name)(ref))
     return got
+
+
+# ---- row hash, bloom filter and datetime: inputs shared by the CPU and
+# card tests -------------------------------------------------------------------
+
+# DECIMAL128 values at the byte-image edges: zero and -1 (one byte), the
+# 64- and 128-bit limits, and values whose first kept byte would flip the
+# sign without one more filler byte (0x80, -0x81, 0x8000, ...)
+DEC128_EDGES = [0, -1, 1, 2**63, -2**63, 2**63 - 1, -2**63 - 1, 2**64 - 1,
+                2**64, -2**64, 2**127 - 1, -2**127, 0x80, 0x7F, -0x80,
+                -0x81, 0xFF, 0x8000, -0x8001, 2**71, -2**71 - 1,
+                (0x7F << 120) | 0x80, -(0x80 << 112)]
+
+
+def dec128_limbs(values) -> np.ndarray:
+    """int64[n, 2] (lo, hi) limbs of Python integers."""
+    lo = [v & (2**64 - 1) for v in values]
+    return np.array([[x - 2**64 if x >= 2**63 else x, v >> 64]
+                     for x, v in zip(lo, values)], np.int64).reshape(-1, 2)
+
+
+def _float_specials(dtype) -> np.ndarray:
+    """-0.0, 0.0, the infinities, the canonical NaN and NaNs with other
+    payloads and signs."""
+    ibits = np.int32 if dtype == np.float32 else np.int64
+    nans = ([0x7FC00000, 0x7F800001, -0x400000, 0x7FFFFFFF]
+            if dtype == np.float32 else
+            [0x7FF8000000000000, 0x7FF0000000000001, -0x8000000000000,
+             0x7FFFFFFFFFFFFFFF])
+    return np.concatenate([np.array([-0.0, 0.0, np.inf, -np.inf], dtype),
+                           np.array(nans, ibits).view(dtype)])
+
+
+def seeded_bytes(n: int, seed: int, max_len: int = 70) -> list:
+    """``n`` random byte strings of 0..max_len bytes (every length up to
+    ``max_len`` first, for the stripes, words, 4-byte lane and tails)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, n)
+    lens[:min(n, max_len + 1)] = np.arange(min(n, max_len + 1))
+    return [rng.integers(0, 256, k).astype(np.uint8).tobytes() for k in lens]
+
+
+def hash_host_columns(n: int, seed: int, max_len: int = 70) -> list:
+    """``[(type_id, scale, data, validity), ...]`` of every type the row
+    hash takes (BOOL8 to UINT32, the day types, FLOAT32/64 with -0.0 and
+    NaN payloads, INT64/UINT64 with their extremes, DECIMAL32/64/128 with
+    DEC128_EDGES, STRING of 0 to ``max_len`` bytes as Arrow, a microsecond
+    timestamp), every other column with a null tail; null rows keep
+    their bytes."""
+    from spark_rapids_jni_tpu_torch.types import TypeId as T
+
+    rng = np.random.default_rng(seed)
+
+    def ints(dtype):
+        info = np.iinfo(dtype)
+        v = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+        v[:2] = np.array([info.min, info.max], dtype)[:n]
+        return v
+
+    def floats(dtype):
+        v = (rng.standard_normal(n) * 10.0 ** rng.integers(-5, 6, n)
+             ).astype(dtype)
+        sp = _float_specials(dtype)
+        v[:len(sp)] = sp[:n]
+        return v
+
+    d128 = rng.integers(-2**63, 2**63 - 1, (n, 2), dtype=np.int64,
+                        endpoint=True)
+    edges = dec128_limbs(DEC128_EDGES)
+    d128[:len(edges)] = edges[:n]
+    strings = seeded_bytes(n, seed + 7, max_len)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum([len(b) for b in strings], out=offsets[1:])
+    chars = np.frombuffer(b"".join(strings), np.uint8).copy()
+    specs = [
+        (T.BOOL8, 0, rng.integers(0, 2, n).astype(np.uint8)),
+        (T.INT8, 0, ints(np.int8)), (T.UINT8, 0, ints(np.uint8)),
+        (T.INT16, 0, ints(np.int16)), (T.UINT16, 0, ints(np.uint16)),
+        (T.INT32, 0, ints(np.int32)), (T.UINT32, 0, ints(np.uint32)),
+        (T.TIMESTAMP_DAYS, 0, ints(np.int32)),
+        (T.DURATION_DAYS, 0, ints(np.int32)),
+        (T.FLOAT32, 0, floats(np.float32)), (T.FLOAT64, 0, floats(np.float64)),
+        (T.INT64, 0, ints(np.int64)), (T.UINT64, 0, ints(np.uint64)),
+        (T.DECIMAL32, -2, ints(np.int32)), (T.DECIMAL64, -2, ints(np.int64)),
+        (T.DECIMAL128, -3, d128), (T.STRING, 0, (offsets, chars)),
+        (T.TIMESTAMP_MICROSECONDS, 0, ints(np.int64)),
+    ]
+    return [(int(tid), scale, data, null_tail(n, seed + i) if i % 2 else None)
+            for i, (tid, scale, data) in enumerate(specs)]
+
+
+def bloom_values(n: int, seed: int):
+    """(int64 values with repeats and the int64 extremes, validity with a
+    null tail)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    v[:2] = np.array([-2**63, 2**63 - 1], np.int64)[:n]
+    v[n // 2:] = v[:n - n // 2]  # repeats
+    return v, null_tail(n, seed)
+
+
+def seeded_days(n: int, seed: int) -> np.ndarray:
+    """int32 days since 1970-01-01 from 1600 to 2400, with the century
+    and leap-year edges first."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(-135_140, 157_000, n).astype(np.int32)
+    edges = np.array([-135_140, -1, 0, 59, 60, 365, 10_956, 11_016,
+                      -25_508, 157_000, 4_017, 47_541], np.int32)
+    d[:len(edges)] = edges[:n]
+    return d
+
+
+TIMESTAMP_DIVS = {"TIMESTAMP_SECONDS": 86_400,
+                  "TIMESTAMP_MILLISECONDS": 86_400_000,
+                  "TIMESTAMP_MICROSECONDS": 86_400_000_000,
+                  "TIMESTAMP_NANOSECONDS": 86_400_000_000_000}
+
+
+def seeded_timestamps(n: int, seed: int, unit: str) -> np.ndarray:
+    """int64 instants in ``unit``: the seeded days (nanoseconds: 1680 to
+    2260, within int64) plus a seeded intra-day part, the first rows
+    before 1970 and within a day of the epoch."""
+    rng = np.random.default_rng(seed + 3)
+    div = TIMESTAMP_DIVS[unit]
+    days = seeded_days(n, seed).astype(np.int64)
+    if unit == "TIMESTAMP_NANOSECONDS":
+        days = np.clip(days, -106_000, 106_000)
+    ts = days * div + rng.integers(0, div, n)
+    ts[:8] = np.array([-1, -div, -div - 1, 0, div - 1, -div * 365 + 1,
+                       div * 400 + 7, -3 * div // 2], np.int64)[:n]
+    return ts

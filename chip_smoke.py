@@ -94,7 +94,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``tpch_q13_reference`` over the SF10 orders equal to ``np.bincount``;
    each path's host time (median of 3) beside its byte bound, and each
    part's peak device memory (under 40 GiB);
-12. one ``{"kernels": [...]}`` line, the card line, and the final
+12. the device string engines over 59,986,052 rows, none of which
+   launches a kernel of A-D (checked with the counts reset before each):
+   ``regexp_contains`` (RLIKE, ``bench.py``'s ``regexp``) over its log
+   lines built on the card, ``status=[45]\\d\\d`` on the device DFA (the
+   widest row fills the image, so the run ends on the sentinel step),
+   equal to the generator's word indices and to Python ``re`` on a
+   seeded 1,000,000-row sample, and a backreference the DFA refuses
+   running the host engine over 1,000,000 rows, recorded; ``upper``,
+   ``lower`` and ``substring`` (two with a negative start) over the log
+   lines, equal to Python's on the sample, and over 1,000,000
+   mixed-script rows whose special rows are mapped on the host and
+   merged back, equal to Python's str methods (the Unicode database must
+   be the CPU tests' 15.0.0); ``get_json_object`` (``json_extract``)
+   over ``bench.py``'s 4,096 templates tiled to 59,986,052 padded rows
+   for ``$.meta.w``, ``$.sku``, ``$.price`` and ``$.nope``, equal to
+   Python ``json`` over the templates, and 1,000 escaped documents
+   refused with ``NotImplementedError``, recorded; each path's host time
+   (median of 3), rows/s and byte bound, the host fallbacks, and the
+   phase's peak device memory (under 30 GiB);
+13. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -126,13 +145,20 @@ SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
-def host_median_s(fn, reps: int = 3) -> float:
-    """Median wall time of ``fn()`` ending in a synchronize, in seconds."""
-    fn()
+def host_median_s(fn, reps: int = 3, warm: bool = True) -> float:
+    """Median wall time of ``fn()`` ending in a synchronize, in seconds;
+    ``warm=False`` when a checked run of the same call came just before
+    (it was the warm-up)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1306,17 +1332,20 @@ def _decimal128_bytes(limbs):
 
 def _host_string_rows(col, rows):
     """(uint8 (k, W) zero-padded bytes, int64 lengths) of the given rows
-    of an Arrow STRING column, read from its buffers on the host."""
-    import numpy as np
-
-    offsets = col.data.cpu().numpy().astype(np.int64)
-    chars = col.chars.cpu().numpy()
-    starts, lens = offsets[rows], offsets[rows + 1] - offsets[rows]
-    mat = np.zeros((len(rows), max(int(lens.max(initial=0)), 1)), np.uint8)
-    for j in range(mat.shape[1]):
-        has = lens > j
-        mat[has, j] = chars[starts[has] + j]
-    return mat, lens
+    of a STRING column (either layout), gathered on the device and read
+    to the host."""
+    idx = torch.from_numpy(rows).to(col.device)
+    if col.is_padded_string:
+        lens, mat = col.data[idx], col.chars[idx]
+    else:
+        starts = col.data[idx].long()
+        lens = col.data[idx + 1] - col.data[idx]
+        j = torch.arange(max(int(lens.max()) if len(rows) else 0, 1),
+                         device=col.device)
+        mat = col.chars[(starts[:, None] + j).clamp_(
+            max=max(int(col.chars.numel()) - 1, 0))]
+        mat.masked_fill_(j[None, :] >= lens[:, None], 0)
+    return mat.cpu().numpy(), lens.cpu().numpy().astype("int64")
 
 
 def np_table_hash(table, rows, seed: int = 42):
@@ -1397,9 +1426,10 @@ def np_spark_bloom_bits(keys, num_bits: int, num_hashes: int):
     return bits
 
 
-def _timed(what: str, fn, nbytes: int, rows: int) -> dict:
+def _timed(what: str, fn, nbytes: int, rows: int,
+           warm: bool = True) -> dict:
     """Host median of 3 of ``fn()`` beside its byte bound."""
-    s = host_median_s(fn)
+    s = host_median_s(fn, warm=warm)
     b_ms, _ = bound(nbytes, 0)
     log(f"{what}: {s * 1e3:.3f} ms, {rows / s:.4g} rows/s (byte bound "
         f"{b_ms:.3f} ms)")
@@ -1820,6 +1850,241 @@ def string_q1_q13_phase(q1_oracle: dict, flags) -> dict:
     return {"paths": times, "peak_gib": peak}
 
 
+ENGINE_SAMPLE = 1_000_000  # rows of the host oracles and host-engine slices
+UNICODE_VERSION = "15.0.0"  # the case tables' Unicode database (Python 3.12)
+JSON_PATHS = ("$.meta.w", "$.sku", "$.price", "$.nope")
+
+
+def _sampled_bytes(col, rows) -> list:
+    """The given rows' bytes of a STRING column."""
+    mat, lens = _host_string_rows(col, rows)
+    return [mat[i, :lens[i]].tobytes() for i in range(len(rows))]
+
+
+def _py_substr(s: str, start: int, length):
+    """Spark's substr on a host string (the end of a negative start from
+    the unclamped position)."""
+    n = len(s)
+    raw = n + start if start < 0 else start
+    b = min(max(raw, 0), n)
+    if length is None:
+        return s[b:]
+    e = min(max(raw + length, 0), n) if start < 0 else b + min(
+        max(length, 0), n - b)
+    return s[b:max(e, b)]
+
+
+def _json_oracle(doc: str, path: str):
+    """get_json_object of a flat-path ``$.a.b`` on the host: Python json,
+    strings unquoted, numbers and containers as compact text, JSON null
+    and missing keys None."""
+    import json
+
+    v = json.loads(doc)
+    for key in path[2:].split("."):
+        if not isinstance(v, dict) or key not in v:
+            return None
+        v = v[key]
+    if v is None or isinstance(v, str):
+        return v
+    return json.dumps(v, separators=(",", ":"))
+
+
+def _fallbacks_line(what: str) -> dict:
+    from spark_rapids_jni_tpu_torch import telemetry
+
+    fb = {f"{op}: {reason}": v for (op, reason), v in
+          telemetry.fallbacks().items()}
+    log(f"{what}: host fallbacks {fb if fb else 'none'}")
+    return fb
+
+
+def string_engines_phase(dev) -> dict:
+    """RLIKE over bench.py's log lines (the device DFA, and the host engine
+    for a refused pattern), substring, upper and lower over them and over
+    a mixed-script column, and get_json_object over bench.py's documents
+    (four paths, and an escaped column the port refuses), each against a
+    host oracle, none launching a kernel of A-D."""
+    import platform
+    import re
+    import unicodedata
+
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.columnar.column import string_column
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+    from spark_rapids_jni_tpu_torch.ops import strings as st
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import (
+        get_json_object,
+    )
+    from spark_rapids_jni_tpu_torch.ops.strings import static_strings
+    from spark_rapids_jni_tpu_torch.types import STRING
+
+    log(f"Unicode database {unicodedata.unidata_version} (Python "
+        f"{platform.python_version()})")
+    require(unicodedata.unidata_version == UNICODE_VERSION,
+            f"the case tables need Unicode {UNICODE_VERSION}, the CPU "
+            f"tests' database")
+    torch.cuda.reset_peak_memory_stats()
+    times, fallbacks = {}, {}
+    rows = _sample_rows(ROWS, ENGINE_SAMPLE, 13)
+    t0 = time.perf_counter()
+    lines, words = bs.log_lines(ROWS, seed=12)
+    lens = lines.data[1:] - lines.data[:-1]
+    widest = int(lens.max())
+    log(f"log lines: {ROWS} rows, {lines.chars.numel()} bytes, the widest "
+        f"{widest} bytes, built in {time.perf_counter() - t0:.1f} s")
+    text_bytes = lines.chars.nbytes + lines.data.nbytes
+
+    # RLIKE on the device: the widest row fills the position-major image,
+    # so the run ends with the sentinel step
+    pattern = r"status=[45]\d\d"
+    telemetry.reset()
+    got = _no_launch("rlike", lambda: st.regexp_contains(lines, pattern))
+    fallbacks["rlike"] = _fallbacks_line("rlike")
+    require(not fallbacks["rlike"], "rlike took the host engine")
+    want = (words == bs.LOG_WORDS.index("status=404")).any(0)
+    require(got.validity is None and torch.equal(got.data.bool(), want),
+            "rlike differs from the generator's word indices")
+    sample = [b.decode() for b in _sampled_bytes(lines, rows)]
+    rx = re.compile(pattern, re.ASCII)
+    require(got.data[torch.from_numpy(rows).to(dev)].cpu().numpy()
+            .astype(bool).tolist() == [rx.search(v) is not None
+                                       for v in sample],
+            "rlike differs from Python re on the sample")
+    log(f"rlike {pattern}: {int(want.sum())} of {ROWS} lines match, equal "
+        f"to the word indices and to Python re on {len(rows)} sampled "
+        f"rows; widest row {widest} bytes = the image width (sentinel "
+        f"step); no launch")
+    times["rlike"] = _timed("regexp_contains(log lines)",
+                            lambda: st.regexp_contains(lines, pattern),
+                            text_bytes + ROWS, ROWS, warm=False)
+
+    # a pattern the DFA refuses (a backreference): the host engine
+    refused = r"status=(\d)0\1"
+    head = Column(STRING, lines.data[:ENGINE_SAMPLE + 1], None,
+                  chars=lines.chars[:int(lines.data[ENGINE_SAMPLE])])
+    telemetry.reset()
+    t0 = time.perf_counter()
+    got = _no_launch("rlike host engine",
+                     lambda: st.regexp_contains(head, refused))
+    host_s = time.perf_counter() - t0
+    fallbacks["rlike_host"] = _fallbacks_line("rlike, refused pattern")
+    require(telemetry.fallbacks() == {
+        ("regexp_contains", "unsupported regex atom: escape \\1"):
+            {"calls": 1, "rows": ENGINE_SAMPLE}},
+        "the refused pattern's host run is not recorded")
+    require(torch.equal(got.data.bool(), want[:ENGINE_SAMPLE]),
+            "the host engine differs from the word indices")
+    log(f"rlike {refused} (refused by the DFA): the host engine over "
+        f"{ENGINE_SAMPLE} rows in {host_s:.1f} s, equal to the word "
+        f"indices, recorded")
+    times["rlike_host_engine"] = {"s": host_s, "rows": ENGINE_SAMPLE}
+    del got, want, head
+
+    # substring, upper and lower over the log lines (ASCII: no host step)
+    telemetry.reset()
+    for name, fn, py in (
+            ("upper", st.upper, str.upper), ("lower", st.lower, str.lower),
+            ("substring_3_8", lambda c: st.substring(c, 3, 8),
+             lambda v: _py_substr(v, 3, 8)),
+            ("substring_-6_4", lambda c: st.substring(c, -6, 4),
+             lambda v: _py_substr(v, -6, 4))):
+        out = _no_launch(name, lambda: fn(lines))
+        require([b.decode() for b in _sampled_bytes(out, rows)]
+                == [py(v) for v in sample], f"{name} differs from Python")
+        out_bytes = out.chars.nbytes + out.data.nbytes
+        del out
+        times[name] = _timed(f"{name}(log lines)", lambda: fn(lines),
+                             text_bytes + out_bytes, ROWS, warm=False)
+    fallbacks["log_case"] = _fallbacks_line("upper/lower of the log lines")
+    require(not fallbacks["log_case"], "ASCII case mapping left the card")
+    log(f"upper, lower, substring(3, 8) and substring(-6, 4) of the log "
+        f"lines equal to Python's on {len(rows)} sampled rows")
+    del lines, words, lens, sample
+    torch.cuda.empty_cache()
+
+    # a mixed-script column: special rows mapped on the host, merged back
+    values = bs.mixed_script_rows(ENGINE_SAMPLE, seed=14,
+                                  special_share=0.01)
+    mixed = string_column(values, device=dev)
+    for name, fn, py in (("upper_mixed", st.upper, str.upper),
+                         ("lower_mixed", st.lower, str.lower)):
+        telemetry.reset()
+        out = _no_launch(name, lambda: fn(mixed))
+        fallbacks[name] = _fallbacks_line(name)
+        require(out.to_pylist() == [py(v) for v in values],
+                f"{name} differs from Python")
+        times[name] = _timed(f"{name} ({ENGINE_SAMPLE} rows)",
+                             lambda: fn(mixed),
+                             mixed.chars.nbytes + mixed.data.nbytes
+                             + out.chars.nbytes + out.data.nbytes,
+                             ENGINE_SAMPLE, warm=False)
+    out = _no_launch("substring_mixed", lambda: st.substring(mixed, 2, 6))
+    require(out.row_bytes() == [v.encode()[2:8] for v in values],
+            "substring of the mixed column differs from Python")
+    log(f"upper, lower and substring(2, 6) of {ENGINE_SAMPLE} mixed-script "
+        f"rows equal to Python's str methods")
+    del mixed, out, values
+
+    # get_json_object over bench.py's documents, tiled to SF10 rows
+    t0 = time.perf_counter()
+    docs = bs.json_docs(ROWS)
+    templates = bs.json_templates()
+    tid = torch.arange(ROWS, device=dev) % len(templates)
+    log(f"json documents: {ROWS} rows, padded width {docs.chars.shape[1]}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    telemetry.reset()
+    for path in JSON_PATHS:
+        got = _no_launch(f"get_json_object {path}",
+                         lambda: get_json_object(docs, path))
+        want = [_json_oracle(d, path) for d in templates]
+        wlen, wmat = static_strings(want, dev)
+        wvalid = torch.tensor([v is not None for v in want], device=dev)
+        ww = int(wmat.shape[1])
+        require(torch.equal(got.validity, wvalid[tid])
+                and torch.equal(got.data, wlen[tid])
+                and torch.equal(got.chars[:, :ww], wmat[tid])
+                and (got.chars.shape[1] <= ww
+                     or int(got.chars[:, ww:].max()) == 0),
+                f"get_json_object {path} differs from Python json")
+        out_bytes = got.chars.nbytes + got.data.nbytes + got.validity.nbytes
+        log(f"get_json_object {path}: {int(wvalid[tid].sum())} values, "
+            f"equal to Python json over the templates; no launch")
+        del got
+        times[f"json {path}"] = _timed(
+            f"get_json_object(docs, {path})",
+            lambda: get_json_object(docs, path),
+            docs.chars.nbytes + docs.data.nbytes + out_bytes, ROWS,
+            warm=False)
+    fallbacks["json"] = _fallbacks_line("get_json_object")
+    require(not fallbacks["json"], "the eligible documents left the card")
+    del docs, tid
+
+    # escaped documents: the native engine's work, which the port refuses
+    esc = [t.replace('"s', '"\\"s', 1) for t in templates[:1000]]
+    lens_e, mat_e = static_strings(esc, dev)
+    col = Column(STRING, lens_e, None, chars=mat_e)
+    telemetry.reset()
+    try:
+        get_json_object(col, "$.sku")
+        raise AssertionError("the escaped column did not raise")
+    except NotImplementedError:
+        pass
+    fallbacks["json_escaped"] = _fallbacks_line("escaped documents")
+    require(len(fallbacks["json_escaped"]) == 1,
+            "the escaped column's refusal is not recorded")
+    log("get_json_object over 1000 escaped documents: NotImplementedError "
+        "(the native engine's work), recorded")
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 30, f"string engines phase peak {peak:.2f} GiB")
+    log(f"peak device memory of the string engines phase {peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak, "fallbacks": fallbacks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1882,6 +2147,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_times["bloom"] = bloom_phase()
     path_times["string_q1_q13"] = string_q1_q13_phase(q1_oracle, q1_general)
+    path_times["string_engines"] = string_engines_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches}

@@ -15,9 +15,17 @@ outside jit; the plans that pad inside a timed run keep it, since the
 padded width decides the null-slot bytes and the sort-key word count.
 
 The string xxhash (Spark's hashUnsafeBytes) hashes a position-major
-(W, n) byte image, one 1-D lane per byte position. Substring, case
-mapping and the regex functions are not ported yet (ROADMAP.md Queue 1
-entry 7).
+(W, n) byte image, one 1-D lane per byte position, and so does RLIKE
+(``regexp_contains``: the device DFA of ``ops/regex_device.py``, or the
+host engine for what the DFA does not take). ``substring``, ``upper``
+and ``lower`` return padded columns; case mapping runs on the device
+(ASCII, and ``ops/unicode_case_device.py`` for 1:1 Unicode mappings) but
+for the rows with special characters, which the host maps.
+
+Wide temporaries (an index or an int32 cell per byte) are built a block
+of rows at a time (``row_chunks``): at 60M rows of 69 bytes one int32
+(n, W) array would be 16.6 GB. Rows are independent, so the blocks give
+the same bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.columnar import Column
 from spark_rapids_jni_tpu_torch.ops._xxh64 import (
     P1, P2, P3, P4, P5, avalanche, rotl,
@@ -50,6 +59,18 @@ def max_string_width(col: Column) -> int:
     return int((offsets[1:] - offsets[:-1]).max())
 
 
+ROW_CHUNK_CELLS = 1 << 27  # cells of one block of rows (see row_chunks)
+
+
+def row_chunks(n: int, width: int):
+    """(r0, r1) blocks of rows of about ``ROW_CHUNK_CELLS`` cells of
+    ``width`` each, covering 0..n: a pass whose temporaries are per cell
+    runs a block at a time, so they stay a few hundred MB at any n."""
+    step = max(1, ROW_CHUNK_CELLS // max(int(width), 1))
+    for r0 in range(0, n, step):
+        yield r0, min(n, r0 + step)
+
+
 def pad_strings(col: Column, width: int | None = None) -> Column:
     """Arrow -> padded layout. ``width`` must be >= every row length
     (default: the longest row, read on the host); it is at least 1.
@@ -70,10 +91,22 @@ def pad_strings(col: Column, width: int | None = None) -> Column:
     starts = offsets[:-1]
     lengths = offsets[1:] - starts
     jdx = torch.arange(width, dtype=torch.int32, device=dev)
-    idx = (starts[:, None] + jdx[None, :]).clamp_(0, int(chars.shape[0]) - 1)
-    mat = chars[idx]
-    mat.masked_fill_(jdx[None, :] >= lengths[:, None], 0)
+    mat = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    for r0, r1 in row_chunks(n, width):
+        _gather_rows(chars, starts[r0:r1], lengths[r0:r1], jdx,
+                     mat[r0:r1])
     return Column(STRING, lengths, col.validity, chars=mat)
+
+
+def _gather_rows(chars: torch.Tensor, starts: torch.Tensor,
+                 lengths: torch.Tensor, jdx: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """out[i, j] = chars[starts[i] + j] for j < lengths[i], else 0: one
+    int32-indexed gather from the Arrow bytes into the (c, W) block
+    ``out`` (rows of a row-major matrix, so contiguous)."""
+    idx = (starts[:, None] + jdx[None, :]).clamp_(0, int(chars.shape[0]) - 1)
+    torch.index_select(chars, 0, idx.view(-1), out=out.view(-1))
+    out.masked_fill_(jdx[None, :] >= lengths[:, None], 0)
 
 
 def unpad_strings(col: Column) -> Column:
@@ -168,7 +201,8 @@ def position_major(col: Column) -> torch.Tensor:
     """The (W, n) uint8 image of a string column, row i's byte j at
     [j, i], zero past each row's length: one contiguous lane per byte
     position. An Arrow column is read a position at a time (W from the
-    host, one read of the offsets), never through an (n, W) matrix."""
+    host, one int32 gather of n bytes a position), never through an
+    (n, W) matrix (a transposed copy of one was slower on the card)."""
     if is_padded(col):
         return col.chars.t().contiguous()
     width = max(max_string_width(col), 1)
@@ -177,12 +211,13 @@ def position_major(col: Column) -> torch.Tensor:
     img = torch.zeros((width, n), dtype=torch.uint8, device=chars.device)
     if n == 0 or int(chars.shape[0]) == 0:
         return img
-    starts = offsets[:-1].to(torch.int64)
+    starts = offsets[:-1]
     lengths = offsets[1:] - offsets[:-1]
     last = int(chars.shape[0]) - 1
     for j in range(width):
-        img[j] = chars[(starts + j).clamp_(max=last)].masked_fill_(
-            lengths <= j, 0)
+        torch.index_select(chars, 0, (starts + j).clamp_(max=last),
+                           out=img[j])
+        img[j].masked_fill_(lengths <= j, 0)
     return img
 
 
@@ -454,3 +489,248 @@ def like(col: Column, pattern: str, escape: str = "\\") -> Column:
         hit = torch.gather(reach, 1,
                            lengths.clamp(0, w)[:, None].to(torch.int64))[:, 0]
     return _bool8_result(hit, col)
+
+
+# ---- transforms -------------------------------------------------------------
+
+def substring(col: Column, start: int, length: int | None = None) -> Column:
+    """Byte-range substring with fixed bounds: 0-based ``start``, optional
+    ``length`` (None = to the end). A negative ``start`` counts from the
+    row end, Spark's substr: the end comes from the UNCLAMPED position,
+    so substr('abc', -5, 2) is '' (end = -2 + 2 = 0), not 'ab'. Byte-based:
+    callers keep the bounds on character boundaries of multi-byte UTF-8.
+    Returns a padded column of the input's padded width."""
+    if is_padded(col):
+        lengths = col.data
+        w = int(col.chars.shape[1])
+    else:
+        lengths = col.data[1:] - col.data[:-1]
+        w = max(max_string_width(col), 1)
+    n = int(lengths.shape[0])
+    zero = torch.zeros_like(lengths)
+    if start < 0:
+        raw = lengths + start
+        begin = torch.minimum(raw.clamp(min=0), lengths)
+        if length is None:
+            out_len = lengths - begin
+        else:
+            end = torch.minimum((raw + length).clamp(min=0), lengths)
+            out_len = torch.maximum(end - begin, zero)
+    else:
+        begin = torch.minimum(torch.full_like(lengths, start), lengths)
+        if length is None:
+            out_len = lengths - begin
+        else:
+            out_len = torch.minimum(
+                torch.full_like(lengths, max(length, 0)), lengths - begin)
+    dev = lengths.device
+    out = torch.zeros((n, w), dtype=torch.uint8, device=dev)
+    if is_padded(col):
+        jdx = torch.arange(w, dtype=torch.int64, device=dev)
+        for r0, r1 in row_chunks(n, w):
+            src = (begin[r0:r1, None] + jdx[None, :]).clamp_(0, w - 1)
+            torch.gather(col.chars[r0:r1], 1, src, out=out[r0:r1])
+            out[r0:r1].masked_fill_(jdx[None, :] >= out_len[r0:r1, None], 0)
+    elif col.chars.numel():
+        # straight from the Arrow bytes: row i's output starts at byte
+        # offsets[i] + begin[i]
+        jdx = torch.arange(w, dtype=torch.int32, device=dev)
+        starts = col.data[:-1] + begin
+        for r0, r1 in row_chunks(n, w):
+            _gather_rows(col.chars, starts[r0:r1], out_len[r0:r1], jdx,
+                         out[r0:r1])
+    return Column(STRING, out_len.to(torch.int32), col.validity, chars=out)
+
+
+def _host_case(col: Column, to_upper: bool) -> Column:
+    """Full Unicode case mapping of the whole column on the host (Python's
+    str.upper/lower: the Unicode full case mapping Java applies under
+    Locale.ROOT, one-to-many expansions like ß -> SS included)."""
+    vals = col.to_pylist()
+    out = [None if v is None else (v.upper() if to_upper else v.lower())
+           for v in vals]
+    return pad_strings(Column.from_pylist(out, STRING, device=col.device))
+
+
+_SPECIAL_CASE_REASON = ("special characters (one-to-many or length-changing "
+                        "mappings, final sigma, astral characters, invalid "
+                        "UTF-8) are mapped on the host")
+
+
+def _ascii_case(col: Column, to_upper: bool) -> Column:
+    p = pad_strings(col)
+    mat = p.chars
+    n, w = int(mat.shape[0]), int(mat.shape[1])
+    if mat.numel() and int(mat.max()) >= 0x80:
+        # non-ASCII: the Unicode device engine maps every row whose
+        # characters have 1:1 length-preserving mappings; only rows with
+        # SPECIAL characters cross to the host, and are merged back
+        from spark_rapids_jni_tpu_torch.ops.unicode_case_device import (
+            case_map_device,
+        )
+
+        out, row_special = case_map_device(mat, to_upper)
+        if col.validity is not None:
+            # null rows' bytes are don't-care: never decode them
+            row_special = row_special & col.validity
+        spec_idx = torch.nonzero(row_special).flatten()
+        if spec_idx.numel() == 0:
+            return Column(STRING, p.data, col.validity, chars=out)
+        telemetry.record_fallback(
+            "string_upper" if to_upper else "string_lower",
+            _SPECIAL_CASE_REASON, rows=int(spec_idx.numel()))
+        lens_np = p.data[spec_idx].cpu().numpy()
+        spec_rows = mat[spec_idx].cpu().numpy()
+        mapped_bytes = []
+        for row_i in range(len(lens_np)):
+            raw = spec_rows[row_i, :lens_np[row_i]].tobytes().decode()
+            mapped_bytes.append(
+                (raw.upper() if to_upper else raw.lower()).encode())
+        w_out = max(w, max(len(b) for b in mapped_bytes))
+        if w_out > w:
+            out = torch.nn.functional.pad(out, (0, w_out - w))
+        host_mat = np.zeros((len(mapped_bytes), w_out), np.uint8)
+        host_lens = np.zeros(len(mapped_bytes), np.int32)
+        for row_i, b in enumerate(mapped_bytes):
+            host_mat[row_i, :len(b)] = np.frombuffer(b, np.uint8)
+            host_lens[row_i] = len(b)
+        out[spec_idx] = torch.from_numpy(host_mat).to(out.device)
+        lengths = p.data.clone()
+        lengths[spec_idx] = torch.from_numpy(host_lens).to(out.device)
+        return Column(STRING, lengths, col.validity, chars=out)
+    lo = ord("a") if to_upper else ord("A")
+    out = torch.empty_like(mat)
+    for r0, r1 in row_chunks(n, w):
+        m = mat[r0:r1]
+        # a letter of the other case differs in bit 5 (0x20); the uint8
+        # difference wraps, so one compare finds the 26 letters
+        torch.where((m - lo) < 26, m ^ 0x20, m, out=out[r0:r1])
+    return Column(STRING, p.data, col.validity, chars=out)
+
+
+def upper(col: Column) -> Column:
+    """Spark upper: ASCII and 1:1 length-preserving Unicode mappings on
+    the device; rows with special characters on the host."""
+    return _ascii_case(col, True)
+
+
+def lower(col: Column) -> Column:
+    """Spark lower: ASCII and 1:1 length-preserving Unicode mappings on
+    the device; rows with special characters on the host."""
+    return _ascii_case(col, False)
+
+
+# ---- regexp -----------------------------------------------------------------
+#
+# Two engines, as get_json_object has: patterns inside the DFA-compilable
+# subset run on the device (ops/regex_device.py); the rest, and columns
+# whose rows hold a NUL byte, run the host engine (Python ``re`` with
+# re.ASCII, so \d/\w/\s/\b are the ASCII classes java.util.regex uses by
+# default). Each host run is recorded in ``telemetry`` with its reason.
+
+
+def _compile_java_regex(pattern: str):
+    """Compile with re.ASCII so \\d/\\w/\\s/\\b mean what java.util.regex
+    means by default ([0-9] etc.). Java-only character-class syntax that
+    Python would silently mis-parse (``[a-z&&[b]]`` intersection, nested
+    classes) is rejected up front."""
+    import re as _re
+
+    depth = 0
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\":
+            i += 2
+            continue
+        if c == "[":
+            if depth > 0:
+                raise ValueError(
+                    f"unsupported java.util.regex syntax in {pattern!r}: "
+                    f"nested character class (Python re would silently "
+                    f"parse it differently)")
+            depth = 1
+        elif c == "]" and depth:
+            depth = 0
+        elif depth and pattern.startswith("&&", i):
+            raise ValueError(
+                f"unsupported java.util.regex syntax in {pattern!r}: "
+                f"character-class intersection '&&' (Python re would "
+                f"silently parse it differently)")
+        i += 1
+    return _re.compile(pattern, _re.ASCII)
+
+
+def _host_regexp(col: Column, rx, fn):
+    vals = col.to_pylist()
+    return [None if v is None else fn(rx, v) for v in vals]
+
+
+def _nonzero_bytes(img: torch.Tensor) -> torch.Tensor:
+    """int32[n]: each row's count of nonzero bytes in the (W, n) image,
+    summed 8 positions at a time (no (W, n) temporary)."""
+    nz = torch.zeros(img.shape[1], dtype=torch.int32, device=img.device)
+    for j in range(0, int(img.shape[0]), 8):
+        nz += (img[j:j + 8] != 0).sum(0, dtype=torch.int32)
+    return nz
+
+
+def regexp_contains(col: Column, pattern: str) -> Column:
+    """RLIKE / regexp-find: BOOL8, True when the pattern matches anywhere
+    in the row; null rows stay null.
+
+    A pattern the DFA compiler takes runs on the device over the
+    position-major image. The host engine runs (and is recorded) for a
+    pattern outside the DFA subset, for a column with a NUL byte inside a
+    row (it would alias the 0x00 sentinel; one device reduction finds
+    it), and under ``regex.force_engine="host"``. With
+    ``regex.force_engine="device"`` the first two raise instead."""
+    from spark_rapids_jni_tpu_torch.ops import regex_device as rd
+    from spark_rapids_jni_tpu_torch.utils.config import get_option
+
+    force = get_option("regex.force_engine")
+    if force == "host":
+        telemetry.record_fallback(
+            "regexp_contains", "regex.force_engine=host pin", rows=col.size)
+    else:
+        try:
+            comp = rd.compile_pattern(pattern)
+        except rd.RegexUnsupported as exc:
+            if force == "device":
+                raise
+            telemetry.record_fallback(
+                "regexp_contains", f"unsupported regex atom: {exc}",
+                rows=col.size)
+            comp = None
+        if comp is not None:
+            img = position_major(col)
+            if is_padded(col):
+                # clean: each row's nonzero bytes are exactly its length,
+                # so no NUL lies inside the content (the padding is zero)
+                lengths = col.data
+                clean = bool((_nonzero_bytes(img) == lengths).all())
+            else:
+                # the rows' content is the bytes between the first and the
+                # last offset: clean when none of them is zero
+                lengths = col.data[1:] - col.data[:-1]
+                lo, hi = col.data[[0, -1]].tolist()
+                clean = hi <= lo or int(col.chars[lo:hi].min()) > 0
+            if clean:
+                # the widest row filling the image leaves it no sentinel
+                n, w = col.size, int(img.shape[0])
+                needs_pad = bool(n and int(lengths.max()) >= w)
+                flags = rd.run_dfa_image(img, comp, ensure_sentinel=needs_pad)
+                return Column(BOOL8, flags.to(torch.uint8), col.validity)
+            if force == "device":
+                raise ValueError(
+                    "regex.force_engine=device but the column has "
+                    "embedded NUL bytes (sentinel alias)")
+            telemetry.record_fallback(
+                "regexp_contains",
+                "embedded NUL bytes alias the 0x00 padding sentinel",
+                rows=col.size)
+    rx = _compile_java_regex(pattern)
+    out = _host_regexp(col, rx, lambda r, v: r.search(v) is not None)
+    flags = torch.tensor([bool(v) for v in out], dtype=torch.uint8,
+                         device=col.device)
+    return Column(BOOL8, flags, col.validity)

@@ -11,7 +11,8 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``tpch_q6``, ``cast_decimal``, ``cast_float``, ``cast_date``, ``q19``,
 ``q19_planned``, ``q17``, ``q10``, ``hash_lineitem``, ``hash_q12``,
 ``partition_hash``, ``bloom_build``, ``bloom_probe``, ``q1_strings``,
-``q13``) select some of them.
+``q13``, ``rlike``, ``json_extract``, ``upper_mixed``) select some of
+them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -31,7 +32,10 @@ row hash over SF10 lineitem and q12's lineitem, ``partition_hash`` of
 q3's l_orderkey into 200 partitions, the q3-shaped runtime bloom filter
 (built from the 15,000,000 orders before q3's cutoff, probed with
 59,986,052 lineitem keys), the general q1 over STRING flags and q13's
-single-pass reference, after a warm-up:
+single-pass reference, and for RLIKE over bench.py's 59,986,052 log
+lines, get_json_object ``$.meta.w`` over its documents tiled to
+59,986,052 rows, and upper of 1,000,000 mixed-script rows, after a
+warm-up:
 the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
@@ -54,10 +58,13 @@ import numpy as np
 
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
-from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+from spark_rapids_jni_tpu_torch.columnar.column import string_column
+from spark_rapids_jni_tpu_torch.models import bench_strings, tpcds, tpch
+from spark_rapids_jni_tpu_torch.ops import strings
 from spark_rapids_jni_tpu_torch.ops import bloom_filter as bf
 from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
 from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 from spark_rapids_jni_tpu_torch.ops.hash import partition_hash, table_xxhash64
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
@@ -76,6 +83,7 @@ Q1_PATHS = ("q1_planned", "q1_fused", "to_rows", "q1_general")
 MORE_PATHS = ("q19", "q19_planned", "q17", "q10")
 HASH_PATHS = ("hash_lineitem", "hash_q12", "partition_hash", "bloom_build",
               "bloom_probe", "q1_strings", "q13")
+ENGINE_PATHS = ("rlike", "json_extract", "upper_mixed")
 
 
 def device_us(evt) -> float:
@@ -147,6 +155,8 @@ def main(only: list[str]) -> int:
         profile_more(run)
     if not only or set(only) & set(HASH_PATHS):
         profile_hashing(run)
+    if not only or set(only) & set(ENGINE_PATHS):
+        profile_engines(run)
     return 0
 
 
@@ -263,6 +273,18 @@ def profile_hashing(run) -> None:
     del orders
     li = tpch.lineitem_table_strings(ROWS, seed=0)
     run("q1_strings", lambda: tpch.tpch_q1(li), Q3_REPS)
+
+
+def profile_engines(run) -> None:
+    lines, _ = bench_strings.log_lines(ROWS, seed=12)
+    run("rlike", lambda: strings.regexp_contains(lines, r"status=[45]\d\d"))
+    del lines
+    docs = bench_strings.json_docs(ROWS)
+    run("json_extract", lambda: get_json_object(docs, "$.meta.w"), Q3_REPS)
+    del docs
+    mixed = string_column(bench_strings.mixed_script_rows(
+        1_000_000, seed=14, special_share=0.01), device="cuda")
+    run("upper_mixed", lambda: strings.upper(mixed))
 
 
 if __name__ == "__main__":

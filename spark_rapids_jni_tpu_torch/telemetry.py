@@ -2,8 +2,9 @@
 reference's ``telemetry.record_fallback`` and ``REGISTRY.counter``): an
 operator that hands its work to the host says so here, with its reason
 and row count, so that a run can show it and no host step is silent; a
-classified event (``rtfilter.merge_mismatch``) adds one to its counter.
-Kernel fallbacks are counted apart, by ``ops.kernels.fall_back``."""
+classified event (``rtfilter.merge_mismatch``) adds one to its counter,
+and a pattern-compile cache counts its hits and misses. Kernel fallbacks
+are counted apart, by ``ops.kernels.fall_back``."""
 
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ def record_fallback(op: str, reason: str, *, rows: Optional[int] = None
         raise ValueError(f"record_fallback({op!r}): reason must be non-empty")
     _calls[(op, str(reason))] += 1
     _rows[(op, str(reason))] += int(rows or 0)
+
+
+def record_compile_cache(name: str, *, hit: bool) -> None:
+    """The compile cache ``name`` (``regex_dfa``) was consulted: one more
+    ``compile_cache.<name>.hit`` or ``.miss``."""
+    _counters[f"compile_cache.{name}.{'hit' if hit else 'miss'}"] += 1
 
 
 def fallbacks() -> dict:

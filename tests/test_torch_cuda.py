@@ -41,6 +41,10 @@ from spark_rapids_jni_tpu_torch.ops import bloom_filter as pbf
 from spark_rapids_jni_tpu_torch.ops import cast_strings as pcs
 from spark_rapids_jni_tpu_torch.ops import datetime as pdt
 from spark_rapids_jni_tpu_torch.ops import hash as phash
+from spark_rapids_jni_tpu_torch.ops import json_device as pjd
+from spark_rapids_jni_tpu_torch.ops import strings as pstr
+from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
+from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.interop import table_from_numpy
 from torch_parity import (
     EDGE_ROWS,
@@ -48,8 +52,11 @@ from torch_parity import (
     TIMESTAMP_DIVS,
     arrow_strings,
     bench_strings,
+    bench_json_docs,
     bloom_values,
     hash_host_columns,
+    log_lines,
+    mixed_script_rows,
     level_case,
     mixed_float_strings,
     null_tail,
@@ -905,3 +912,79 @@ def test_string_q1_and_q13_on_the_card_match_cpu(dev):
     assert q13.equals(cq13)
     for a, b in zip(q1.columns, cq1.columns):
         assert a.equals(b)
+
+
+# ---- RLIKE, get_json_object, substring, upper and lower -----------------------
+
+def _regex_columns(values, valid, device):
+    col = _cast_string_columns(values, valid, device)
+    return col, pstr.pad_strings(col, width=80)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_rlike_on_the_card_matches_cpu(dev, n):
+    """Arrow-laid log lines (the widest row fills the matrix: the
+    sentinel step) and padded with slack, a refused pattern (the host
+    engine) and a row holding a NUL (the host engine); no kernel."""
+    values, valid = log_lines(n, n), null_tail(n, n)
+    kernels.reset_counts()
+    for col, ccol in zip(_regex_columns(values, valid, dev),
+                         _regex_columns(values, valid, "cpu")):
+        for pattern in (r"status=[45]\d\d", r"^GET .*ok$", r"id=\d+7",
+                        r"(a)\1|ERR(?=OR)"):
+            _same_bytes(pstr.regexp_contains(col, pattern),
+                        pstr.regexp_contains(ccol, pattern))
+    assert kernels.launches() == {}
+    nul = values[:-1] + ["status=404\x00"]
+    _same_bytes(pstr.regexp_contains(_cast_string_columns(nul, None, dev),
+                                     "404"),
+                pstr.regexp_contains(_cast_string_columns(nul, None, "cpu"),
+                                     "404"))
+
+
+def _json_docs(n):
+    docs = bench_json_docs(n)
+    extra = ['{"a":[{"field":1},{"field":2}]}', '{ "sku" : "x y" }',
+             '{"meta":{"w":null}}', '[1,[2,3]]', '"s"', '{}', '']
+    for i in range(0, n, 61):
+        docs[i] = extra[i % len(extra)]
+    return docs
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_get_json_object_on_the_card_matches_cpu(dev, n):
+    docs, valid = _json_docs(n), null_tail(n, n)
+    col = _cast_string_columns(docs, valid, dev)
+    ccol = _cast_string_columns(docs, valid, "cpu")
+    for path in ("$.meta.w", "$.sku", "$.price", "$.nope", "$", "$.a[1]",
+                 "$[1][0]"):
+        _same_bytes(get_json_object(col, path), get_json_object(ccol, path))
+    esc = _cast_string_columns(docs[:-1] + ['{"s": "a\\"b"}'], None, dev)
+    assert not bool(pjd.device_eligible(esc))
+    with pytest.raises(NotImplementedError):
+        get_json_object(esc, "$.s")
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_substring_and_case_on_the_card_match_cpu(dev, n):
+    """Mixed scripts with special rows (ß, final sigma, an astral
+    character) merged back from the host, and log lines."""
+    values = [v if i % 2 else w for i, (v, w) in enumerate(
+        zip(mixed_script_rows(n, n), log_lines(n, n)))]
+    valid = null_tail(n, n)
+    col = _cast_string_columns(values, valid, dev)
+    ccol = _cast_string_columns(values, valid, "cpu")
+    recorded = []
+    for c in (col, ccol):
+        telemetry.reset()
+        recorded.append((pstr.upper(c), pstr.lower(c),
+                         telemetry.fallbacks()))
+    for a, b in zip(recorded[0][:2], recorded[1][:2]):
+        _same_bytes(a, b)
+    assert recorded[0][2] == recorded[1][2]  # the same rows to the host
+    for args in ((0, None), (3, 5), (-4, None), (-6, 3), (-100, 2)):
+        _same_bytes(pstr.substring(col, *args), pstr.substring(ccol, *args))
+    log = _cast_string_columns(log_lines(n, n + 1), valid, dev)
+    clog = _cast_string_columns(log_lines(n, n + 1), valid, "cpu")
+    for fn in (pstr.upper, pstr.lower):
+        _same_bytes(fn(log), fn(clog))

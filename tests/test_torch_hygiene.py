@@ -57,6 +57,12 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.ops.hash, "
             "spark_rapids_jni_tpu_torch.ops.bloom_filter, "
             "spark_rapids_jni_tpu_torch.ops.datetime, "
+            "spark_rapids_jni_tpu_torch.ops.regex_device, "
+            "spark_rapids_jni_tpu_torch.ops.json_device, "
+            "spark_rapids_jni_tpu_torch.ops.get_json_object, "
+            "spark_rapids_jni_tpu_torch.ops.unicode_case_device, "
+            "spark_rapids_jni_tpu_torch.models.bench_strings, "
+            "spark_rapids_jni_tpu_torch.utils.config, "
             "spark_rapids_jni_tpu_torch.columnar.arrow, "
             "spark_rapids_jni_tpu_torch.telemetry, "
             "spark_rapids_jni_tpu_torch.profile_paths, "

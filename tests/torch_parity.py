@@ -347,6 +347,34 @@ def assert_same_column(got, want) -> None:
     assert_same_table(Table([got]), JTable([want]))
 
 
+def assert_same_head(got, want, n: int, width=None) -> None:
+    """The port column ``got`` equals the first ``n`` rows of the JAX
+    column ``want`` (a padded STRING's first ``width`` byte columns),
+    sliced on the host. The reference given only those rows would carry
+    no validity where they are all valid, so an all-valid head compares
+    equal to None."""
+    from spark_rapids_jni_tpu.columnar import Table as JTable
+    from spark_rapids_jni_tpu_torch.columnar import Table
+
+    (tid, scale, data, valid), = host_columns(JTable([want]))
+    data = (data[0][:n], data[1][:n, :width]) if isinstance(data, tuple) \
+        else data[:n]
+    if valid is not None:
+        valid = valid[:n]
+    (gtid, gscale, gdata, gvalid), = table_to_numpy(Table([got]))
+    assert (gtid, gscale) == (tid, scale), "type"
+    if isinstance(data, tuple):
+        assert_same_array(gdata[0], data[0], "lengths")
+        assert_same_array(gdata[1], data[1], "chars")
+    else:
+        assert_same_array(gdata, data, "data")
+    if gvalid is None:
+        assert valid is None or valid.all(), "tri-state"
+    else:
+        assert valid is not None, "tri-state"
+        assert_same_array(gvalid, valid, "validity")
+
+
 # the parse casts by kind: (function name, takes a dtype)
 CASTS = {"integer": ("string_to_integer", True),
          "decimal": ("string_to_decimal", True),
@@ -535,3 +563,29 @@ def seeded_timestamps(n: int, seed: int, unit: str) -> np.ndarray:
     ts[:8] = np.array([-1, -div, -div - 1, 0, div - 1, -div * 365 + 1,
                        div * 400 + 7, -3 * div // 2], np.int64)[:n]
     return ts
+
+
+# ---- regex, JSON and case mapping: inputs shared by the CPU and card tests
+
+from spark_rapids_jni_tpu_torch.models.bench_strings import (  # noqa: E402
+    LOG_WORDS,
+    json_templates,
+    mixed_script_rows,
+)
+
+
+def log_lines(n: int, seed: int) -> list:
+    """``bench.py``'s RLIKE column as host strings: 2-5 of its nine words
+    joined by spaces, the word ``id=`` carrying the row number."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(LOG_WORDS[j] + (str(i) if j == 5 else "")
+                     for j in rng.integers(0, len(LOG_WORDS),
+                                           int(rng.integers(2, 6))))
+            for i in range(n)]
+
+
+def bench_json_docs(n: int) -> list:
+    """``bench.py``'s get_json_object column: its 4,096 templates from
+    seed 0, tiled to n rows."""
+    pool = json_templates(min(n, 4096))
+    return (pool * (n // len(pool) + 1))[:n]

@@ -113,7 +113,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    refused with ``NotImplementedError``, recorded; each path's host time
    (median of 3), rows/s and byte bound, the host fallbacks, and the
    phase's peak device memory (under 30 GiB);
-13. one ``{"kernels": [...]}`` line, the card line, and the final
+13. regexp_extract, regexp_replace (the linear capture engine) and the
+   string functions over the same 59,986,052 log lines, none of which
+   launches a kernel of A-D (checked with the counts reset before each):
+   ``regexp_extract`` of ``status=(\\d+)`` and ``id=(\\d+)``, equal to the
+   generator's word indices (the first status word's code, the row
+   number) and to Python ``re`` on a seeded 1,000,000-row sample;
+   ``regexp_replace`` of ``status=\\d+`` by ``status=XXX`` on the device
+   (at most 5 matches a row), equal to the lines drawn again with the
+   status words rewritten and to ``re``; ``split`` on ' ' with at most 5
+   pieces, its offsets, piece lengths and bytes equal to the words and
+   to ``str.split``; ``length``, ``trim``, ``lpad(80, '*')``,
+   ``reverse``, ``instr('status')``, ``translate`` of the digits and
+   ``initcap``, each equal to a plain oracle over every row and to
+   Python on the sample; ``concat_ws('|', ...)`` over SF10 lineitem's
+   two STRING flags and the lines; three host routes over a
+   1,000,000-row slice (a round-budget overflow, a group-ref
+   replacement, an alternation), each recorded with its reason and
+   equal to ``re``; each device path's host time (median of 3) beside
+   its byte bound, and the phase's peak device memory (under 40 GiB);
+14. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -2085,6 +2104,433 @@ def string_engines_phase(dev) -> dict:
     return {"paths": times, "peak_gib": peak, "fallbacks": fallbacks}
 
 
+# ---- phase 13: regexp_extract, regexp_replace and the string functions ------
+
+SPLIT_SAMPLE = 100_000  # sampled rows whose pieces str.split checks
+HOST_ROUTES = (  # (name, function, pattern, argument, Python re's
+    # argument, reason recorded) over the first ENGINE_SAMPLE lines
+    ("replace_overflow", "replace", r"\d", "#", "#",
+     "match-round budget overflow: a row exceeded the device replace "
+     "rounds; rerouting whole column to host"),
+    ("replace_group_ref", "replace", r"status=(\d+)", "code=$1", r"code=\1",
+     "group-ref/escape replacement: device engine handles literal "
+     "replacements only"),
+    ("extract_alternation", "extract", r"(GET|POST) (\S+)", 2, 2,
+     "unsupported linear-capture atom: alternation"),
+)
+
+
+def _first_word(words, wanted):
+    """Per row: whether a slot holds one of ``wanted`` (word indices),
+    the first such word, and its slot."""
+    n = int(words.shape[1])
+    dev = words.device
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    word = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    for s in range(int(words.shape[0])):
+        w = words[s].to(torch.int64)
+        m = ~hit & torch.isin(w, torch.tensor(wanted, device=dev))
+        word = torch.where(m, w, word)
+        slot = torch.where(m, s, slot)
+        hit |= m
+    return hit, word, slot
+
+
+def _row_digits(n: int, dev):
+    """Each row number's digit count and its digit bytes, (max_digits,
+    n) uint8, most significant first (0 past the count)."""
+    rowid = torch.arange(n, device=dev)
+    max_digits = len(str(max(n - 1, 0)))
+    ndig = torch.ones_like(rowid)
+    for p in range(1, max_digits):
+        ndig += rowid >= 10 ** p
+    digits = torch.zeros((max_digits, n), dtype=torch.uint8, device=dev)
+    for d in range(max_digits):
+        v = rowid // 10 ** (ndig - 1 - d).clamp(min=0) % 10 + ord("0")
+        digits[d] = torch.where(d < ndig, v, 0).to(torch.uint8)
+    return ndig, digits
+
+
+def _word_table(dev, width: int):
+    """The nine log words as a (9, width) zero-padded byte table."""
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+
+    table = torch.zeros((len(bs.LOG_WORDS), width), dtype=torch.uint8)
+    for i, w in enumerate(bs.LOG_WORDS):
+        table[i, :len(w)] = torch.tensor(list(w.encode()), dtype=torch.uint8)
+    return table.to(dev)
+
+
+def _slot_lengths(words, ndig):
+    """(MAX_WORDS, n) byte length of each slot (0 past the row's words)."""
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+
+    wlen = torch.tensor([len(w) for w in bs.LOG_WORDS], device=words.device)
+    w = words.to(torch.int64)
+    return torch.where(w >= 0, wlen[w.clamp(min=0)]
+                       + (w == bs.ID_WORD) * ndig, 0).to(torch.int32)
+
+
+def _arrow_lengths(col):
+    return col.data[1:] - col.data[:-1]
+
+
+def _arrow_block(col, width: int):
+    """(r0, r1) -> the Arrow column's rows as a (c, width) block."""
+    from spark_rapids_jni_tpu_torch.ops.strings import _gather_rows
+
+    lens = _arrow_lengths(col)
+    jdx = torch.arange(width, dtype=torch.int32, device=col.device)
+
+    def block(r0, r1):
+        out = torch.zeros((r1 - r0, width), dtype=torch.uint8,
+                          device=col.device)
+        _gather_rows(col.chars, col.data[r0:r1],
+                     lens[r0:r1].clamp(max=width), jdx, out)
+        return out
+    return block
+
+
+def _host_route(head, route) -> dict:
+    """One host route over the head slice: its one fallback recorded,
+    its result equal to Python re on a sample of the slice."""
+    import re
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.ops import strings as st
+
+    name, kind, pattern, arg, py_arg, reason = route
+    fn = st.regexp_replace if kind == "replace" else st.regexp_extract
+    telemetry.reset()
+    t0 = time.perf_counter()
+    got = _no_launch(name, lambda: fn(head, pattern, arg))
+    host_s = time.perf_counter() - t0
+    fb = _fallbacks_line(name)
+    require(telemetry.fallbacks() == {
+        (f"regexp_{kind}", reason): {"calls": 1, "rows": ENGINE_SAMPLE}},
+        f"{name}: the host run is not recorded with its reason")
+    rows = _sample_rows(ENGINE_SAMPLE, 20_000, 17)
+    sample = [b.decode() for b in _sampled_bytes(head, rows)]
+    rx = re.compile(pattern, re.ASCII)
+    if kind == "replace":
+        want = [rx.sub(py_arg, v) for v in sample]
+    else:
+        want = [(m.group(py_arg) if (m := rx.search(v)) else "")
+                for v in sample]
+    require([b.decode() for b in _sampled_bytes(got, rows)] == want,
+            f"{name} differs from Python re")
+    log(f"{name}: the host engine over {ENGINE_SAMPLE} rows in "
+        f"{host_s:.1f} s, equal to Python re on {len(rows)} sampled rows, "
+        f"recorded")
+    return {"s": host_s, "rows": ENGINE_SAMPLE, "fallbacks": fb}
+
+
+def capture_phase(dev) -> dict:
+    """regexp_extract and regexp_replace (the linear capture engine) and
+    the string functions over bench.py's log lines, concat_ws over SF10
+    lineitem's two STRING flags and the lines, and three host routes of
+    the capture functions, each against the word indices and a Python
+    oracle on a sample, none launching a kernel of A-D."""
+    import re
+
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import strings as st
+    from spark_rapids_jni_tpu_torch.ops import strings_fns as sf
+    from spark_rapids_jni_tpu_torch.ops.strings import shift_block
+    from spark_rapids_jni_tpu_torch.types import STRING
+
+    torch.cuda.reset_peak_memory_stats()
+    times, fallbacks = {}, {}
+    rows_np = _sample_rows(ROWS, ENGINE_SAMPLE, 16)
+    rows = torch.from_numpy(rows_np).to(dev)
+    lines, words = bs.log_lines(ROWS, seed=12)
+    lens = _arrow_lengths(lines)
+    widest = int(lens.max())
+    text_bytes = lines.chars.nbytes + lines.data.nbytes
+    sample = [b.decode() for b in _sampled_bytes(lines, rows_np)]
+    ndig, digits = _row_digits(ROWS, dev)
+    slot_len = _slot_lengths(words, ndig)
+    log(f"log lines: {ROWS} rows, {lines.chars.numel()} bytes, the widest "
+        f"{widest} bytes")
+    telemetry.reset()
+
+    def timed(name, fn, out_bytes):
+        times[name] = _timed(f"{name}(log lines)", fn, text_bytes + out_bytes,
+                             ROWS, warm=False)
+
+    def nbytes(*tensors):
+        return sum(x.nbytes for x in tensors if x is not None)
+
+    # regexp_extract status=(\d+): the first status word's code
+    pattern = r"status=(\d+)"
+    got = _no_launch("regexp_extract status",
+                     lambda: st.regexp_extract(lines, pattern, 1))
+    hit, word, _ = _first_word(words, (3, 4))
+    codes = torch.tensor([list(b"200"), list(b"404")], dtype=torch.uint8,
+                         device=dev)
+    want3 = torch.where(hit[:, None], codes[(word == 4).to(torch.int64)], 0)
+    require(got.validity is None and got.chars.shape[1] == widest + 1
+            and torch.equal(got.data, torch.where(hit, 3, 0).to(torch.int32))
+            and torch.equal(got.chars[:, :3], want3)
+            and int(got.chars[:, 3:].amax()) == 0,
+            "regexp_extract status differs from the word indices")
+    del want3
+    rx = re.compile(pattern, re.ASCII)
+    require([b.decode() for b in _sampled_bytes(got, rows_np)]
+            == [(m.group(1) if (m := rx.search(v)) else "") for v in sample],
+            "regexp_extract status differs from Python re")
+    log(f"regexp_extract {pattern}: {int(hit.sum())} codes, equal to the "
+        f"word indices and to Python re on {len(rows_np)} sampled rows")
+    out = nbytes(got.chars, got.data)
+    del got
+    timed("regexp_extract_status",
+          lambda: st.regexp_extract(lines, pattern, 1), out)
+
+    # regexp_extract id=(\d+): the row number
+    pattern = r"id=(\d+)"
+    got = _no_launch("regexp_extract id",
+                     lambda: st.regexp_extract(lines, pattern, 1))
+    hit, _, _ = _first_word(words, (bs.ID_WORD,))
+    md = int(digits.shape[0])
+    require(torch.equal(got.data, torch.where(hit, ndig, 0).to(torch.int32))
+            and torch.equal(got.chars[:, :md],
+                            torch.where(hit[None, :], digits, 0).t())
+            and int(got.chars[:, md:].amax()) == 0,
+            "regexp_extract id differs from the row numbers")
+    rx = re.compile(pattern, re.ASCII)
+    require([b.decode() for b in _sampled_bytes(got, rows_np)]
+            == [(m.group(1) if (m := rx.search(v)) else "") for v in sample],
+            "regexp_extract id differs from Python re")
+    log(f"regexp_extract {pattern}: {int(hit.sum())} row numbers, equal to "
+        f"the word indices and to Python re on the sample")
+    out = nbytes(got.chars, got.data)
+    del got
+    timed("regexp_extract_id", lambda: st.regexp_extract(lines, pattern, 1),
+          out)
+
+    # regexp_replace status=\d+ -> status=XXX: the lines drawn again with
+    # the two status words rewritten
+    vocab = tuple("status=XXX" if w.startswith("status=") else w
+                  for w in bs.LOG_WORDS)
+    want_col, _ = bs.log_lines(ROWS, seed=12, vocab=vocab)
+    got = _no_launch("regexp_replace status", lambda: st.regexp_replace(
+        lines, r"status=\d+", "status=XXX"))
+    require(not telemetry.fallbacks(), "regexp_replace left the card")
+    w_out = widest + 1 + 8 * 10 + 1
+    require(got.chars.shape[1] == w_out
+            and torch.equal(got.data, _arrow_lengths(want_col)),
+            "regexp_replace lengths differ from the rewritten lines")
+    require(_rows_equal(got, _arrow_block(want_col, w_out)),
+            "regexp_replace differs from the rewritten lines")
+    rx = re.compile(r"status=\d+", re.ASCII)
+    require([b.decode() for b in _sampled_bytes(got, rows_np)]
+            == [rx.sub("status=XXX", v) for v in sample],
+            "regexp_replace differs from Python re")
+    log("regexp_replace status=\\d+ -> status=XXX: equal to the lines drawn "
+        "with the rewritten words and to Python re on the sample; no "
+        "overflow (at most 5 matches a row)")
+    out = nbytes(got.chars, got.data)
+    del got, want_col
+    timed("regexp_replace_status", lambda: st.regexp_replace(
+        lines, r"status=\d+", "status=XXX"), out)
+    torch.cuda.empty_cache()
+
+    # split on ' ' (the split+explode shape): one piece a word
+    res = _no_launch("split", lambda: sf.split(lines, " ", max_pieces=5))
+    lc = res.column
+    child = lc.children[0]
+    nwords = (words >= 0).sum(0)
+    want_off = torch.zeros(ROWS + 1, dtype=torch.int64, device=dev)
+    want_off[1:] = torch.cumsum(nwords, 0)
+    require(not bool(res.overflowed) and lc.validity is None
+            and torch.equal(lc.data, want_off.to(torch.int32))
+            and child.chars.shape == (int(want_off[-1]), widest),
+            "split offsets differ from the word counts")
+    # the child rows: word table bytes, then the row number for id=
+    table = _word_table(dev, widest)
+    offs = want_off
+
+    def piece_block(q0, q1):
+        q = torch.arange(q0, q1, device=dev)
+        row = torch.searchsorted(offs[1:], q, right=True)
+        w = words[q - offs[row], row].to(torch.int64)
+        blk = table[w].clone()
+        is_id = w == bs.ID_WORD
+        for d in range(md):
+            blk[:, 3 + d] = torch.where(is_id & (d < ndig[row]),
+                                        digits[d, row], blk[:, 3 + d])
+        return blk
+    slot_flat = slot_len.t()[(words >= 0).t()]  # live slots, row-major
+    require(torch.equal(child.data, slot_flat.to(torch.int32)),
+            "split piece lengths differ from the word lengths")
+    require(_rows_equal(child, piece_block),
+            "split pieces differ from the words")
+    k = min(SPLIT_SAMPLE, len(sample))  # str.split of a part of the sample
+    starts = lc.data[rows[:k]].tolist()
+    ends = lc.data[rows[:k] + 1].tolist()
+    flat = _sampled_bytes(child, np.concatenate(
+        [np.arange(a, b) for a, b in zip(starts, ends)]))
+    at = np.cumsum([0] + [b - a for a, b in zip(starts, ends)])
+    require([[x.decode() for x in flat[at[i]:at[i + 1]]] for i in range(k)]
+            == [v.split(" ") for v in sample[:k]],
+            "split differs from str.split")
+    log(f"split(' ', max_pieces=5): {int(want_off[-1])} pieces, equal to "
+        f"the word indices and to str.split on {k} sampled rows")
+    out = nbytes(lc.data, child.data, child.chars)
+    del res, lc, child, slot_flat
+    timed("split", lambda: sf.split(lines, " ", max_pieces=5), out)
+    torch.cuda.empty_cache()
+
+    # the string functions, each against a plain oracle over every row
+    # and against Python on the sample
+    w = widest
+    padded = st.pad_strings(lines)
+    jdx = torch.arange(w, device=dev)
+    lut = torch.arange(256, dtype=torch.uint8, device=dev)
+    lut[ord("0"):ord("9") + 1] = torch.arange(
+        ord("a"), ord("j") + 1, dtype=torch.uint8, device=dev)
+
+    def rev_block(r0, r1):
+        ln = lens[r0:r1, None]
+        out = torch.gather(padded.chars[r0:r1], 1,
+                           (ln - 1 - jdx).clamp(min=0).to(torch.int64))
+        return out.masked_fill_(jdx >= ln, 0)
+
+    def lpad_block(r0, r1):
+        out = torch.empty((r1 - r0, 80), dtype=torch.uint8, device=dev)
+        npad = 80 - lens[r0:r1]
+        shift_block(padded.chars[r0:r1], -npad, torch.full_like(npad, 80),
+                    out)
+        j = torch.arange(80, device=dev)
+        return out.masked_fill_(j < npad[:, None], ord("*"))
+
+    vocab_cap = tuple(" ".join(x[:1].upper() + x[1:].lower()
+                               for x in w_.split(" ")) for w_ in bs.LOG_WORDS)
+    cap_col, _ = bs.log_lines(ROWS, seed=12, vocab=vocab_cap)
+    # instr("status"): 1 + the byte offset of the first status word's slot
+    hit, _, slot = _first_word(words, (3, 4))
+    slot_start = torch.zeros(ROWS, dtype=torch.int64, device=dev)
+    for s in range(1, bs.MAX_WORDS):
+        slot_start += torch.where(slot >= s, slot_len[s - 1] + 1, 0)
+    fns = {
+        "length": (lambda: sf.length(lines), lambda v: len(v),
+                   lambda got: torch.equal(got.data, lens)),
+        "trim": (lambda: sf.trim(lines), lambda v: v.strip(" "),
+                 lambda got: torch.equal(got.data, lens)
+                 and torch.equal(got.chars, padded.chars)),
+        "lpad_80": (lambda: sf.lpad(lines, 80, "*"),
+                    lambda v: ("*" * 80 + v)[-80:],
+                    lambda got: bool((got.data == 80).all())
+                    and _rows_equal(got, lpad_block)),
+        "reverse": (lambda: sf.reverse(lines), lambda v: v[::-1],
+                    lambda got: torch.equal(got.data, lens)
+                    and _rows_equal(got, rev_block)),
+        "instr_status": (lambda: sf.instr(lines, "status"),
+                         lambda v: v.find("status") + 1,
+                         lambda got: torch.equal(got.data, torch.where(
+                             hit, slot_start + 1, 0).to(torch.int32))),
+        "translate_digits": (
+            lambda: sf.translate(lines, "0123456789", "abcdefghij"),
+            lambda v: v.translate(str.maketrans("0123456789",
+                                                "abcdefghij")),
+            lambda got: torch.equal(got.data, lens)
+            and _rows_equal(got, lambda r0, r1: lut[
+                padded.chars[r0:r1].to(torch.int64)])),
+        "initcap": (lambda: sf.initcap(lines), _py_initcap,
+                    lambda got: torch.equal(got.data, lens)
+                    and _rows_equal(got, _arrow_block(cap_col, w))),
+    }
+    for name, (fn, py, oracle) in fns.items():
+        got = _no_launch(name, fn)
+        require(oracle(got), f"{name} differs from its oracle")
+        if got.chars is None:
+            vals = got.data[rows].tolist()
+        else:
+            vals = [b.decode() for b in _sampled_bytes(got, rows_np)]
+        require(vals == [py(v) for v in sample],
+                f"{name} differs from Python on the sample")
+        out = nbytes(got.chars, got.data)
+        del got
+        timed(name, fn, out)
+    fallbacks["string_functions"] = _fallbacks_line("string functions")
+    require(not fallbacks["string_functions"],
+            "an ASCII string function left the card")
+    log("length, trim, lpad(80, '*'), reverse, instr('status'), translate "
+        "and initcap over the log lines equal to their oracles over every "
+        "row and to Python on the sample")
+    del padded, cap_col
+    torch.cuda.empty_cache()
+
+    # concat_ws over SF10 lineitem's two STRING flags and the lines
+    li_s = tpch.lineitem_table_strings(ROWS, seed=0)
+    rf = li_s.column(tpch.L_RETURNFLAG)
+    ls = li_s.column(tpch.L_LINESTATUS)
+    del li_s
+    torch.cuda.empty_cache()
+    got = _no_launch("concat_ws",
+                     lambda: sf.concat_ws("|", [rf, ls, lines]))
+    line_block = _arrow_block(lines, w)
+
+    def ws_block(r0, r1):
+        out = torch.zeros((r1 - r0, w + 4), dtype=torch.uint8, device=dev)
+        out[:, 0] = rf.chars[r0:r1]
+        out[:, 1] = out[:, 3] = ord("|")
+        out[:, 2] = ls.chars[r0:r1]
+        out[:, 4:] = line_block(r0, r1)
+        return out
+    require(got.validity is None and torch.equal(got.data, lens + 4)
+            and got.chars.shape[1] == w + 4 and _rows_equal(got, ws_block),
+            "concat_ws differs from the flags and the lines")
+    flags = [(chr(a), chr(b)) for a, b in zip(
+        rf.chars[rows].tolist(), ls.chars[rows].tolist())]
+    require([b.decode() for b in _sampled_bytes(got, rows_np)]
+            == ["|".join((a, b, v)) for (a, b), v in zip(flags, sample)],
+            "concat_ws differs from Python on the sample")
+    log("concat_ws('|', [l_returnflag, l_linestatus, lines]): equal to the "
+        "flags and the lines over every row and to Python on the sample")
+    out = nbytes(got.chars, got.data, rf.chars, rf.data, ls.chars, ls.data)
+    del got
+    timed("concat_ws_flags_lines",
+          lambda: sf.concat_ws("|", [rf, ls, lines]), out)
+    del rf, ls
+    torch.cuda.empty_cache()
+
+    # host routes of the capture functions over a 1,000,000-row head
+    head = Column(STRING, lines.data[:ENGINE_SAMPLE + 1], None,
+                  chars=lines.chars[:int(lines.data[ENGINE_SAMPLE])])
+    for route in HOST_ROUTES:
+        times[route[0]] = _host_route(head, route)
+    del head, lines, words
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"capture and string functions phase peak "
+            f"{peak:.2f} GiB")
+    log(f"peak device memory of the capture and string functions phase "
+        f"{peak:.2f} GiB")
+    return {"paths": times, "peak_gib": peak, "fallbacks": fallbacks}
+
+
+def _rows_equal(got, want_fn) -> bool:
+    from spark_rapids_jni_tpu_torch.ops.strings import row_chunks
+
+    n, w = got.chars.shape
+    return all(torch.equal(got.chars[r0:r1], want_fn(r0, r1))
+               for r0, r1 in row_chunks(n, w))
+
+
+def _py_initcap(v: str) -> str:
+    """Spark's initcap on a host string: a letter after a space (or at
+    the start) upper-cased, every other letter lower-cased."""
+    return "".join(ch.upper() if i == 0 or v[i - 1] == " " else ch.lower()
+                   for i, ch in enumerate(v))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2148,6 +2594,7 @@ def main() -> int:
     path_times["bloom"] = bloom_phase()
     path_times["string_q1_q13"] = string_q1_q13_phase(q1_oracle, q1_general)
     path_times["string_engines"] = string_engines_phase(dev)
+    path_times["capture_and_string_functions"] = capture_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches}

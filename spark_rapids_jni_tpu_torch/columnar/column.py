@@ -10,7 +10,11 @@ column has one of two layouts, as in the reference:
   matrix whose bytes past a row's length are zero
   (``ops/strings.py`` converts between them).
 
-List and struct layouts are not ported yet.
+A LIST column (``strings_fns.split``'s result) holds int32 offsets[n+1]
+into its one child in ``data`` and the child in ``children``, as in the
+reference; only its size, validity, host view and equality are ported
+(list operators wait for ``ops/lists.py``). Struct columns are not
+ported yet.
 
 ``validity is None`` means "no null mask allocated — all rows valid",
 the tri-state cuDF uses (null_mask() == nullptr). Null slots in ``data``
@@ -65,6 +69,8 @@ class Column:
     validity: Optional[torch.Tensor] = None  # bool[n], True = valid
     # STRING columns only: the uint8 bytes (Arrow) or (n, W) matrix (padded)
     chars: Optional[torch.Tensor] = None
+    # LIST columns only: [element column]; data holds int32 offsets[n+1]
+    children: Optional[list] = None
 
     def __post_init__(self) -> None:
         if self.validity is not None:
@@ -72,6 +78,16 @@ class Column:
                 raise TypeError("validity must be bool")
             if self.validity.device != self.data.device:
                 raise ValueError("validity must live on the data's device")
+        if self.dtype.is_list:
+            if not self.children or len(self.children) != 1:
+                raise ValueError("LIST column requires exactly one child")
+            if self.data.dtype != torch.int32:
+                raise TypeError("LIST offsets must be int32")
+            if self.chars is not None:
+                raise ValueError("only STRING columns carry chars")
+            return
+        if self.children is not None:
+            raise ValueError("only LIST columns carry children")
         if self.dtype.is_string:
             if self.chars is None:
                 raise ValueError("string column requires chars buffer")
@@ -110,7 +126,8 @@ class Column:
 
     @property
     def size(self) -> int:
-        if self.dtype.is_string and not self.is_padded_string:
+        if self.dtype.is_list or (self.dtype.is_string
+                                  and not self.is_padded_string):
             return int(self.data.shape[0]) - 1
         return int(self.data.shape[0])
 
@@ -212,6 +229,11 @@ class Column:
 
     def to_pylist(self) -> list:
         data, mask = self.to_numpy()
+        if self.dtype.is_list:
+            child = self.children[0].to_pylist()
+            return [None if mask is not None and not mask[i]
+                    else child[data[i]:data[i + 1]]
+                    for i in range(self.size)]
         if self.dtype.is_string:
             return [None if mask is not None and not mask[i] else b.decode()
                     for i, b in enumerate(self.row_bytes())]
@@ -239,6 +261,8 @@ class Column:
         b_valid = other.valid_mask().to(a_valid.device)
         if not torch.equal(a_valid, b_valid):
             return False
+        if self.dtype.is_list:
+            return self._list_rows_equal(other, a_valid)
         if self.dtype.is_string:
             from spark_rapids_jni_tpu_torch.ops.strings import (
                 pad_to_common_width,
@@ -255,9 +279,45 @@ class Column:
             return bool(((a == b) | both_nan).all())
         return torch.equal(a, b)
 
+    def _valid_elements(self, valid: torch.Tensor) -> torch.Tensor:
+        """Child row indices of the valid rows' elements, row by row."""
+        offsets = self.data.to(torch.int64)
+        starts = offsets[:-1][valid]
+        counts = (offsets[1:] - offsets[:-1])[valid]
+        first = torch.cumsum(counts, 0) - counts
+        total = int(counts.sum()) if counts.numel() else 0
+        q = torch.arange(total, dtype=torch.int64, device=offsets.device)
+        row = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=offsets.device), counts)
+        return starts[row] + q - first[row]
+
+    def _list_rows_equal(self, other: "Column", valid: torch.Tensor) -> bool:
+        """The valid rows hold equal lists: equal lengths, and equal
+        elements under the elements' own validity."""
+        b_off = other.data.to(self.device)
+        if not torch.equal((self.data[1:] - self.data[:-1])[valid],
+                           (b_off[1:] - b_off[:-1])[valid]):
+            return False
+        a_child, b_child = self.children[0], other.children[0]
+        a_idx = self._valid_elements(valid)
+        b_idx = Column(other.dtype, b_off, None, children=[b_child]) \
+            ._valid_elements(valid).to(b_child.device)
+        return _take_rows(a_child, a_idx).equals(
+            _take_rows(b_child, b_idx))
+
     def __repr__(self) -> str:
         return (f"Column({self.dtype}, size={self.size}, "
                 f"device={self.device})")
+
+
+def _take_rows(col: Column, idx: torch.Tensor) -> Column:
+    """The rows ``idx`` of a fixed-width or STRING column."""
+    if col.dtype.is_string:
+        from spark_rapids_jni_tpu_torch.ops.strings import gather_strings
+
+        return gather_strings(col, idx)
+    validity = None if col.validity is None else col.validity[idx]
+    return Column(col.dtype, take(col.data, idx), validity)
 
 
 def string_column(values: Sequence[Optional[str]], device=None) -> Column:

@@ -42,9 +42,13 @@ CASE_WORDS = ("Café", "ÜBER", "ñoño", "łódź", "αβγ", "Ωμέγα", "П
 SPECIAL_WORDS = ("straße", "ΟΔΟΣ", "ısı", "İstanbul", "\U00010400x")
 
 
-def log_lines(n: int, seed: int = 0, device=None):
+def log_lines(n: int, seed: int = 0, device=None, vocab=LOG_WORDS):
     """(Arrow STRING column of n log lines, int8 (MAX_WORDS, n) word index
-    of each slot, -1 past the row's word count)."""
+    of each slot, -1 past the row's word count). ``vocab`` replaces the
+    nine words (the same draws, so the same slots): a caller builds the
+    expected result of a word-for-word rewrite this way."""
+    if len(vocab) != len(LOG_WORDS):
+        raise ValueError(f"vocab needs {len(LOG_WORDS)} words")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     k = torch.randint(2, MAX_WORDS + 1, (n,), generator=gen, device=dev)
@@ -52,7 +56,7 @@ def log_lines(n: int, seed: int = 0, device=None):
                           device=dev)
     slot = torch.arange(MAX_WORDS, device=dev)[:, None]
     words = torch.where(slot < k[None, :], words, -1)
-    enc = [w.encode() for w in LOG_WORDS]
+    enc = [w.encode() for w in vocab]
     width = max(len(w) for w in enc)
     table = torch.zeros((len(enc), width), dtype=torch.uint8)
     for i, w in enumerate(enc):

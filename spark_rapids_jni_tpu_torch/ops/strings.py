@@ -17,8 +17,10 @@ padded width decides the null-slot bytes and the sort-key word count.
 The string xxhash (Spark's hashUnsafeBytes) hashes a position-major
 (W, n) byte image, one 1-D lane per byte position, and so does RLIKE
 (``regexp_contains``: the device DFA of ``ops/regex_device.py``, or the
-host engine for what the DFA does not take). ``substring``, ``upper``
-and ``lower`` return padded columns; case mapping runs on the device
+host engine for what the DFA does not take). ``regexp_extract`` and
+``regexp_replace`` run the linear capture engine of
+``ops/regex_capture_device.py`` (or the host engine) over the padded
+layout. ``substring``, ``upper`` and ``lower`` return padded columns; case mapping runs on the device
 (ASCII, and ``ops/unicode_case_device.py`` for 1:1 Unicode mappings) but
 for the rows with special characters, which the host maps.
 
@@ -107,6 +109,33 @@ def _gather_rows(chars: torch.Tensor, starts: torch.Tensor,
     idx = (starts[:, None] + jdx[None, :]).clamp_(0, int(chars.shape[0]) - 1)
     torch.index_select(chars, 0, idx.view(-1), out=out.view(-1))
     out.masked_fill_(jdx[None, :] >= lengths[:, None], 0)
+
+
+def shift_block(chars: torch.Tensor, start: torch.Tensor,
+                new_len: torch.Tensor, out: torch.Tensor) -> None:
+    """out[i, j] = chars[i, start[i] + j] (clipped into the row) for
+    j < new_len[i], else 0: one int32-indexed gather of the contiguous
+    (c, W) block ``chars`` (c * W < 2^31) into the contiguous (c, W_out)
+    ``out``."""
+    jdx = torch.arange(out.shape[1], dtype=torch.int32, device=chars.device)
+    take_cols(chars, start.to(torch.int32)[:, None] + jdx, out=out)
+    out.masked_fill_(jdx >= new_len.to(torch.int32)[:, None], 0)
+
+
+def take_cols(block: torch.Tensor, src: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """block[i, src[i, j]] with ``src`` clipped into the row: one
+    int32-indexed gather of the contiguous (c, W) ``block`` (c * W <
+    2^31), any dtype; ``src`` is (c, W_out) or broadcasts to it."""
+    c, w = block.shape
+    rows = torch.arange(c, dtype=torch.int32, device=block.device)[:, None]
+    idx = src.to(torch.int32).clamp(0, w - 1) + rows * w
+    if out is None:
+        return torch.index_select(block.reshape(-1), 0,
+                                  idx.reshape(-1)).view(idx.shape)
+    torch.index_select(block.reshape(-1), 0, idx.reshape(-1),
+                       out=out.view(-1))
+    return out
 
 
 def unpad_strings(col: Column) -> Column:
@@ -734,3 +763,212 @@ def regexp_contains(col: Column, pattern: str) -> Column:
     flags = torch.tensor([bool(v) for v in out], dtype=torch.uint8,
                          device=col.device)
     return Column(BOOL8, flags, col.validity)
+
+
+# ---- regexp_extract and regexp_replace --------------------------------------
+#
+# Two engines, as RLIKE has: linear patterns over all-ASCII rows without
+# NUL run on the device (ops/regex_capture_device.py); the rest take the
+# host engine, recorded in ``telemetry`` with the reason.
+
+
+def _java_replacement_to_python(rep: str, n_groups: int) -> str:
+    """Java Matcher.appendReplacement syntax -> Python sub template.
+    ``\\x`` in Java means LITERAL x (so ``\\n`` is the letter n, not a
+    newline); ``$digits`` binds greedily to the longest prefix that is a
+    valid group number <= ``n_groups`` (Java's rule — '$10' with two
+    groups is group 1 then literal '0')."""
+    out = []
+    i = 0
+    while i < len(rep):
+        c = rep[i]
+        if c == "\\":
+            if i + 1 >= len(rep):
+                raise ValueError(
+                    "invalid regexp replacement: trailing backslash")
+            nxt = rep[i + 1]
+            out.append("\\\\" if nxt == "\\" else nxt)
+            i += 2
+            continue
+        if c == "$":
+            j = i + 1
+            if j >= len(rep) or not rep[j].isdigit():
+                raise ValueError(
+                    f"invalid regexp replacement {rep!r}: '$' must be "
+                    f"followed by a group number (escape literal '$' "
+                    f"with a backslash)")
+            # greedy: extend while the accumulated number stays a valid
+            # group reference
+            g = int(rep[j])
+            j += 1
+            while j < len(rep) and rep[j].isdigit() \
+                    and g * 10 + int(rep[j]) <= n_groups:
+                g = g * 10 + int(rep[j])
+                j += 1
+            if g > n_groups:
+                raise ValueError(
+                    f"invalid regexp replacement {rep!r}: group {g} "
+                    f"exceeds the pattern's {n_groups} group(s)")
+            out.append(f"\\g<{g}>")
+            i = j
+            continue
+        out.append(c)  # backslashes were consumed by the branch above
+        i += 1
+    return "".join(out)
+
+
+def _clean_and_widest(col: Column) -> tuple[bool, int]:
+    """(every row's content bytes lie in 1..127, the longest row) with
+    one host read: a padded row is clean when its zero bytes are exactly
+    its padding and no byte has the high bit; an Arrow column when the
+    bytes between its first and last offset are all in 1..127."""
+    if is_padded(col):
+        w = int(col.chars.shape[1])
+        clean = torch.ones((), dtype=torch.bool, device=col.device)
+        for r0, r1 in row_chunks(col.size, w):
+            blk = col.chars[r0:r1]
+            zeros = (blk == 0).sum(1, dtype=torch.int32)
+            clean &= (zeros == w - col.data[r0:r1]).all() \
+                & (blk.max() < 0x80)
+        flag, widest = torch.stack(
+            [clean.to(torch.int64), col.data.max().to(torch.int64)]).tolist()
+        return bool(flag), widest
+    offsets = col.data
+    widest, lo, hi = torch.stack([(offsets[1:] - offsets[:-1]).max(),
+                                  offsets[0], offsets[-1]]).tolist()
+    # uint8 wraps: 0 - 1 = 255 fails the test, so NUL is refused too
+    return hi <= lo or bool(((col.chars[lo:hi] - 1) < 127).all()), widest
+
+
+def _device_capture_eligible(col: Column, pattern: str, op: str):
+    """Shared extract/replace device-path gate: the pattern parses into
+    the linear capture subset AND the column is all-ASCII with no
+    embedded NULs (byte-level ``.``/negated classes equal char-level
+    exactly on ASCII data; NULs alias the padding sentinel). Returns
+    (compiled, padded_col) or (None, None) for host fallback; respects
+    ``regex.force_engine`` like regexp_contains. Every (None, None)
+    return records a telemetry fallback under ``op``. The padded column
+    gets a zero column past its width when the widest row fills it (the
+    walk reads positions up to W inclusive); two host reads (the width
+    and the cleanliness check; one for a padded column)."""
+    from spark_rapids_jni_tpu_torch.ops import regex_capture_device as rc
+    from spark_rapids_jni_tpu_torch.utils.config import get_option
+
+    force = get_option("regex.force_engine")
+    if force == "host":
+        telemetry.record_fallback(
+            op, "regex.force_engine=host pin", rows=col.size)
+        return None, None
+    try:
+        comp = rc.compile_linear(pattern)
+    except rc.RegexUnsupported as exc:
+        if force == "device":
+            raise
+        telemetry.record_fallback(
+            op, f"unsupported linear-capture atom: {exc}", rows=col.size)
+        return None, None
+    if col.size == 0:
+        telemetry.record_fallback(
+            op, "empty column: no rows to run on device", rows=0)
+        return None, None
+    clean, widest = _clean_and_widest(col)
+    if not clean:
+        if force == "device":
+            raise ValueError(
+                "regex.force_engine=device but the column has embedded "
+                "NULs or non-ASCII bytes (outside the capture engine's "
+                "correctness scope)")
+        telemetry.record_fallback(
+            op,
+            "embedded NULs or non-ASCII bytes (sentinel alias / outside "
+            "the byte-level capture engine's correctness scope)",
+            rows=col.size)
+        return None, None
+    w = int(col.chars.shape[1]) if is_padded(col) else max(widest, 1)
+    w_eff = w + 1 if widest >= w else w
+    if not is_padded(col):
+        return comp, pad_strings(col, width=w_eff)
+    if w_eff > w:
+        col = Column(STRING, col.data, col.validity,
+                     chars=torch.nn.functional.pad(col.chars, (0, 1)))
+    return comp, col
+
+
+def regexp_extract(col: Column, pattern: str, group: int = 1) -> Column:
+    """Spark regexp_extract: the group'th capture of the first match,
+    '' when the pattern does not match (Spark returns empty string, not
+    null). Linear patterns over ASCII rows run on the device
+    (``ops/regex_capture_device.py``); the rest take the host engine.
+    Returns a padded column."""
+    rx = _compile_java_regex(pattern)
+    if not 0 <= group <= rx.groups:
+        # validate up front like regexp_replace — otherwise an invalid
+        # index only crashes on rows that happen to match (Spark raises)
+        raise ValueError(
+            f"regexp_extract group {group} out of range: pattern has "
+            f"{rx.groups} group(s)")
+    comp, pc = _device_capture_eligible(col, pattern, "regexp_extract")
+    if comp is not None:
+        from spark_rapids_jni_tpu_torch.ops import regex_capture_device as rc
+
+        lengths, chars = rc.extract_device(pc.chars, comp, group)
+        return Column(STRING, lengths, pc.validity, chars=chars)
+
+    def ext(r, v):
+        m = r.search(v)
+        if m is None:
+            return ""
+        g = m.group(group)
+        return "" if g is None else g
+
+    out = _host_regexp(col, rx, ext)
+    return pad_strings(Column.from_pylist(out, STRING, device=col.device))
+
+
+def regexp_replace(col: Column, pattern: str, replacement: str) -> Column:
+    """Spark regexp_replace: every match replaced; Java $N group refs
+    (greedy multi-digit) and \\x literal escapes supported.
+
+    Literal replacements of linear patterns over ASCII rows run on the
+    device in at most 8 match rounds; a row with more matches sends the
+    whole column to the host engine (one host read of the overflow
+    flag). Group-ref replacements, patterns that match the empty string
+    at every position, and the rest take the host engine. Returns a
+    padded column."""
+    rx = _compile_java_regex(pattern)
+    rep = _java_replacement_to_python(replacement, rx.groups)
+    literal_rep = "$" not in replacement and "\\" not in replacement
+    if literal_rep:
+        comp, pc = _device_capture_eligible(col, pattern, "regexp_replace")
+        if comp is not None and all(
+                el.lo == 0 for el in comp.pattern.elements):
+            # a pattern that can match empty matches at EVERY position:
+            # any row longer than the round budget is guaranteed to
+            # overflow, so the device pass would be dead work
+            telemetry.record_fallback(
+                "regexp_replace",
+                "empty-matching pattern: every position matches, device "
+                "round budget would always overflow", rows=col.size)
+            comp = None
+        if comp is not None:
+            from spark_rapids_jni_tpu_torch.ops import (
+                regex_capture_device as rc,
+            )
+
+            out_len, out_chars, overflowed = rc.replace_device(
+                pc.chars, pc.data, comp, replacement.encode())
+            if not bool(overflowed):
+                return Column(STRING, out_len, pc.validity,
+                              chars=out_chars)
+            telemetry.record_fallback(
+                "regexp_replace",
+                "match-round budget overflow: a row exceeded the device "
+                "replace rounds; rerouting whole column to host",
+                rows=col.size)
+    else:
+        telemetry.record_fallback(
+            "regexp_replace",
+            "group-ref/escape replacement: device engine handles literal "
+            "replacements only", rows=col.size)
+    out = _host_regexp(col, rx, lambda r, v: r.sub(rep, v))
+    return pad_strings(Column.from_pylist(out, STRING, device=col.device))

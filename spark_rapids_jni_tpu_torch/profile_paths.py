@@ -11,8 +11,8 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``tpch_q6``, ``cast_decimal``, ``cast_float``, ``cast_date``, ``q19``,
 ``q19_planned``, ``q17``, ``q10``, ``hash_lineitem``, ``hash_q12``,
 ``partition_hash``, ``bloom_build``, ``bloom_probe``, ``q1_strings``,
-``q13``, ``rlike``, ``json_extract``, ``upper_mixed``) select some of
-them.
+``q13``, ``rlike``, ``json_extract``, ``upper_mixed``,
+``regexp_extract``, ``regexp_replace``, ``split``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -34,8 +34,9 @@ q3's l_orderkey into 200 partitions, the q3-shaped runtime bloom filter
 59,986,052 lineitem keys), the general q1 over STRING flags and q13's
 single-pass reference, and for RLIKE over bench.py's 59,986,052 log
 lines, get_json_object ``$.meta.w`` over its documents tiled to
-59,986,052 rows, and upper of 1,000,000 mixed-script rows, after a
-warm-up:
+59,986,052 rows, and upper of 1,000,000 mixed-script rows, and for
+regexp_extract ``status=(\\d+)``, regexp_replace ``status=\\d+`` and
+split on ' ' over the log lines, after a warm-up:
 the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
@@ -84,6 +85,7 @@ MORE_PATHS = ("q19", "q19_planned", "q17", "q10")
 HASH_PATHS = ("hash_lineitem", "hash_q12", "partition_hash", "bloom_build",
               "bloom_probe", "q1_strings", "q13")
 ENGINE_PATHS = ("rlike", "json_extract", "upper_mixed")
+CAPTURE_PATHS = ("regexp_extract", "regexp_replace", "split")
 
 
 def device_us(evt) -> float:
@@ -115,7 +117,7 @@ def profile_path(name, fn, reps, out_dir):
     print(f"== {name}: {wall_ms:.3f} ms per run (wall, no profiler); "
           f"device busy {busy_us / window_us:.3f} of the profiled window")
     for us, count, key in rows[:15]:
-        print(f"   {us / reps / 1e3:9.3f} ms/run  x{count // reps:<3} {key[:90]}")
+        print(f"   {us / reps / 1e3:9.3f} ms/run  x{count // reps:<3} {key[:200]}")
     prof.export_chrome_trace(str(out_dir / f"profile_{name}.json"))
 
 
@@ -157,6 +159,8 @@ def main(only: list[str]) -> int:
         profile_hashing(run)
     if not only or set(only) & set(ENGINE_PATHS):
         profile_engines(run)
+    if not only or set(only) & set(CAPTURE_PATHS):
+        profile_capture(run)
     return 0
 
 
@@ -287,5 +291,17 @@ def profile_engines(run) -> None:
     run("upper_mixed", lambda: strings.upper(mixed))
 
 
+def profile_capture(run) -> None:
+    from spark_rapids_jni_tpu_torch.ops import strings_fns
+
+    lines, _ = bench_strings.log_lines(ROWS, seed=12)
+    run("regexp_extract",
+        lambda: strings.regexp_extract(lines, r"status=(\d+)", 1), Q3_REPS)
+    run("regexp_replace", lambda: strings.regexp_replace(
+        lines, r"status=\d+", "status=XXX"), Q3_REPS)
+    run("split", lambda: strings_fns.split(lines, " ", max_pieces=5), Q3_REPS)
+
+
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))
+

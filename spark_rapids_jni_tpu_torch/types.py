@@ -143,6 +143,10 @@ class DType:
         return self.type_id == TypeId.STRING
 
     @property
+    def is_list(self) -> bool:
+        return self.type_id == TypeId.LIST
+
+    @property
     def is_decimal128(self) -> bool:
         """128-bit decimal: stored as int64[n, 2] limb pairs (lo unsigned,
         hi signed, little-endian limb order)."""
@@ -202,6 +206,7 @@ TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
 TIMESTAMP_MICROSECONDS = DType(TypeId.TIMESTAMP_MICROSECONDS)
 DURATION_DAYS = DType(TypeId.DURATION_DAYS)
 STRING = DType(TypeId.STRING)
+LIST = DType(TypeId.LIST)
 
 
 def decimal32(scale: int) -> DType:

@@ -98,6 +98,8 @@ def test_column_validation_and_equality():
     with pytest.raises(TypeError):
         Column(tt.decimal128(0), torch.zeros(3, dtype=torch.int64))
     with pytest.raises(NotImplementedError):
+        Column(tt.DType(tt.TypeId.STRUCT), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):  # a LIST column needs its one child
         Column(tt.DType(tt.TypeId.LIST), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):  # a STRING column needs its chars
         Column(tt.DType(tt.TypeId.STRING), torch.zeros(3, dtype=torch.int32))

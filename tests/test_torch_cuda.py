@@ -42,7 +42,9 @@ from spark_rapids_jni_tpu_torch.ops import cast_strings as pcs
 from spark_rapids_jni_tpu_torch.ops import datetime as pdt
 from spark_rapids_jni_tpu_torch.ops import hash as phash
 from spark_rapids_jni_tpu_torch.ops import json_device as pjd
+from spark_rapids_jni_tpu_torch.ops import regex_capture_device as prc
 from spark_rapids_jni_tpu_torch.ops import strings as pstr
+from spark_rapids_jni_tpu_torch.ops import strings_fns as pfn
 from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.interop import table_from_numpy
@@ -988,3 +990,82 @@ def test_substring_and_case_on_the_card_match_cpu(dev, n):
     clog = _cast_string_columns(log_lines(n, n + 1), valid, "cpu")
     for fn in (pstr.upper, pstr.lower):
         _same_bytes(fn(log), fn(clog))
+
+
+# ---- regexp_extract, regexp_replace and the string functions ------------------
+
+def _same_list(a: Column, b: Column) -> None:
+    """Two LIST<STRING> columns of one call on two devices: the same
+    offsets and validity, and the same child bytes."""
+    assert a.dtype == b.dtype
+    assert torch.equal(a.data.cpu(), b.data.cpu())
+    assert (a.validity is None) == (b.validity is None)
+    if a.validity is not None:
+        assert torch.equal(a.validity.cpu(), b.validity.cpu())
+    _same_bytes(a.children[0], b.children[0])
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_capture_engine_on_the_card_matches_cpu(dev, n):
+    """regexp_extract and regexp_replace over log lines, Arrow-laid (the
+    gate appends the sentinel column) and padded with slack: the device
+    engines on both devices, and the overflow route (a digit a match);
+    the engines' own outputs and overflow flags; no kernel."""
+    values, valid = log_lines(n, n), null_tail(n, n)
+    kernels.reset_counts()
+    for col, ccol in zip(_regex_columns(values, valid, dev),
+                         _regex_columns(values, valid, "cpu")):
+        for pattern, group in ((r"status=(\d+)", 1), (r"id=(\d+)", 1),
+                               (r"^(\w+) (\S+)", 2), (r"(\d+)-(\d+)", 0),
+                               (r"T(.*?)o", 1), (r"([a-z]{2,3}?)s", 1)):
+            _same_bytes(pstr.regexp_extract(col, pattern, group),
+                        pstr.regexp_extract(ccol, pattern, group))
+        for pattern, rep in ((r"status=\d+", "status=XXX"), (r"\d", "#"),
+                             (r"[aeiou]", ""), (r"o?k", "OK!")):
+            _same_bytes(pstr.regexp_replace(col, pattern, rep),
+                        pstr.regexp_replace(ccol, pattern, rep))
+    assert kernels.launches() == {}
+    mat = pstr.pad_strings(_cast_string_columns(values, valid, "cpu"),
+                           width=80)
+    comp = prc.compile_linear(r"\d")
+    for rounds in (8, 2):
+        got = prc.replace_device(mat.chars.to(dev), mat.data.to(dev), comp,
+                                 b"<>", rounds)
+        want = prc.replace_device(mat.chars, mat.data, comp, b"<>", rounds)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    got = prc.extract_device(mat.chars.to(dev), comp, 0)
+    for a, b in zip(got, prc.extract_device(mat.chars, comp, 0)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_string_functions_on_the_card_match_cpu(dev, n):
+    """Every function of strings_fns over log lines (ASCII: the device
+    paths) and over mixed-script rows (length, instr, reverse and split
+    stay on the device there), Arrow-laid and padded with slack; no host
+    branch on the log lines."""
+    mixed = [v if i % 2 else w for i, (v, w) in enumerate(
+        zip(mixed_script_rows(n, n), log_lines(n, n)))]
+    valid = null_tail(n, n)
+    fns = [pfn.length, pfn.trim, lambda c: pfn.ltrim(c, " G"), pfn.rtrim,
+           lambda c: pfn.instr(c, "status"), lambda c: pfn.instr(c, "é"),
+           lambda c: pfn.instr(c, ""), lambda c: pfn.repeat(c, 2),
+           pfn.reverse, lambda c: pfn.concat(c, c),
+           lambda c: pfn.concat_ws("|", [c, c]),
+           lambda c: pfn.concat_ws("", [c])]
+    ascii_fns = [lambda c: pfn.lpad(c, 80, "*"),
+                 lambda c: pfn.rpad(c, 20, "+-"),
+                 lambda c: pfn.translate(c, "0123456789", "abcdefghij"),
+                 lambda c: pfn.translate(c, "aeiou", ""), pfn.initcap]
+    telemetry.reset()
+    for values, extra in ((log_lines(n, n + 2), ascii_fns), (mixed, [])):
+        for col, ccol in zip(_regex_columns(values, valid, dev),
+                             _regex_columns(values, valid, "cpu")):
+            for fn in fns + extra:
+                _same_bytes(fn(col), fn(ccol))
+            for args in ((" ", -1, 5), (" ", 2, None), ("s=", -1, 3)):
+                got, want = pfn.split(col, *args), pfn.split(ccol, *args)
+                _same_list(got.column, want.column)
+                assert bool(got.overflowed) == bool(want.overflowed)
+    assert telemetry.fallbacks() == {}

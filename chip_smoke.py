@@ -132,7 +132,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    replacement, an alternation), each recorded with its reason and
    equal to ``re``; each device path's host time (median of 3) beside
    its byte bound, and the phase's peak device memory (under 40 GiB);
-14. one ``{"kernels": [...]}`` line, the card line, and the final
+14. the rest of the general groupby, the planner's general lowering and
+   month buckets, the DECIMAL128 reductions and the table operations
+   over SF10 lineitem (59,986,052 rows with q5's l_orderkey and
+   l_suppkey, seeded nulls in l_quantity and the flags, a FLOAT64 price
+   with NaN rows, Spark's xxhash64 of l_orderkey as UINT64, and
+   l_extendedprice x 10^20 as DECIMAL128 with negative rows), each
+   result held to a numpy or Python-int oracle: the planned monthly
+   rollup by (month_bucket(l_shipdate), l_returnflag, l_linestatus),
+   m = 1,032 slots and 16 lanes, bounded through kernel A (launched,
+   no fallback) with A at that shape against its plain version; the
+   general groupby by l_suppkey (100,000 groups: var/std/var_pop/
+   std_pop, covar_samp, corr, nunique, first/last both ways, DECIMAL128
+   sum/mean/min/max/var), its percentiles, ``plan_groupby_auto`` from a
+   budget of 4,096 and the groupby by l_orderkey (15,000,000 groups),
+   none launching A-D; the DECIMAL128 ``sum_``/``mean``/``min_``/
+   ``max_``; ``concatenate``, ``apply_boolean_mask`` (q6's predicate),
+   ``distinct``, ``contiguous_split``, ``intersect_rows`` and
+   ``except_rows`` (no launch of A-D: the set operations sort, they do
+   not probe); each path's host time (median of 3) beside its byte
+   bound, and the phase's peak device memory (under 40 GiB);
+15. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -218,10 +238,12 @@ def require(cond: bool, what: str) -> None:
 
 
 def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
-    """Kernel A at one bounded groupby's shape: exact against its plain
-    version, its time, the plain version's, the ``index_add_`` of the
-    sum lanes' and the bound (every lane's inputs read once, the
-    partials written once; one operation per row and lane)."""
+    """Kernel A at one bounded groupby's shape against its plain version:
+    exact for integer, uint64 and min/max lanes, float sum lanes within
+    ``FLOAT_SUM_REL * sum(|x|)`` of each group; its time, the plain
+    version's, the ``index_add_`` of the integer sum lanes' and the bound
+    (every lane's inputs read once, the partials written once; one
+    operation per row and lane)."""
     from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
     from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
@@ -229,10 +251,22 @@ def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
     got = kga._accumulate_cuda(gid, lanes, m)
     want = kga.accumulate_plain(gid, lanes, m)
     torch.cuda.synchronize()
-    require(torch.equal(got, want),
+    fsum = [i for i, ln in enumerate(lanes) if ln.op == "sum"
+            and ln.values is not None and ln.values.is_floating_point()]
+    exact = [i for i in range(len(lanes)) if i not in fsum]
+    require(torch.equal(got[:, exact], want[:, exact]),
             f"accumulate kernel != plain version ({what})")
-    sum_lanes = [ln for ln in lanes if ln.op == "sum" and ln.values is not None]
-    stacked = torch.stack([kga._lane_values(ln, n, dev) for ln in sum_lanes],
+    for i in fsum:
+        g, w = got[:, i].view(torch.float64), want[:, i].view(torch.float64)
+        nan = torch.isnan(w)
+        near = (g - w).abs() <= kga.float_sum_bound(gid, lanes[i], m)
+        require(bool(((torch.isnan(g) == nan) & (nan | near)).all()),
+                f"accumulate kernel's float sum lane {i} past its bound "
+                f"({what})")
+    sum_lanes = [ln for ln in lanes if ln.op == "sum"
+                 and ln.values is not None
+                 and not ln.values.is_floating_point()]
+    stacked = torch.stack([kga.lane_words(ln, n, dev) for ln in sum_lanes],
                           dim=1)
     lib = median_ms(lambda: torch.zeros(
         (m + 1, len(sum_lanes)), dtype=torch.int64, device=dev
@@ -243,13 +277,17 @@ def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
     ) + got.nbytes
     b_ms, b_by = bound(nbytes, n * len(lanes))
     row = dict(
-        m=m, lanes=len(lanes), rows=n, max_abs_err=max_abs_err(got, want),
+        m=m, lanes=len(lanes), rows=n, launches=kga.launches(m, len(lanes)),
+        max_abs_err=max_abs_err(got[:, exact], want[:, exact]),
+        float_sum_lanes=len(fsum),
         ms=median_ms(lambda: kga._accumulate_cuda(gid, lanes, m)),
         plain_ms=median_ms(lambda: kga.accumulate_plain(gid, lanes, m)),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    log(f"kernel A {kga.NAME} at {what}: m={m} lanes={len(lanes)} exact; "
-        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, index_add_ "
-        f"{lib:.3f}, bound {b_ms:.3f} by {b_by})")
+    log(f"kernel A {kga.NAME} at {what}: m={m} lanes={len(lanes)} "
+        f"({row['launches']} launch(es), {len(fsum)} float sum lanes within "
+        f"bound, the rest exact); {row['ms']:.3f} ms (plain "
+        f"{row['plain_ms']:.3f}, index_add_ {lib:.3f}, bound {b_ms:.3f} by "
+        f"{b_by})")
     return row
 
 
@@ -2531,6 +2569,638 @@ def _py_initcap(v: str) -> str:
                    for i, ch in enumerate(v))
 
 
+SUPPLIERS = 100_000  # TPC-H SF10 supplier
+DEC128_SHIFT = 10**20  # lineitem_groupby_table's DECIMAL128 x 10^20
+
+
+def _i128(pairs) -> list:
+    """Python ints of (n, 2) int64 limb pairs (host)."""
+    return [(int(h) << 64) | (int(lo) & (2**64 - 1)) for lo, h in pairs]
+
+
+def _half_up(a: int, b: int) -> int:
+    q, r = divmod(abs(a), b)
+    return (-1 if a < 0 else 1) * (q + (1 if 2 * r >= b else 0))
+
+
+def _check_rollup(res, slots) -> int:
+    """The planned rollup's present groups against the numpy oracle:
+    every key tuple; counts, integer sums, means, min and max exact;
+    the FLOAT64 sums within 1e-12 of the sum of |x| (another order)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.interop import table_to_numpy
+
+    cols = table_to_numpy(res.table)
+    present = res.present.cpu().numpy()
+    got = {}
+    for g in np.nonzero(present)[0]:
+        key = tuple(None if c[3] is not None and not c[3][g] else int(c[2][g])
+                    for c in cols[:3])
+        got[key] = [(None if c[3] is not None and not c[3][g] else c[2][g])
+                    for c in cols[3:]]
+    require(set(got) == set(slots), f"rollup groups {len(got)} != "
+            f"{len(slots)} of the oracle")
+    for key, want in slots.items():
+        row = got[key]
+        for i, (g, w) in enumerate(zip(row, want)):
+            if isinstance(w, tuple):  # (float sum, bound)
+                ok = (np.isnan(g) and np.isnan(w[0])) \
+                    or abs(float(g) - w[0]) <= w[1]
+            elif isinstance(w, float) and np.isnan(w):
+                ok = g is not None and np.isnan(g)
+            else:
+                ok = (g is None and w is None) or (
+                    g is not None and w is not None and g == w)
+            require(ok, f"rollup group {key} aggregate {i}: {g} != {w}")
+    return len(got)
+
+
+def _rollup_oracle(host) -> dict:
+    """{(month code, returnflag, linestatus): aggregates} from the host
+    arrays, in the order of ``groupby_phase``'s rollup aggregates."""
+    import numpy as np
+
+    qty, qv, price, rf, rfv, ls, lsv, ship, f64, u64 = (
+        host[k] for k in ("qty", "qty_valid", "price", "rflag", "rflag_valid",
+                          "lstat", "lstat_valid", "ship", "f64", "u64"))
+    months = ship.astype("datetime64[D]").astype("datetime64[M]").astype(
+        np.int64) + 1970 * 12
+
+    def codes(v, offset):
+        # the distinct values and each row's index among them: lookup
+        # tables over the small value range, no sort
+        present = np.flatnonzero(np.bincount(v + offset))
+        lut = np.zeros(present[-1] + 1, np.int64)
+        lut[present] = np.arange(len(present))
+        return present - offset, lut[v + offset]
+
+    m0 = int(months.min())
+    mvals, mi = codes(months - m0, 0)
+    mvals = mvals + m0
+    rvals, ri = codes(rf.astype(np.int64), 128)
+    lvals, si = codes(ls.astype(np.int64), 128)
+    ri = np.where(rfv, ri, len(rvals))
+    si = np.where(lsv, si, len(lvals))
+    nr, ns = len(rvals) + 1, len(lvals) + 1
+    gid = ((mi * nr + ri) * ns + si).astype(np.int64)
+    k = len(mvals) * nr * ns
+    order = np.argsort(gid.astype(np.int16), kind="stable")  # a radix sort
+    sg = gid[order]
+    starts = np.flatnonzero(np.r_[True, sg[1:] != sg[:-1]])
+    ids = sg[starts]
+    rows = np.bincount(gid, minlength=k)
+
+    def per_group(vals, valid, lo, hi):
+        # (min, max) of each group: one gather in group order
+        v = vals[order] if valid is None else np.where(valid, vals, 0)[order]
+        out = []
+        for op, neutral in ((np.minimum, lo), (np.maximum, hi)):
+            w = v if valid is None else np.where(valid[order], v, neutral)
+            red = op.reduceat(w, starts)
+            full = np.full(k, neutral, dtype=w.dtype)
+            full[ids] = red
+            out.append(full)
+        return out
+
+    qcnt = np.bincount(gid, weights=qv, minlength=k).astype(np.int64)
+    qsum = np.bincount(gid, weights=np.where(qv, qty, 0),
+                       minlength=k).astype(np.int64)
+    psum = np.bincount(gid, weights=price, minlength=k).astype(np.int64)
+    fok = ~np.isnan(f64)
+    fsum = np.bincount(gid, weights=np.where(fok, f64, 0), minlength=k)
+    fabs = np.bincount(gid, weights=np.where(fok, np.abs(f64), 0),
+                       minlength=k)
+    fnan = np.bincount(gid, weights=~fok, minlength=k) > 0
+    i64max, i64min = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    qmin, qmax = per_group(qty, qv, i64max, i64min)
+    pmin, pmax = per_group(price, None, i64max, i64min)
+    fmin, fmax = per_group(np.where(np.isnan(f64), 0.0, f64), None,
+                           np.inf, -np.inf)  # NaN groups: set below
+    umin, umax = per_group(u64, None, np.iinfo(np.uint64).max,
+                           np.uint64(0))
+    aggs = [
+        qsum, (qsum / np.maximum(qcnt, 1)) * 0.01, qmin, qmax,
+        psum, (psum / np.maximum(rows, 1)) * 0.01, pmin, pmax,
+        None,  # the FLOAT64 sum: (value, bound) below
+        fmin, fmax, umin, umax, rows,
+    ]
+    slots = {}
+    for g in np.nonzero(rows)[0]:
+        m_i, rest = divmod(int(g), nr * ns)
+        r_i, s_i = divmod(rest, ns)
+        key = (int(mvals[m_i]), None if r_i == len(rvals) else int(rvals[r_i]),
+               None if s_i == len(lvals) else int(lvals[s_i]))
+        row = []
+        for j, a in enumerate(aggs):
+            if j == 8:
+                row.append((float("nan") if fnan[g] else float(fsum[g]),
+                            1e-12 * float(fabs[g])))
+            elif j in (9, 10) and fnan[g]:
+                row.append(float("nan"))
+            elif j < 4 and qcnt[g] == 0:
+                row.append(None)
+            else:
+                row.append(a[g])
+        slots[key] = row
+    return slots
+
+
+def groupby_phase(dev) -> tuple:
+    """Phase 14: the rest of the general groupby, the planner's general
+    lowering and month buckets, the DECIMAL128 reductions and the table
+    operations over SF10 lineitem, each result held
+    to a numpy or Python-int oracle (the table:
+    ``tpch.lineitem_groupby_table``): (a) the planned monthly rollup,
+    bounded, through kernel A (one launch, no fallback), with A at its
+    shape against its plain version; (b) the general groupby by
+    l_suppkey (100,000 groups: var/std/var_pop/std_pop, covar_samp and
+    corr, nunique, first/last both ways, DECIMAL128 sum/mean/min/max/var,
+    percentile), ``plan_groupby_auto`` from a budget of 4,096, and the
+    groupby by l_orderkey (15,000,000 groups); (c) the DECIMAL128
+    reductions; (d) concatenate, apply_boolean_mask (q6's predicate),
+    distinct, contiguous_split, intersect_rows and except_rows. Host
+    times (median of 3) beside byte bounds, launches and peak memory."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import reduce, table_ops
+    from spark_rapids_jni_tpu_torch.ops.groupby import (
+        groupby_aggregate,
+        groupby_percentile,
+    )
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        bounded_accumulate_inputs,
+        month_bucket,
+        month_domain,
+        plan_groupby,
+        plan_groupby_auto,
+        scalar_domain,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tab, neg = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
+    torch.cuda.synchronize()
+    log(f"phase 14 table: {tab.num_rows} rows, {tab.num_columns} columns in "
+        f"{time.perf_counter() - t0:.1f} s (host numpy {np.__version__})")
+    QTY, PRICE, RFLAG, LSTAT, SHIP = 0, 1, 4, 5, 6
+    OKEY, SKEY, F64, U64, D128 = 7, 8, 9, 10, 11
+    times, launches = {}, {}
+
+    def host(i):
+        return tab.column(i).data.cpu().numpy()
+
+    def hvalid(i):
+        return tab.column(i).valid_mask().cpu().numpy()
+
+    # ---- (a) the planned monthly rollup -------------------------------
+    work = Table([month_bucket(tab.column(SHIP)), tab.column(RFLAG),
+                  tab.column(LSTAT), tab.column(QTY), tab.column(PRICE),
+                  tab.column(F64), tab.column(U64)])
+    aggs = [(3, "sum"), (3, "mean"), (3, "min"), (3, "max"),
+            (4, "sum"), (4, "mean"), (4, "min"), (4, "max"),
+            (5, "sum"), (5, "min"), (5, "max"), (6, "min"), (6, "max"),
+            (4, "count")]
+    domains = [month_domain(1992, 12, 1999, 12),
+               scalar_domain(np.frombuffer(b"ANR", np.int8).tolist()),
+               scalar_domain(np.frombuffer(b"FO", np.int8).tolist())]
+    a_row = _accumulate_row(
+        *bounded_accumulate_inputs(work, [0, 1, 2], aggs, domains), dev,
+        "the monthly rollup")
+    res, launches["monthly_rollup"] = _run_plan(
+        "monthly rollup", lambda: plan_groupby(work, [0, 1, 2], aggs, domains),
+        {"A": a_row["launches"]})
+    require(res.lowered == "bounded" and not bool(res.domain_miss),
+            "the monthly rollup did not take the bounded plan cleanly")
+    t1 = time.perf_counter()
+    hostcols = dict(qty=host(QTY), qty_valid=hvalid(QTY), price=host(PRICE),
+                    rflag=host(RFLAG), rflag_valid=hvalid(RFLAG),
+                    lstat=host(LSTAT), lstat_valid=hvalid(LSTAT),
+                    ship=host(SHIP), f64=host(F64), u64=host(U64))
+    slots = _rollup_oracle(hostcols)
+    groups = _check_rollup(res, slots)
+    log(f"monthly rollup: m = {res.table.num_rows} slots, {groups} present "
+        f"groups equal to the numpy oracle ({time.perf_counter() - t1:.1f} s "
+        f"on the host); kernel A launched {launches['monthly_rollup']['A']}"
+        f" time(s), no fallback")
+    del hostcols, slots, res
+    times["monthly_rollup"] = _timed(
+        "plan_groupby(monthly rollup)",
+        lambda: plan_groupby(work, [0, 1, 2], aggs, domains),
+        distinct_bytes([c.data for c in work.columns]
+                       + [c.validity for c in work.columns]), ROWS)
+    del work
+
+    # ---- (b) the general groupby by l_suppkey --------------------------
+    gtab = Table([tab.column(SKEY), tab.column(QTY), tab.column(PRICE),
+                  tab.column(OKEY), tab.column(D128)])
+    gaggs = ([(1, op) for op in ("var", "std", "var_pop", "std_pop")]
+             + [(1, ("covar_samp", 2)), (1, ("corr", 2)), (3, "nunique")]
+             + [(1, op) for op in ("first", "last", "first_include_nulls",
+                                   "last_include_nulls")]
+             + [(4, op) for op in ("sum", "mean", "min", "max", "var")])
+    g = _no_launch("general groupby", lambda: groupby_aggregate(
+        gtab, [0], gaggs, max_groups=SUPPLIERS))
+    t1 = time.perf_counter()
+    _check_supplier_groups(g, gtab, gaggs)
+    log(f"groupby by l_suppkey: {int(g.num_groups)} groups, "
+        f"{len(gaggs)} aggregates equal to the numpy / Python-int oracle "
+        f"({time.perf_counter() - t1:.1f} s on the host)")
+    del g
+    gbytes = distinct_bytes([c.data for c in gtab.columns]
+                            + [c.validity for c in gtab.columns])
+    times["groupby_suppkey"] = _timed(
+        "groupby_aggregate(l_suppkey, 16 aggregates)",
+        lambda: groupby_aggregate(gtab, [0], gaggs, max_groups=SUPPLIERS),
+        gbytes, ROWS)
+    qs = [0.25, 0.5, 0.9]
+    pct = _no_launch("percentile", lambda: groupby_percentile(
+        gtab, [0], 1, qs, max_groups=SUPPLIERS))
+    _check_percentiles(pct, gtab, qs)
+    times["percentile"] = _timed(
+        "groupby_percentile(l_quantity by l_suppkey)",
+        lambda: groupby_percentile(gtab, [0], 1, qs, max_groups=SUPPLIERS),
+        gbytes, ROWS)
+    del pct
+    auto = _no_launch("plan_groupby_auto", lambda: plan_groupby_auto(
+        gtab, [0], [(1, "sum"), (1, "count")], [None], budget=4096))
+    _check_auto(auto, gtab)
+    times["plan_groupby_auto"] = _timed(
+        "plan_groupby_auto(l_suppkey, from 4,096)",
+        lambda: plan_groupby_auto(gtab, [0], [(1, "sum"), (1, "count")],
+                                  [None], budget=4096), gbytes, ROWS)
+    del auto
+    otab = Table([tab.column(OKEY), tab.column(PRICE)])
+    og = _no_launch("groupby by l_orderkey", lambda: groupby_aggregate(
+        otab, [0], [(1, "sum"), (1, "count")], max_groups=Q3_ORDERS))
+    okeys = host(OKEY)
+    want_sum = np.bincount(okeys, weights=host(PRICE)).astype(np.int64)
+    want_cnt = np.bincount(okeys)
+    live = np.nonzero(want_cnt)[0]
+    k = int(og.num_groups)
+    require(k == len(live) and not bool(og.overflowed),
+            f"groupby by l_orderkey: {k} groups, oracle {len(live)}")
+    require(np.array_equal(og.table.column(0).data[:k].cpu().numpy(), live)
+            and np.array_equal(og.table.column(1).data[:k].cpu().numpy(),
+                               want_sum[live])
+            and np.array_equal(og.table.column(2).data[:k].cpu().numpy(),
+                               want_cnt[live]),
+            "groupby by l_orderkey differs from np.bincount")
+    log(f"groupby by l_orderkey: {k} groups equal to np.bincount")
+    del og, okeys, want_sum, want_cnt, live
+    times["groupby_orderkey"] = _timed(
+        "groupby_aggregate(l_orderkey, sum + count)",
+        lambda: groupby_aggregate(otab, [0], [(1, "sum"), (1, "count")],
+                                  max_groups=Q3_ORDERS),
+        distinct_bytes([c.data for c in otab.columns]), ROWS)
+    del otab
+
+    # ---- (c) the DECIMAL128 reductions ---------------------------------
+    d = tab.column(D128)
+    signed = np.where(neg.cpu().numpy(), -host(PRICE), host(PRICE))
+    total = int(signed.sum()) * DEC128_SHIFT
+    want = {"sum_": total, "min_": int(signed.min()) * DEC128_SHIFT,
+            "max_": int(signed.max()) * DEC128_SHIFT,
+            "mean": _half_up(total * 10_000, ROWS)}
+    for fn in ("sum_", "mean", "min_", "max_"):
+        val, ok = _no_launch(fn, lambda: getattr(reduce, fn)(d))
+        limbs = val.data if hasattr(val, "data") else val
+        got = _i128(limbs.reshape(-1, 2).cpu().numpy())[0]
+        require(bool(ok) and got == want[fn],
+                f"DECIMAL128 {fn}: {got} != {want[fn]}")
+        times[f"decimal128_{fn}"] = _timed(
+            f"reduce.{fn}(DECIMAL128)", lambda: getattr(reduce, fn)(d),
+            d.data.nbytes, ROWS)
+    log(f"DECIMAL128 sum_/mean/min_/max_ equal to the Python-int oracle "
+        f"(sum {total})")
+    del d, signed
+
+    # ---- (d) the table operations -------------------------------------
+    li = Table(tab.columns[:7])
+    half = ROWS // 2
+    parts = table_ops.contiguous_split(li, [half])
+    cat = _no_launch("concatenate", lambda: table_ops.concatenate(parts))
+    require(all(a.equals(b) for a, b in zip(cat.columns, li.columns)),
+            "concatenate of the two halves != the whole")
+    del cat
+    times["concatenate"] = _timed(
+        "concatenate(two halves)", lambda: table_ops.concatenate(parts),
+        2 * distinct_bytes([c.data for c in li.columns]
+                           + [c.validity for c in li.columns]), ROWS)
+    del parts
+    sel = tpch._q6_host_selection(li)
+    mask = torch.from_numpy(sel).to(dev)
+    cm = _no_launch("apply_boolean_mask", lambda: table_ops.apply_boolean_mask(
+        li, mask))
+    k = int(cm.num_rows)
+    require(k == int(sel.sum()) and np.array_equal(
+        cm.table.column(PRICE).data[:k].cpu().numpy(), host(PRICE)[sel])
+        and not bool(cm.table.column(PRICE).validity[k:].any()),
+        "apply_boolean_mask(q6) differs from the numpy selection")
+    log(f"apply_boolean_mask(q6's predicate): {k} rows, equal to the numpy "
+        f"selection, null tail")
+    del cm
+    times["apply_boolean_mask"] = _timed(
+        "apply_boolean_mask(q6)", lambda: table_ops.apply_boolean_mask(
+            li, mask), 2 * distinct_bytes([c.data for c in li.columns]
+                                          + [c.validity for c in li.columns]),
+        ROWS)
+    flags = Table([li.column(RFLAG), li.column(LSTAT)])
+    dres = _no_launch("distinct", lambda: table_ops.distinct(flags))
+    rv, lv = hvalid(RFLAG), hvalid(LSTAT)
+    # one code a tuple: each flag + 129 (0 for null) in 9 bits
+    codes = np.unique(np.where(rv, host(RFLAG).astype(np.int64) + 129, 0)
+                      * 512 + np.where(lv, host(LSTAT).astype(np.int64)
+                                       + 129, 0))
+    want = {tuple(None if v == 0 else int(v) - 129
+                  for v in divmod(int(c), 512)) for c in codes}
+    out = dres.compact()
+    got = list(zip(out.column(0).to_pylist(), out.column(1).to_pylist()))
+    require(len(got) == len(want) and set(got) == want,
+            f"distinct flags {got} != {sorted(want, key=str)}")
+    log(f"distinct(returnflag, linestatus): {len(got)} tuples with nulls, "
+        f"equal to the host set")
+    del dres, out
+    times["distinct"] = _timed(
+        "distinct(flags)", lambda: table_ops.distinct(flags),
+        distinct_bytes([c.data for c in flags.columns]
+                       + [c.validity for c in flags.columns]), ROWS)
+    cuts = sorted(np.random.default_rng(14).choice(ROWS, 10, replace=False))
+    pieces = _no_launch("contiguous_split", lambda: table_ops.contiguous_split(
+        li, cuts))
+    bounds = [0] + [int(c) for c in cuts] + [ROWS]
+    require(len(pieces) == 11 and all(
+        p.num_rows == hi - lo and torch.equal(p.column(PRICE).data,
+                                              li.column(PRICE).data[lo:hi])
+        for p, lo, hi in zip(pieces, bounds, bounds[1:])),
+        "contiguous_split pieces differ from the parent's slices")
+    del pieces
+    times["contiguous_split"] = _timed(
+        "contiguous_split(10 points)",
+        lambda: table_ops.contiguous_split(li, cuts), 0, ROWS)
+    okey = tab.column(OKEY)
+    # overlapping thirds: rows [0, n/3) and [n/4, 2n/3)
+    a, b, c = ROWS // 3, ROWS // 4, 2 * ROWS // 3
+    left = Table([Column(okey.dtype, okey.data[:a])])
+    right = Table([Column(okey.dtype, okey.data[b:c])])
+    okeys = host(OKEY)
+
+    def distinct_sorted(v):  # l_orderkey < 2^24: two radix passes
+        v = v[_radix_order(v, 32)]
+        return v[np.r_[True, v[1:] != v[:-1]]]
+
+    lo_h, ro_h = distinct_sorted(okeys[:a]), distinct_sorted(okeys[b:c])
+    del okeys
+    hit = ro_h[np.minimum(np.searchsorted(ro_h, lo_h), len(ro_h) - 1)] == lo_h
+    oracle = {"intersect_rows": lo_h[hit], "except_rows": lo_h[~hit]}
+    for name, want_vals in oracle.items():
+        r = _no_launch(name, lambda: getattr(table_ops, name)(left, right))
+        k = int(r.num_rows)
+        vals = r.table.column(0).data[:k].cpu().numpy()
+        require(k == len(want_vals) and np.array_equal(vals, want_vals),
+                f"{name}: {k} rows, numpy {len(want_vals)}")
+        log(f"{name}(l_orderkey[0:{a}], l_orderkey[{b}:{c}]): {k} rows, "
+            f"equal to numpy")
+        times[name] = _timed(
+            f"{name}(l_orderkey slices)",
+            lambda: getattr(table_ops, name)(left, right),
+            left.column(0).data.nbytes + right.column(0).data.nbytes,
+            a + c - b)
+        del r
+    del left, right, li, flags, okey, tab, gtab
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(peak < 40, f"phase 14 peak {peak:.2f} GiB")
+    log(f"peak device memory of phase 14 {peak:.2f} GiB")
+    return a_row, launches, {"paths": times, "peak_gib": peak}
+
+
+class _Laps:
+    """Host seconds of an oracle's steps, logged in one line."""
+
+    def __init__(self, what: str):
+        self.what, self.t0, self.steps = what, time.perf_counter(), []
+
+    def __call__(self, step: str) -> None:
+        t = time.perf_counter()
+        self.steps.append(f"{step} {t - self.t0:.1f} s")
+        self.t0 = t
+        log(f"{self.what}: " + ", ".join(self.steps))
+
+
+def _radix_order(key, bits: int):
+    """The stable permutation sorting non-negative int64 ``key`` (below
+    2^bits): numpy's stable sort of 16-bit digits is a radix sort, so
+    least significant digit first it is O(n) a pass (its stable sort of
+    int64 is a merge sort, several times slower at 60M rows)."""
+    import numpy as np
+
+    order = None
+    for shift in range(0, bits, 16):
+        digit = (key if order is None else key[order]) >> shift
+        step = np.argsort((digit & 0xFFFF).astype(np.uint16), kind="stable")
+        order = step if order is None else order[step]
+    return order
+
+
+def _supplier_groups(gtab):
+    """Host arrays of the groupby-by-l_suppkey table: the keys, the
+    present suppliers in order and each row's group index (a lookup
+    table over the supplier ids: no sort)."""
+    import numpy as np
+
+    skey = gtab.column(0).data.cpu().numpy()
+    keys = np.flatnonzero(np.bincount(skey))
+    remap = np.zeros(int(skey.max()) + 1, np.int64)
+    remap[keys] = np.arange(len(keys))
+    return skey, keys, remap[skey]
+
+
+def _first_last(order, gidx, pick, k):
+    """Each group's first and last row among the rows where ``pick``
+    (-1 where none), from ``order``, the rows stably sorted by group."""
+    import numpy as np
+
+    rows = order[pick[order]]
+    cnt = np.bincount(gidx[rows], minlength=k)
+    end = np.cumsum(cnt)
+    first = np.where(cnt > 0, rows[np.minimum(end - cnt, len(rows) - 1)], -1)
+    last = np.where(cnt > 0, rows[np.maximum(end - 1, 0)], -1)
+    return first, last
+
+
+def _check_supplier_groups(g, gtab, gaggs) -> None:
+    """The groupby by l_suppkey against numpy / Python-int oracles: the
+    keys, var/std/var_pop/std_pop of l_quantity and covar_samp/corr with
+    l_extendedprice (exact integer numerators, float64 at the end;
+    relative 1e-9 against the port's float64 two-pass), nunique of
+    l_orderkey, first/last both ways (exact), and the DECIMAL128 sum,
+    mean, min and max (exact) and var (relative 1e-12)."""
+    import numpy as np
+
+    laps = _Laps("supplier oracle")
+    skey, keys, gidx = _supplier_groups(gtab)
+    k = int(g.num_groups)
+    require(k == len(keys) and not bool(g.overflowed),
+            f"groupby by l_suppkey: {k} groups, oracle {len(keys)}")
+    out = list(g.table.columns)
+    require(np.array_equal(out[0].data[:k].cpu().numpy(), keys),
+            "supplier keys differ")
+    qty = gtab.column(1).data.cpu().numpy()
+    qv = gtab.column(1).valid_mask().cpu().numpy()
+    price = gtab.column(2).data.cpu().numpy()
+    okey = gtab.column(3).data.cpu().numpy()
+    neg = gtab.column(4).data[:, 1].cpu().numpy() < 0
+
+    def seg(v):
+        # float64 bincount sums: exact while every partial sum < 2^53
+        return np.bincount(gidx, weights=v, minlength=k)
+
+    x = np.where(qv, qty, 0)
+    n = seg(qv).astype(np.int64)
+    sx = seg(x).astype(np.int64)                   # < 600 * 5100
+    sxx = seg(x * x).astype(np.int64)              # < 600 * 2.6e7
+    px = np.where(qv, price, 0)
+    sy = seg(px).astype(np.int64)                  # < 600 * 1.05e7
+    sxy = seg(x * px).astype(np.int64)             # < 600 * 5.4e10
+    syy = seg(px.astype(np.float64) ** 2)          # float64, for corr
+    num_x = (n * sxx - sx * sx).astype(np.float64)  # exact in int64
+    laps("host copies and sums")
+
+    def col(i):
+        c = out[1 + i]
+        return c.data[:k].cpu().numpy(), c.valid_mask()[:k].cpu().numpy()
+
+    def close(i, want, valid, what, rel=1e-9):
+        got, gv = col(i)
+        require(np.array_equal(gv, valid), f"{what}: validity")
+        require(np.allclose(got[valid], want[valid], rtol=rel, atol=0,
+                            equal_nan=True), f"{what}: values")
+
+    nn = n.astype(np.float64)
+    close(0, num_x / np.maximum(n * (n - 1), 1) * 1e-4, n > 1, "var")
+    close(1, np.sqrt(num_x / np.maximum(n * (n - 1), 1) * 1e-4), n > 1, "std")
+    close(2, num_x / np.maximum(n * n, 1) * 1e-4, n > 0, "var_pop")
+    close(3, np.sqrt(num_x / np.maximum(n * n, 1) * 1e-4), n > 0, "std_pop")
+    num_xy = (n * sxy - sx * sy).astype(np.float64)
+    close(4, num_xy / np.maximum(n * (n - 1), 1) * 1e-4, n > 1, "covar_samp")
+    close(5, num_xy / np.sqrt(num_x * (nn * syy - sy.astype(np.float64) ** 2)),
+          n > 0, "corr", rel=1e-6)
+    pair = gidx << 24 | okey  # l_orderkey < 2^24
+    pair = pair[_radix_order(pair, 48)]
+    new = np.r_[True, pair[1:] != pair[:-1]]
+    nun = np.bincount(pair[new] >> 24, minlength=k)
+    got, _ = col(6)
+    require(np.array_equal(got, nun), "nunique(l_orderkey) differs")
+    laps("moments and nunique")
+    # first / last, skipping nulls and not: the input order within a group
+    order = _radix_order(gidx, 32)
+    fv, lv = _first_last(order, gidx, qv, k)
+    fa, la = _first_last(order, gidx, np.ones_like(qv), k)
+    for i, pos in enumerate((fv, lv, fa, la)):
+        got, gv = col(7 + i)
+        valid = (pos >= 0) & qv[np.maximum(pos, 0)]
+        require(np.array_equal(gv, valid)
+                and np.array_equal(got[valid], qty[pos[valid]]),
+                f"{gaggs[7 + i][1]} differs")
+    laps("first/last")
+    # DECIMAL128: the exact sums from the signed prices; min/max over the
+    # rows in group order
+    signed = np.where(neg, -price, price)
+    s = seg(signed).astype(np.int64)               # |sum| < 600 * 1.05e7
+    cnt = np.bincount(gidx, minlength=k)
+    starts = np.r_[0, np.cumsum(cnt)[:-1]]
+    in_order = signed[order]
+    mn = np.minimum.reduceat(in_order, starts)
+    mx = np.maximum.reduceat(in_order, starts)
+    got = [_i128(col(11 + i)[0]) for i in range(4)]
+    want = [[int(v) * DEC128_SHIFT for v in s],
+            [_half_up(int(v) * DEC128_SHIFT * 10_000, int(c))
+             for v, c in zip(s, cnt)],
+            [int(v) * DEC128_SHIFT for v in mn],
+            [int(v) * DEC128_SHIFT for v in mx]]
+    for name, a, b in zip(("sum", "mean", "min", "max"), got, want):
+        require(a == b, f"DECIMAL128 {name} differs from the Python ints")
+    # var: (c * sum(U^2) - sum(U)^2) / (c (c - 1)) with U = signed * 10^20
+    # at scale -22; sum(U^2) in float64 (within 1e-15)
+    s2 = seg(signed.astype(np.float64) ** 2)
+    c = cnt.astype(np.float64)
+    want_var = (c * s2 - s.astype(np.float64) ** 2) * 1e40 \
+        / np.maximum(c * (c - 1), 1) * 1e-44
+    gvar, gok = col(15)
+    require(np.array_equal(gok, cnt > 1) and np.allclose(
+        gvar[cnt > 1], want_var[cnt > 1], rtol=1e-12, atol=0),
+        "DECIMAL128 var differs")
+    laps("DECIMAL128")
+
+
+def _check_percentiles(pct, gtab, qs) -> None:
+    """groupby_percentile against each supplier's sorted valid values:
+    linear interpolation between closest ranks, exact."""
+    import numpy as np
+
+    skey, keys, gidx = _supplier_groups(gtab)
+    k = int(pct.num_groups)
+    qty = gtab.column(1).data.cpu().numpy()
+    qv = gtab.column(1).valid_mask().cpu().numpy()
+    # rows sorted by (supplier, valid quantity), nulls past each group's
+    # valid run: one sort of packed words
+    word = (gidx << 14) | np.where(qv, qty, (1 << 14) - 1)
+    srt = word[_radix_order(word, 32)]
+    vals = (srt & ((1 << 14) - 1)).astype(np.float64) * 0.01
+    lo = np.r_[0, np.cumsum(np.bincount(gidx, minlength=k))[:-1]]
+    cnt = np.bincount(gidx, weights=qv, minlength=k).astype(np.int64)
+    for i, q in enumerate(qs):
+        p = q * (cnt - 1).astype(np.float64)
+        lo_off = np.floor(p).astype(np.int64)
+        frac = p - lo_off
+        v0 = vals[np.clip(lo + lo_off, 0, len(vals) - 1)]
+        v1 = vals[np.clip(lo + np.minimum(lo_off + 1, cnt - 1), 0,
+                          len(vals) - 1)]
+        want = v0 * (1.0 - frac) + v1 * frac
+        c = pct.table.column(1 + i)
+        got = c.data[:k].cpu().numpy()
+        gv = c.valid_mask()[:k].cpu().numpy()
+        require(np.array_equal(gv, cnt > 0)
+                and np.array_equal(got[cnt > 0], want[cnt > 0]),
+                f"percentile {q} differs from numpy")
+    log(f"groupby_percentile({qs}) of l_quantity by l_suppkey: {k} groups "
+        f"equal to numpy")
+
+
+def _check_auto(auto, gtab) -> None:
+    """plan_groupby_auto from 4,096: the general plan, grown to fit all
+    suppliers (at SF10 the budget doubles to 131,072), no overflow, and
+    sums and counts equal to np.bincount."""
+    import numpy as np
+
+    skey = gtab.column(0).data.cpu().numpy()
+    qty = gtab.column(1).data.cpu().numpy()
+    qv = gtab.column(1).valid_mask().cpu().numpy()
+    live = np.unique(skey)
+    k = int(auto.present.sum())
+    budget = 4096
+    while budget < len(live):
+        budget *= 2
+    require(auto.lowered == "general" and not bool(auto.overflowed)
+            and k == len(live) and auto.table.num_rows == min(budget, ROWS),
+            f"plan_groupby_auto: {auto.lowered}, {k} groups, "
+            f"{auto.table.num_rows} rows")
+    t = auto.table
+    want_sum = np.bincount(skey, weights=np.where(qv, qty, 0)).astype(
+        np.int64)[live]
+    want_cnt = np.bincount(skey, weights=qv).astype(np.int64)[live]
+    require(np.array_equal(t.column(0).data[:k].cpu().numpy(), live)
+            and np.array_equal(t.column(1).data[:k].cpu().numpy(), want_sum)
+            and np.array_equal(t.column(2).data[:k].cpu().numpy(), want_cnt),
+            "plan_groupby_auto differs from np.bincount")
+    log(f"plan_groupby_auto(l_suppkey) from 4,096: grew to "
+        f"{auto.table.num_rows}, {k} groups equal to np.bincount")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2595,9 +3265,14 @@ def main() -> int:
     path_times["string_q1_q13"] = string_q1_q13_phase(q1_oracle, q1_general)
     path_times["string_engines"] = string_engines_phase(dev)
     path_times["capture_and_string_functions"] = capture_phase(dev)
+    a_rollup, gb_launches, path_times["groupby_and_table_ops"] = \
+        groupby_phase(dev)
+    path_times["groupby_and_table_ops"]["accumulate_at"] = {
+        "monthly rollup": a_rollup}
     # each kernel's launches on every path that runs it, each read just
     # after its run
-    by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches}
+    by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
+               **gb_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

@@ -7,17 +7,31 @@
 //
 // What differs from the TPU kernel:
 // - Hopper has native int64 and a wrapping int64 sum does not depend on
-//   the order of its terms, so there are no 16-bit limb lanes: every lane
-//   accumulates in int64 and the totals are bit-identical to the plain
-//   version's whatever order the rows are combined in.
+//   the order of its terms, so there are no 16-bit limb lanes: every
+//   integer lane accumulates in int64 and the totals are bit-identical to
+//   the plain version's whatever order the rows are combined in.
 // - Each lane is a descriptor (values pointer or null for the constant 1,
 //   validity pointer or null for "all valid", element kind, op, neutral),
 //   and the kernel applies the validity itself: no masked copy of a
 //   column is materialized.
-// - The TPU grid ran its blocks in order; here each block keeps partials
-//   for every (group, lane) in shared memory (m*L int64, at most 2048
-//   entries = 16 KB) and folds them into the output with one global
-//   atomic per (group, lane) at its end.
+// - The TPU kernel took int32 lanes only; the reference sent float sums,
+//   float and uint64 min/max and wide domains to XLA. This kernel takes
+//   them all:
+//   * min and max compare a lane's int64 order key: integers as they
+//     are, uint64 with its sign bit flipped, floats (float32 widened to
+//     float64 exactly) by the IEEE total order, in which -0.0 < +0.0, so
+//     a tie of -0.0 and +0.0 returns -0.0 for min and +0.0 for max
+//     whatever the order of the rows. A NaN (either sign, any payload)
+//     takes the key that wins the op, so NaN propagates as in jnp.min and
+//     torch.amin, and comes back as the canonical quiet NaN. The final
+//     fold turns each key back into the value's 64-bit pattern.
+//   * float sums (kSumF) add in float64 in an order fixed by the launch
+//     shape alone, so a run repeats bit for bit: every combine below is
+//     either a thread's own rows in row order, a fold in a fixed tree, or
+//     (large domains) warps committing one after another.
+//   * a launch takes up to kParamLanes lanes within the 227 KB of dynamic
+//     shared memory a block may opt in to; the wrapper splits more lanes
+//     over several launches, each reading gid again.
 //
 // Bound on this card: bytes (each row's group id, and each lane's value
 // and validity bytes, read once). The first design sent every (row,
@@ -43,26 +57,39 @@
 //   [group][thread] so a warp's updates never share a bank pair, and
 //   updates it with a plain load and store. After each lane's pass over
 //   the tile, 16 threads per group fold the 256 columns (16 reads each,
-//   then shuffles) into the block's partials. The fold reads m * 256
-//   partials per lane per 8192-row tile (3,072 at q1's m = 12), a third
-//   of the tile's updates but without their global loads.
+//   then shuffles) into the block's partials.
 // - Larger domains: per-thread columns would not fit. Rows outer, lanes
-//   inner: each warp takes 32 rows at a time and first tests whether they
-//   are in 32 different groups (each row writes its thread id into a
-//   one-byte tag per group and reads it back: a store, a load and a vote).
-//   If they are, every row is its own group's leader. If not, it finds
-//   the rows of each group once (__match_any_sync on the group id, shared
-//   by every lane), and for each lane reduces each group's values over
-//   its rank order in as many shuffle steps as the warp's largest group
-//   needs (five when all 32 share one). Then, for each lane (one uniform
-//   switch per lane and 32 rows), one leader per group updates the
-//   block's partials with a shared atomic: still a CAS loop, but at most
-//   one per group per warp instruction, each at a different address.
-// Loads are coalesced element loads (a warp reads whole sectors), issued
-// kBatch rows at a time ahead of their shared-memory updates. The lane
-// descriptors travel in the launch's parameters and a small kernel fills
-// the output with the neutrals, so a launch makes no host-to-device copy
-// and the card does not wait on the host between the launches.
+//   inner, in blocks of 256 or 1,024 threads, whichever keeps more warps
+//   resident (ties: 256). Wide partials (the monthly rollup's 134 KB)
+//   leave room for one block a multiprocessor, and 1,024 threads keep 32
+//   warps of loads in flight; small ones fit 8 blocks of 256, whose
+//   separate partials spread a hot group's updates (q5's null slot holds
+//   ~99.9 % of its rows: with 1,024-thread blocks its time rose from
+//   1.50 to 1.80 ms). Each warp
+//   takes 32 rows at a time and first tests whether they are in 32
+//   different groups (each row writes its thread id into a two-byte tag
+//   per group and reads it back: a store, a load and a vote). If they
+//   are, every row is its own group's leader. If not, it finds the rows
+//   of each group once (__match_any_sync on the group id, shared by every
+//   lane), and for each lane reduces each group's values over its rank
+//   order in as many shuffle steps as the warp's largest group needs
+//   (five when all 32 share one). Then one leader per group updates the
+//   block's partials: a shared atomic for integer and min/max lanes (a
+//   CAS loop, at most one per group per warp instruction, each at a
+//   different address), and for float sums a plain add, warp after warp
+//   between barriers, so their order is fixed.
+// - No global atomics: each block writes its partials to its own row of
+//   a scratch buffer, and a second kernel folds the rows of each cell in
+//   a fixed tree (one block a cell) and decodes the order keys.
+// - A launch of integer lanes only takes kernels compiled without the
+//   float paths (FLOATS = false): with them the small kernel needed 54
+//   registers, or spilled at 40, and planned q1's A took 1.86-1.98 ms
+//   against 1.55 before the float paths existed (PERF.md).
+// Loads are coalesced element loads (a warp reads whole sectors); the
+// small kernel issues them kBatch rows at a time ahead of their
+// shared-memory updates. The lane descriptors travel in the launch's
+// parameters, so a launch makes no host-to-device copy and the card does
+// not wait on the host between the launches.
 // Measured on the H100 at q1 (PERF.md): loading and updating row by row
 // kept one load in flight per thread (2.7 ms); batching the loads made it
 // 1.7-2.1 ms and moving the descriptors into the parameters 1.6 ms, half
@@ -74,12 +101,10 @@
 // loop meets no contention, the distinct-rows test keeps it within 10 %
 // of it (without the test, __match_any_sync and the rank arithmetic on
 // every warp made it 1.9x slower).
-// ptxas (-Xptxas -v, build.log): accumulate_small_kernel 40 registers,
-// accumulate_large_kernel 32, fill_neutral_kernel 12; no stack, no spills.
 // Dynamic shared memory per block: 40 bytes a lane plus m * L partials
 // (8 bytes each); for the small kernel m * 256 private partials and the
-// tile's 8,192 one-byte group ids (34,264 bytes at q1's m = 12, L = 11),
-// for the large kernel m one-byte tags.
+// tile's 8,192 one-byte group ids, for the large kernel m two-byte tags.
+// ptxas's registers and spills are in build.log (-Xptxas -v).
 
 #include <cstdint>
 #include <cstring>
@@ -98,9 +123,13 @@ enum Kind : int64_t {
   kU16 = 6,
   kU32 = 7,
   kU64 = 8,   // summed as its int64 bit pattern (wrapping)
+  kF32 = 9,   // widened to float64
+  kF64 = 10,
 };
 
-enum Op : int64_t { kSum = 0, kMin = 1, kMax = 2 };
+// kSum: wrapping int64 sum; kMin / kMax: over the int64 order key;
+// kSumF: float64 sum
+enum Op : int64_t { kSum = 0, kMin = 1, kMax = 2, kSumF = 3 };
 
 // One lane; the wrapper writes these as int64[L, 5] rows.
 struct Lane {
@@ -108,63 +137,112 @@ struct Lane {
   const uint8_t* valid;  // torch.bool: one byte per row
   int64_t kind;
   int64_t op;
-  int64_t neutral;       // 0 for sums, the min/max sentinel otherwise
+  int64_t neutral;       // the neutral's key (kSumF: the bits of 0.0)
 };
 static_assert(sizeof(Lane) == 40, "Lane must match the wrapper's int64[5]");
 
-// Up to kParamLanes lanes travel in the launch's parameters (2,560 bytes),
-// so a launch needs no host-to-device copy; more come from device memory.
+// Up to kParamLanes lanes travel in the launch's parameters (2,560 bytes)
 constexpr int kParamLanes = 64;
 struct LaneParams {
   Lane lane[kParamLanes];
 };
 
-constexpr int kThreads = 256;
-static_assert(kThreads <= 256, "the large kernel tags groups with uint8 ids");
+constexpr int kThreads = 256;        // small kernel, and the fold kernel
+constexpr int kWideThreads = 1024;   // large kernel when one block fills an SM
 constexpr int kSmallM = 16;           // largest m of the per-thread path
 constexpr int kRowsPerThread = 32;
 constexpr int kTile = kThreads * kRowsPerThread;  // rows per tile
 constexpr int kBatch = 8;             // loads in flight per thread
+constexpr int kMaxSmem = 232448;      // opt-in dynamic shared memory, sm_90
 constexpr uint8_t kNoGroup = 0xFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr long long kKeyMin = static_cast<long long>(0x8000000000000000ull);
+constexpr long long kKeyMax = 0x7FFFFFFFFFFFFFFFll;
+constexpr long long kCanonicalNaN = 0x7FF8000000000000ll;
 
 template <typename T> struct Type {};  // T = void: the constant 1
 template <int64_t OP> using OpC = std::integral_constant<int64_t, OP>;
 
-template <typename T>
-__device__ __forceinline__ long long value(Type<T>, const void* values,
-                                           int64_t i) {
-  // uint64 keeps its bit pattern: the sum wraps like the plain version's
-  return static_cast<long long>(static_cast<const T*>(values)[i]);
+// a float64's IEEE total-order key as a signed int64; NaN wins the op
+template <int64_t OP>
+__device__ __forceinline__ long long float_key(double x) {
+  if (x != x) return OP == kMin ? kKeyMin : kKeyMax;
+  const long long b = __double_as_longlong(x);
+  return b >= 0 ? b : b ^ kKeyMax;
 }
-__device__ __forceinline__ long long value(Type<void>, const void*,
+
+// the lane's int64 word for row i: the value (integer sums, counts,
+// integer min/max), the order key (uint64 and float min/max), or the
+// float64 bits (float sums)
+template <typename T, int64_t OP>
+__device__ __forceinline__ long long value(Type<T>, OpC<OP>,
+                                           const void* values, int64_t i) {
+  const T v = static_cast<const T*>(values)[i];
+  if constexpr (std::is_floating_point<T>::value) {
+    if constexpr (OP == kSumF) {
+      return __double_as_longlong(static_cast<double>(v));
+    } else {
+      return float_key<OP>(static_cast<double>(v));
+    }
+  } else if constexpr (std::is_same<T, unsigned long long>::value) {
+    const long long b = static_cast<long long>(v);
+    return OP == kSum ? b : b ^ kKeyMin;
+  } else {
+    return static_cast<long long>(v);
+  }
+}
+template <int64_t OP>
+__device__ __forceinline__ long long value(Type<void>, OpC<OP>, const void*,
                                            int64_t) {
   return 1;
 }
 
 template <int64_t OP>
 __device__ __forceinline__ long long combine(long long a, long long b) {
-  if (OP == kSum) {
+  if constexpr (OP == kSum) {
     return static_cast<long long>(static_cast<unsigned long long>(a) +
                                   static_cast<unsigned long long>(b));
+  } else if constexpr (OP == kSumF) {
+    return __double_as_longlong(__longlong_as_double(a) +
+                                __longlong_as_double(b));
+  } else if constexpr (OP == kMin) {
+    return a < b ? a : b;
+  } else {
+    return a > b ? a : b;
   }
-  if (OP == kMin) return a < b ? a : b;
-  return a > b ? a : b;
 }
 
-__device__ __forceinline__ long long combine(int64_t op, long long a,
-                                             long long b) {
-  if (op == kSum) return combine<kSum>(a, b);
-  if (op == kMin) return combine<kMin>(a, b);
-  return combine<kMax>(a, b);
+// combine by a runtime op (FLOATS = false: no float sum possible)
+template <bool FLOATS>
+__device__ __forceinline__ long long combine_rt(int64_t op, long long a,
+                                                long long b) {
+  if constexpr (FLOATS) {
+    if (op == kSumF) return combine<kSumF>(a, b);
+  }
+  switch (op) {
+    case kSum: return combine<kSum>(a, b);
+    case kMin: return combine<kMin>(a, b);
+    default: return combine<kMax>(a, b);
+  }
 }
 
-__device__ __forceinline__ void atomic_fold(long long* slot, int64_t op,
-                                            long long v) {
-  if (op == kSum) {
+// the value's 64-bit pattern from a finished partial
+__device__ __forceinline__ long long decode(const Lane& lane, long long k) {
+  if (lane.op == kSum || lane.op == kSumF) return k;
+  if (lane.kind == kU64) return k ^ kKeyMin;
+  if (lane.kind == kF32 || lane.kind == kF64) {
+    if (k == (lane.op == kMin ? kKeyMin : kKeyMax)) return kCanonicalNaN;
+    return k >= 0 ? k : k ^ kKeyMax;
+  }
+  return k;
+}
+
+template <int64_t OP>
+__device__ __forceinline__ void atomic_fold(long long* slot, long long v) {
+  if constexpr (OP == kSum) {
     atomicAdd(reinterpret_cast<unsigned long long*>(slot),
               static_cast<unsigned long long>(v));
-  } else if (op == kMin) {
+  } else if constexpr (OP == kMin) {
     atomicMin(slot, v);
   } else {
     atomicMax(slot, v);
@@ -173,7 +251,7 @@ __device__ __forceinline__ void atomic_fold(long long* slot, int64_t op,
 
 // f(Type<element>{}, OpC<op>{}) with the lane's kind and op as types
 template <typename O, typename F>
-__device__ __forceinline__ void with_kind(int64_t kind, O op, F& f) {
+__device__ __forceinline__ void with_int_kind(int64_t kind, O op, F& f) {
   switch (kind) {
     case kI8: f(Type<int8_t>{}, op); break;
     case kI16: f(Type<int16_t>{}, op); break;
@@ -187,39 +265,49 @@ __device__ __forceinline__ void with_kind(int64_t kind, O op, F& f) {
   }
 }
 
-template <typename F>
-__device__ __forceinline__ void with_lane(const Lane& lane, F&& f) {
-  if (lane.op == kSum) {
-    with_kind(lane.kind, OpC<kSum>{}, f);
-  } else if (lane.op == kMin) {
-    with_kind(lane.kind, OpC<kMin>{}, f);
+template <typename O, typename F>
+__device__ __forceinline__ void with_float_kind(int64_t kind, O op, F& f) {
+  if (kind == kF32) {
+    f(Type<float>{}, op);
   } else {
-    with_kind(lane.kind, OpC<kMax>{}, f);
+    f(Type<double>{}, op);
   }
 }
 
-__device__ __forceinline__ const Lane& lane_at(const LaneParams& params,
-                                               const Lane* lanes_dev, int j) {
-  return lanes_dev == nullptr ? params.lane[j] : lanes_dev[j];
-}
-
-// out[g, l] = lane l's neutral: the output the blocks fold into
-__global__ void __launch_bounds__(kThreads)
-fill_neutral_kernel(const __grid_constant__ LaneParams params,
-                    const Lane* __restrict__ lanes_dev, int num_lanes,
-                    int cells, long long* __restrict__ out) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j < cells) out[j] = lane_at(params, lanes_dev, j % num_lanes).neutral;
+// FLOATS = false: a launch of integer lanes only, whose kernels hold none
+// of the float paths (they would raise its register count and spill)
+template <bool FLOATS, typename F>
+__device__ __forceinline__ void with_lane(const Lane& lane, F&& f) {
+  if constexpr (!FLOATS) {
+    switch (lane.op) {
+      case kSum: with_int_kind(lane.kind, OpC<kSum>{}, f); break;
+      case kMin: with_int_kind(lane.kind, OpC<kMin>{}, f); break;
+      default: with_int_kind(lane.kind, OpC<kMax>{}, f); break;
+    }
+    return;
+  }
+  const bool is_float = lane.kind == kF32 || lane.kind == kF64;
+  switch (lane.op) {
+    case kSum: with_int_kind(lane.kind, OpC<kSum>{}, f); break;
+    case kSumF: with_float_kind(lane.kind, OpC<kSumF>{}, f); break;
+    case kMin:
+      if (is_float) with_float_kind(lane.kind, OpC<kMin>{}, f);
+      else with_int_kind(lane.kind, OpC<kMin>{}, f);
+      break;
+    default:
+      if (is_float) with_float_kind(lane.kind, OpC<kMax>{}, f);
+      else with_int_kind(lane.kind, OpC<kMax>{}, f);
+      break;
+  }
 }
 
 // Shared-memory layout common to both kernels: the lane descriptors, then
 // the block's partials [group][lane].
 __device__ __forceinline__ void load_lanes(const LaneParams& params,
-                                           const Lane* lanes_dev,
                                            int num_lanes, int m,
                                            Lane* lane_s, long long* blk) {
   for (int j = threadIdx.x; j < num_lanes; j += blockDim.x) {
-    lane_s[j] = lane_at(params, lanes_dev, j);
+    lane_s[j] = params.lane[j];
   }
   __syncthreads();
   for (int j = threadIdx.x; j < m * num_lanes; j += blockDim.x) {
@@ -228,16 +316,12 @@ __device__ __forceinline__ void load_lanes(const LaneParams& params,
   __syncthreads();
 }
 
-// the output starts at each lane's neutral, so a partial that is still
-// neutral has nothing to add
-__device__ __forceinline__ void flush(const Lane* lane_s, int num_lanes,
-                                      int m, const long long* blk,
-                                      long long* __restrict__ out) {
+// the block's partials to its row of the scratch buffer
+__device__ __forceinline__ void flush(int cells, const long long* blk,
+                                      long long* __restrict__ scratch) {
   __syncthreads();
-  for (int j = threadIdx.x; j < m * num_lanes; j += blockDim.x) {
-    const Lane& lane = lane_s[j % num_lanes];
-    if (blk[j] != lane.neutral) atomic_fold(out + j, lane.op, blk[j]);
-  }
+  long long* row = scratch + static_cast<int64_t>(blockIdx.x) * cells;
+  for (int j = threadIdx.x; j < cells; j += blockDim.x) row[j] = blk[j];
 }
 
 // ---- small domains: per-thread private partials ---------------------------
@@ -246,7 +330,7 @@ __device__ __forceinline__ void flush(const Lane* lane_s, int num_lanes,
 // ... in batches of kBatch, issuing every load of a batch before its first
 // shared-memory update, so the loads are in flight together.
 template <typename T, int64_t OP>
-__device__ __forceinline__ void tile_rows(Type<T> type, OpC<OP>,
+__device__ __forceinline__ void tile_rows(Type<T> type, OpC<OP> op,
                                           const Lane& lane, int64_t base,
                                           int rows, const uint8_t* gid_s,
                                           long long* mine) {
@@ -260,7 +344,7 @@ __device__ __forceinline__ void tile_rows(Type<T> type, OpC<OP>,
       g[b] = kNoGroup;
       if (r < rows) {
         const int64_t row = base + r;
-        v[b] = value(type, lane.values, row);
+        v[b] = value(type, op, lane.values, row);
         if (valid == nullptr || valid[row] != 0) g[b] = gid_s[r];
       }
     }
@@ -274,18 +358,19 @@ __device__ __forceinline__ void tile_rows(Type<T> type, OpC<OP>,
   }
 }
 
+template <bool FLOATS>
 __global__ void __launch_bounds__(kThreads)
 accumulate_small_kernel(const int32_t* __restrict__ gid, int64_t n,
                         const __grid_constant__ LaneParams params,
-                        const Lane* __restrict__ lanes_dev, int num_lanes,
-                        int m, long long* __restrict__ out) {
+                        int num_lanes, int m,
+                        long long* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   Lane* lane_s = reinterpret_cast<Lane*>(smem);
   long long* blk = reinterpret_cast<long long*>(lane_s + num_lanes);
   long long* priv = blk + m * num_lanes;  // [group][thread]
   uint8_t* gid_s = reinterpret_cast<uint8_t*>(priv + m * kThreads);
   long long* mine = priv + threadIdx.x;
-  load_lanes(params, lanes_dev, num_lanes, m, lane_s, blk);
+  load_lanes(params, num_lanes, m, lane_s, blk);
 
   // fold: 16 threads per group, each combining 16 of the 256 columns
   const int fold_g = threadIdx.x >> 4;
@@ -314,7 +399,7 @@ accumulate_small_kernel(const int32_t* __restrict__ gid, int64_t n,
     for (int l = 0; l < num_lanes; ++l) {
       const Lane lane = lane_s[l];
       for (int g = 0; g < m; ++g) mine[g * kThreads] = lane.neutral;
-      with_lane(lane, [&](auto type, auto op) {
+      with_lane<FLOATS>(lane, [&](auto type, auto op) {
         tile_rows(type, op, lane, base, rows, gid_s, mine);
       });
       __syncthreads();
@@ -323,21 +408,22 @@ accumulate_small_kernel(const int32_t* __restrict__ gid, int64_t n,
         const long long* col = priv + fold_g * kThreads + fold_part;
 #pragma unroll
         for (int q = 0; q < kThreads / 16; ++q) {
-          acc = combine(lane.op, acc, col[q * 16]);
+          acc = combine_rt<FLOATS>(lane.op, acc, col[q * 16]);
         }
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) {
-        acc = combine(lane.op, acc, __shfl_xor_sync(kFull, acc, off, 16));
+        acc = combine_rt<FLOATS>(lane.op, acc,
+                                 __shfl_xor_sync(kFull, acc, off, 16));
       }
       if (fold_g < m && fold_part == 0) {
         long long* cell = blk + fold_g * num_lanes + l;
-        *cell = combine(lane.op, *cell, acc);
+        *cell = combine_rt<FLOATS>(lane.op, *cell, acc);
       }
       __syncthreads();
     }
   }
-  flush(lane_s, num_lanes, m, blk, out);
+  flush(m * num_lanes, blk, scratch);
 }
 
 // ---- larger domains: warp-aggregated shared atomics -----------------------
@@ -357,24 +443,27 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
   return pos;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int THREADS, bool FLOATS>
+__global__ void __launch_bounds__(THREADS)
 accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
                         const __grid_constant__ LaneParams params,
-                        const Lane* __restrict__ lanes_dev, int num_lanes,
-                        int m, long long* __restrict__ out) {
+                        int num_lanes, int m,
+                        long long* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   Lane* lane_s = reinterpret_cast<Lane*>(smem);
   long long* blk = reinterpret_cast<long long*>(lane_s + num_lanes);
   // tag[g]: the thread that last claimed group g (any warp of the block)
-  uint8_t* tag = reinterpret_cast<uint8_t*>(blk + m * num_lanes);
-  load_lanes(params, lanes_dev, num_lanes, m, lane_s, blk);
+  uint16_t* tag = reinterpret_cast<uint16_t*>(blk + m * num_lanes);
+  load_lanes(params, num_lanes, m, lane_s, blk);
 
   const int lane_id = threadIdx.x & 31;
-  const uint8_t me = static_cast<uint8_t>(threadIdx.x);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  // a block-uniform loop: the warp's collectives run converged
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < n;
-       base += stride) {
+  const int warp = threadIdx.x >> 5;
+  const uint16_t me = static_cast<uint16_t>(threadIdx.x);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  // a block-uniform loop: the warp's collectives run converged, and the
+  // float sums' barriers are reached by every thread
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * THREADS;
+       base < n; base += stride) {
     const int64_t row = base + threadIdx.x;
     const bool in = row < n;
     const int32_t g = in ? gid[row] : -1;
@@ -404,11 +493,11 @@ accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
     }
     for (int l = 0; l < num_lanes; ++l) {
       const Lane lane = lane_s[l];
-      with_lane(lane, [&](auto type, auto op_c) {
+      with_lane<FLOATS>(lane, [&](auto type, auto op_c) {
         constexpr int64_t OP = decltype(op_c)::value;
         long long v = lane.neutral;
         if (ok && (lane.valid == nullptr || lane.valid[row] != 0)) {
-          v = value(type, lane.values, row);
+          v = value(type, op_c, lane.values, row);
         }
         // rank r ends holding the combine of ranks [r, count)
 #pragma unroll
@@ -417,81 +506,169 @@ accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
           const long long o = __shfl_sync(kFull, v, src[k]);
           if (rank + (1 << k) < count) v = combine<OP>(v, o);
         }
-        if (ok && rank == 0) {
-          atomic_fold(blk + g * num_lanes + l, OP, v);
+        long long* cell = blk + (ok ? g : 0) * num_lanes + l;
+        if constexpr (OP == kSumF) {
+          // warp after warp: the leaders of one warp are in distinct
+          // groups, so each adds to its cell alone
+          for (int w = 0; w < THREADS / 32; ++w) {
+            if (w == warp && ok && rank == 0) {
+              *cell = combine<kSumF>(*cell, v);
+            }
+            __syncthreads();
+          }
+        } else if (ok && rank == 0) {
+          atomic_fold<OP>(cell, v);
         }
       });
     }
   }
-  flush(lane_s, num_lanes, m, blk, out);
+  flush(m * num_lanes, blk, scratch);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, int64_t work_blocks, int sms,
-           cudaStream_t stream, const int32_t* gid, int64_t n,
-           const LaneParams& params, const Lane* lanes_dev, int num_lanes,
-           int m, long long* out) {
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// out[cell] = the decoded fold of scratch[0..blocks)[cell]: one block a
+// cell, thread t folding rows t, t + 256, ... in order, then a fixed tree
+// (the warp's shuffles, then warp 0's eight results in order), so that a
+// few cells over many rows (planned q4: 792 rows of 18 cells) still
+// spread their loads over many threads.
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const __grid_constant__ LaneParams params, int num_lanes,
+            int cells, int blocks, const long long* __restrict__ scratch,
+            long long* __restrict__ out) {
+  __shared__ long long warp_acc[kThreads / 32];
+  const int cell = blockIdx.x;
+  const Lane& lane = params.lane[cell % num_lanes];
+  long long acc = lane.neutral;
+  for (int b = threadIdx.x; b < blocks; b += kThreads) {
+    acc = combine_rt<true>(lane.op, acc,
+                           scratch[static_cast<int64_t>(b) * cells + cell]);
   }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  const int64_t cap = static_cast<int64_t>(sms) * per_sm;
-  const int blocks = static_cast<int>(work_blocks < cap ? work_blocks : cap);
-  kernel<<<blocks, kThreads, smem, stream>>>(gid, n, params, lanes_dev,
-                                             num_lanes, m, out);
-  return static_cast<int>(cudaGetLastError());
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = combine_rt<true>(lane.op, acc, __shfl_xor_sync(kFull, acc, off));
+  }
+  if ((threadIdx.x & 31) == 0) warp_acc[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    acc = warp_acc[0];
+    for (int w = 1; w < kThreads / 32; ++w) {
+      acc = combine_rt<true>(lane.op, acc, warp_acc[w]);
+    }
+    out[cell] = decode(lane, acc);
+  }
+}
+
+size_t small_smem(int num_lanes, int m) {
+  return static_cast<size_t>(num_lanes) * sizeof(Lane) +
+         static_cast<size_t>(m) * num_lanes * sizeof(long long) +
+         static_cast<size_t>(m) * kThreads * sizeof(long long) + kTile;
+}
+
+size_t large_smem(int num_lanes, int m) {
+  return static_cast<size_t>(num_lanes) * sizeof(Lane) +
+         static_cast<size_t>(m) * num_lanes * sizeof(long long) +
+         static_cast<size_t>(m) * sizeof(uint16_t);
+}
+
+const void* kernel_for(int m, int threads, bool floats) {
+  const bool wide = threads == kWideThreads;
+  if (m <= kSmallM) {
+    return floats ? reinterpret_cast<const void*>(accumulate_small_kernel<true>)
+                  : reinterpret_cast<const void*>(accumulate_small_kernel<false>);
+  }
+  if (floats) {
+    return wide ? reinterpret_cast<const void*>(
+                      accumulate_large_kernel<kWideThreads, true>)
+                : reinterpret_cast<const void*>(
+                      accumulate_large_kernel<kThreads, true>);
+  }
+  return wide ? reinterpret_cast<const void*>(
+                    accumulate_large_kernel<kWideThreads, false>)
+              : reinterpret_cast<const void*>(
+                    accumulate_large_kernel<kThreads, false>);
+}
+
+// Above 48 KB a kernel takes dynamic shared memory only after opting in.
+int allow(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+int resident(const void* kernel, int threads, size_t smem, int* per_sm) {
+  const int err = allow(kernel, smem);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, threads, smem));
 }
 
 }  // namespace
 
-// gid: device int32[n]; lanes: HOST int64[num_lanes, 5] (see Lane); out:
-// device int64[m, num_lanes], which the launch first fills with each
-// lane's neutral. Up to kParamLanes lanes go in the launch parameters;
-// above that, lanes_dev (device, num_lanes * 40 bytes) receives a copy.
-// m <= kSmallM takes the per-thread kernel, larger m the warp-aggregated
-// one. Launches on ``stream`` and returns the first CUDA error.
+// The launch shape of num_lanes lanes over m groups (floats: any float
+// lane among them): the block size (*threads) and how many such blocks
+// one multiprocessor holds (*per_sm). The large kernel takes 1,024
+// threads only when that keeps more warps resident than 256 does.
+extern "C" int srjt_groupby_accumulate_shape(int32_t num_lanes, int32_t m,
+                                             int32_t floats, int32_t* threads,
+                                             int32_t* per_sm) {
+  const bool small = m <= kSmallM;
+  const size_t smem = small ? small_smem(num_lanes, m) : large_smem(num_lanes, m);
+  if (num_lanes < 1 || num_lanes > kParamLanes || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int narrow = 0;
+  int err = resident(kernel_for(m, kThreads, floats != 0), kThreads, smem, &narrow);
+  if (err != 0) return err;
+  *threads = kThreads;
+  *per_sm = narrow < 1 ? 1 : narrow;
+  if (!small) {
+    int wide = 0;
+    err = resident(kernel_for(m, kWideThreads, floats != 0), kWideThreads,
+                   smem, &wide);
+    if (err != 0) return err;
+    if (wide * kWideThreads > narrow * kThreads) {
+      *threads = kWideThreads;
+      *per_sm = wide;
+    }
+  }
+  return 0;
+}
+
+// gid: device int32[n]; lanes: HOST int64[num_lanes, 5] (see Lane),
+// 1 <= num_lanes <= kParamLanes; floats and threads as given to and by
+// srjt_groupby_accumulate_shape; scratch: device int64[blocks, m *
+// num_lanes]; out: device int64[m, num_lanes], each cell the 64-bit
+// pattern of its result (a float lane's float64 bits, a uint64 lane's
+// bits). m <= kSmallM takes the per-thread kernel, larger m the
+// warp-aggregated one. Launches on ``stream`` and returns the first CUDA
+// error.
 extern "C" int srjt_groupby_accumulate(const void* gid, int64_t n,
                                        const void* lanes, int32_t num_lanes,
-                                       int32_t m, void* lanes_dev, void* out,
-                                       int32_t sms, void* stream) {
-  if (n <= 0 || num_lanes <= 0) return static_cast<int>(cudaSuccess);
+                                       int32_t m, int32_t floats,
+                                       int32_t threads, void* scratch,
+                                       int32_t blocks, void* out,
+                                       void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (num_lanes < 1 || num_lanes > kParamLanes || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   LaneParams params{};
-  const Lane* dev = nullptr;
-  if (num_lanes <= kParamLanes) {
-    memcpy(params.lane, lanes, static_cast<size_t>(num_lanes) * sizeof(Lane));
-  } else {
-    if (lanes_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = cudaMemcpyAsync(
-        lanes_dev, lanes, static_cast<size_t>(num_lanes) * sizeof(Lane),
-        cudaMemcpyHostToDevice, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dev = static_cast<const Lane*>(lanes_dev);
-  }
+  memcpy(params.lane, lanes, static_cast<size_t>(num_lanes) * sizeof(Lane));
   const int32_t* g = static_cast<const int32_t*>(gid);
-  long long* o = static_cast<long long*>(out);
+  long long* part = static_cast<long long*>(scratch);
+  const bool small = m <= kSmallM;
+  const size_t smem = small ? small_smem(num_lanes, m) : large_smem(num_lanes, m);
+  const int block = small ? kThreads : threads;
+  const void* kernel = kernel_for(m, block, floats != 0);
+  const int err = allow(kernel, smem);
+  if (err != 0) return err;
+  void* args[] = {&g, &n, &params, &num_lanes, &m, &part};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks), dim3(block), args,
+                                   smem, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int cells = m * num_lanes;
-  fill_neutral_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      params, dev, num_lanes, cells, o);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t common = static_cast<size_t>(num_lanes) * sizeof(Lane) +
-                        static_cast<size_t>(m) * num_lanes * sizeof(long long);
-  if (m <= kSmallM) {
-    const size_t smem =
-        common + static_cast<size_t>(m) * kThreads * sizeof(long long) + kTile;
-    return launch(accumulate_small_kernel, smem, (n + kTile - 1) / kTile, sms,
-                  s, g, n, params, dev, num_lanes, m, o);
-  }
-  return launch(accumulate_large_kernel, common + m,
-                (n + kThreads - 1) / kThreads, sms, s, g, n, params, dev,
-                num_lanes, m, o);
+  fold_kernel<<<cells, kThreads, 0, s>>>(params, num_lanes, cells, blocks,
+                                         part, static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

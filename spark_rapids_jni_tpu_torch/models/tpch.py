@@ -849,6 +849,60 @@ def lineitem_q5_table(num_rows: int, num_orders: int, num_suppliers: int,
     ])
 
 
+def _times_10_20(p: torch.Tensor, neg: torch.Tensor):
+    """(lo, hi) int64 limbs of p * 10^20 (0 <= p < 2^31), negated where
+    ``neg``: three 32-bit partial products with their carries."""
+    c = [(10**20 >> (32 * k)) & 0xFFFFFFFF for k in range(3)]
+    t0 = p * c[0]
+    t1 = p * c[1] + (t0 >> 32)
+    t2 = p * c[2] + (t1 >> 32)
+    lo = (t0 & 0xFFFFFFFF) | ((t1 & 0xFFFFFFFF) << 32)
+    hi = t2
+    return (torch.where(neg, ~lo + 1, lo),
+            torch.where(neg, ~hi + (lo == 0).to(torch.int64), hi))
+
+
+def lineitem_groupby_table(num_rows: int, num_orders: int,
+                           num_suppliers: int, seed: int = 14,
+                           device=None) -> tuple[Table, torch.Tensor]:
+    """The groupby workload's lineitem: the seven ``lineitem_table``
+    columns (seed 0), then q5's l_orderkey and l_suppkey, a FLOAT64 price
+    (l_extendedprice / 100, divided by a device tensor; NaN in every
+    997th row of June 1995), a UINT64 column (Spark's xxhash64 of
+    l_orderkey, seed 42, viewed unsigned) and a DECIMAL128 one
+    (l_extendedprice x 10^20 at scale -22, about 10 % of rows negative).
+    Seeded nulls: l_quantity ~1 %, each flag ~0.5 %. Returns the table
+    and the bool[n] of the negative DECIMAL128 rows."""
+    from spark_rapids_jni_tpu_torch.ops.hash import xxhash64_long
+
+    device = resolve_device(device)
+    li = lineitem_table(num_rows, seed=0, device=device)
+    q5 = lineitem_q5_table(num_rows, num_orders, num_suppliers,
+                           device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cols = list(li.columns)
+    for i, frac in ((L_QUANTITY, 0.01), (L_RETURNFLAG, 0.005),
+                    (L_LINESTATUS, 0.005)):
+        valid = torch.rand(num_rows, generator=gen, device=device) >= frac
+        cols[i] = Column(cols[i].dtype, cols[i].data, valid)
+    neg = torch.rand(num_rows, generator=gen, device=device) < 0.1
+    price = cols[L_EXTENDEDPRICE].data
+    f64 = price.to(torch.float64) / torch.tensor(
+        100.0, dtype=torch.float64, device=device)
+    ship = cols[L_SHIPDATE].data
+    june95 = (ship >= 9282) & (ship < 9312)  # 1995-06-01 .. 1995-06-30
+    rowid = torch.arange(num_rows, device=device)
+    f64 = torch.where(june95 & (rowid % 997 == 0), float("nan"), f64)
+    okey = q5.column(L5_ORDERKEY)
+    u64 = xxhash64_long(okey.data, torch.tensor(42, device=device)).view(
+        torch.uint64)
+    lo, hi = _times_10_20(price, neg)
+    cols += [okey, q5.column(L5_SUPPKEY), Column(t.FLOAT64, f64),
+             Column(t.UINT64, u64),
+             Column(t.decimal128(-22), torch.stack([lo, hi], dim=1))]
+    return Table(cols), neg
+
+
 class Q5Result(NamedTuple):
     table: Table              # [n_nationkey, revenue, n_name], rev desc
     present: torch.Tensor

@@ -530,8 +530,8 @@ def decimal_to_string(col: Column) -> Column:
         raise TypeError("decimal_to_string requires a decimal column")
     if col.dtype.is_decimal128:
         raise NotImplementedError(
-            "DECIMAL128 to string waits for the DECIMAL128 arithmetic "
-            "(ROADMAP.md Queue 1 entry 3)")
+            "DECIMAL128 to string is not ported: the reference cannot "
+            "render DECIMAL128 either (ROADMAP.md Queue 3)")
     neg, mag = _signed_magnitude(col.data)
     valid = col.valid_mask()
     if col.dtype.scale > 0:

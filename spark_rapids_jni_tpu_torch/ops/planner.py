@@ -8,8 +8,11 @@
   escape hatch: out-of-domain data must re-plan, it is never silently
   dropped. String keys are dictionary-encoded on the device against
   their domain (``encode_string_key``) and decoded back to static
-  strings at the output. The general sort-based lowering of
-  ``plan_groupby`` is not ported yet (ROADMAP.md Queue 1 entry 3).
+  strings at the output. Any other groupby lowers to the general
+  sort-based ``groupby_aggregate``, bounded by the budget, and
+  ``plan_groupby_auto`` grows the budget until the groups fit.
+  ``month_bucket`` turns a date column into a key with a small declared
+  domain (``month_domain``), which puts date rollups on the bounded plan.
 - Dense primary-key join (``dense_pk_join``): a LEFT join against a
   build side whose keys are declared unique in [key_lo, key_hi] — a
   gather (clustered) or one sort plus a search, never the join kernel.
@@ -30,16 +33,20 @@ import torch
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.columnar.column import take, zeros
+from spark_rapids_jni_tpu_torch.ops._calendar import civil_from_days
+from spark_rapids_jni_tpu_torch.ops.datetime import _days_since_epoch
 from spark_rapids_jni_tpu_torch.ops.groupby import (
     bounded_group_layout,
     bounded_lanes,
     dense_gid,
+    groupby_aggregate,
     groupby_aggregate_bounded,
 )
 from spark_rapids_jni_tpu_torch.ops.sort import (
     gather,
     int64_value,
     order_key,
+    sort_table,
 )
 from spark_rapids_jni_tpu_torch.ops.strings import pad_strings, static_strings
 
@@ -96,6 +103,33 @@ def observed_domain(col: Column, max_size: int = _OBSERVED_DEFAULT_CAP,
     if vals.size > max_size or vals.size == 0:
         return None
     return Domain(tuple(int(v) for v in vals), "scalar", source)
+
+
+def month_code(year: int, month: int) -> int:
+    """Static month-bucket code: year*12 + (month-1)."""
+    return year * 12 + (month - 1)
+
+
+def month_bucket(col: Column) -> Column:
+    """Derived key column: the calendar-month bucket of a date column
+    (int32 ``year*12 + month-1``). Date cardinality is unbounded; the
+    month buckets of any query's date range are few, which puts
+    date-bucketed rollups on the sort-free plan."""
+    y, mth, _ = civil_from_days(_days_since_epoch(col))
+    code = y.to(torch.int32) * 12 + (mth.to(torch.int32) - 1)
+    return Column(t.INT32, code, col.validity)
+
+
+def month_domain(year_lo: int, month_lo: int, year_hi: int, month_hi: int,
+                 source: str = "ddl") -> Domain:
+    """All month-bucket codes in [year_lo-month_lo, year_hi-month_hi]
+    inclusive: the domain a planner derives from a date-range predicate
+    or min/max column statistics."""
+    lo = month_code(year_lo, month_lo)
+    hi = month_code(year_hi, month_hi)
+    if hi < lo:
+        raise ValueError("month range is empty")
+    return Domain(tuple(range(lo, hi + 1)), "scalar", source)
 
 
 def encode_string_key(col: Column, domain: Domain) -> Column:
@@ -164,16 +198,20 @@ def bounded_accumulate_inputs(table: Table, keys, aggs, domains,
 
 
 class PlannedGroupBy(NamedTuple):
-    """Result of ``plan_groupby``: ``table`` rows in key order with
-    null-key groups last, ``present`` marking live groups, ``domain_miss``
-    the re-plan signal, ``lowered`` the static plan fact and
-    ``overflowed`` always False on the bounded plan (its slot count is
-    checked at plan time)."""
+    """Result of ``plan_groupby`` over both lowerings: ``table`` rows in
+    key order with null-key groups last. On the bounded plan the shape is
+    the static slot count m and ``present`` marks live groups; on the
+    general plan the shape is the padded budget and ``present`` marks the
+    first ``num_groups`` rows. ``domain_miss`` is the bounded plan's
+    re-plan signal (False on the general plan); ``overflowed`` the general
+    plan's (the data held more groups than the budget: grow and retry),
+    always False on the bounded plan, whose slot count is checked at plan
+    time."""
 
     table: Table
     present: torch.Tensor
     domain_miss: torch.Tensor
-    lowered: str  # "bounded"
+    lowered: str  # "bounded" | "general"
     overflowed: object = False
 
 
@@ -186,14 +224,18 @@ def plan_groupby(
     row_valid: Optional[torch.Tensor] = None,
 ) -> PlannedGroupBy:
     """Lower a groupby to the sort-free bounded plan when the planner can
-    bound every key: each key has a ``Domain``, the slot count
+    bound every key, else to the general sort-based plan.
+
+    Bounded: each key has a ``Domain``, the slot count
     ``prod(len(d)+1)`` fits ``budget`` and every agg is in the
     single-pass set (sum/count/mean/min/max). String keys are encoded to
     dense codes on the device and decoded to static strings at the
-    output.
+    output. General: ``groupby_aggregate`` with at most ``budget``
+    groups, then one sort of its keys with nulls last.
 
-    ``row_valid``: bool[n] marking rows that EXIST; non-rows join no
-    slot."""
+    ``row_valid``: bool[n] marking rows that EXIST. On the bounded plan
+    non-rows join no slot; on the general plan their keys and values are
+    nulled, so they fold into the null-key group."""
     if len(domains) != len(keys):
         raise ValueError("one Domain (or None) per key required")
     bounded_ok = (
@@ -203,9 +245,22 @@ def plan_groupby(
         and int(np.prod([len(d.values) + 1 for d in domains])) <= budget
     )
     if not bounded_ok:
-        raise NotImplementedError(
-            "plan_groupby: the general sort-based lowering is not ported "
-            "yet (ROADMAP.md Queue 1 item 6: sort and general groupby)")
+        if row_valid is not None:
+            table = Table([
+                Column(c.dtype, c.data, c.valid_mask() & row_valid,
+                       chars=c.chars, children=c.children)
+                for c in table.columns
+            ])
+        g = groupby_aggregate(table, keys=list(keys), aggs=list(aggs),
+                              max_groups=min(budget, table.num_rows) or 1)
+        srt = sort_table(g.table, list(range(len(keys))),
+                         nulls_first=[False] * len(keys))
+        present = torch.arange(srt.num_rows, device=g.num_groups.device) \
+            < g.num_groups
+        return PlannedGroupBy(
+            srt, present,
+            torch.zeros((), dtype=torch.bool, device=present.device),
+            "general", g.overflowed)
     work, key_domains, strings = _encode_keys(table, keys, domains)
     res = groupby_aggregate_bounded(
         work, keys=list(keys), aggs=list(aggs), key_domains=key_domains,
@@ -219,6 +274,42 @@ def plan_groupby(
                                                res.present)
     return PlannedGroupBy(Table(out_cols), res.present, res.domain_miss,
                           "bounded")
+
+
+class PlanBudgetExceeded(ValueError):
+    """A groupby's distinct-group count exceeded ``max_budget``. The
+    reference also classes it a ``FatalExecutionError`` of its
+    resilience taxonomy, which the port does not have yet; here it is the
+    ValueError callers match on."""
+
+
+def plan_groupby_auto(
+    table: Table,
+    keys: Sequence[int],
+    aggs: Sequence[tuple[int, str]],
+    domains: Sequence[Optional[Domain]],
+    budget: int = 4096,
+    max_budget: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> PlannedGroupBy:
+    """``plan_groupby`` that grows the budget: when the general plan
+    drops groups (``overflowed``), double the budget and retry until the
+    result is complete — the budget schedule min(b·2^k, cap) of the
+    reference's loop with its resilience ladder off. Past ``max_budget``
+    (default: the row count) it raises :class:`PlanBudgetExceeded`."""
+    cap = max_budget if max_budget is not None else max(table.num_rows, 1)
+    # clamp both ways: a sub-positive budget would loop forever (0*2 == 0)
+    # and a starting budget above the cap would silently ignore it
+    b = min(max(budget, 1), cap)
+    while True:
+        res = plan_groupby(table, keys, aggs, domains, budget=b,
+                           row_valid=row_valid)
+        if not bool(res.overflowed) or b >= cap:
+            if bool(res.overflowed):
+                raise PlanBudgetExceeded(
+                    f"groupby exceeded max_budget={cap} distinct groups")
+            return res
+        b = min(b * 2, cap)
 
 
 _INT64_MAX = (1 << 63) - 1

@@ -6,10 +6,11 @@ valid), so callers compose them without a host read.
 
 Integral and decimal sums accumulate in int64 (unsigned ones in uint64
 bits), exact and wrapping; float sums keep the column's dtype, in an
-order that differs from the reference's. STRING MIN/MAX take row 0 or
-the last valid row of one nulls-last sort, and return a 1-row padded
-STRING column. DECIMAL128 SUM, MIN, MAX and MEAN need the limb-pair
-helpers, which are not ported yet (ROADMAP.md Queue 1 entry 3).
+order that differs from the reference's. STRING and DECIMAL128 MIN/MAX
+take row 0 or the last valid row of one nulls-last sort, and return a
+1-row column (STRING padded). DECIMAL128 SUM is exact in four 32-bit
+limb lanes (a total past 128 bits is null), and its MEAN the exact long
+division of ``ops/_decimal128.py``, both as (2,) limb pairs.
 """
 
 from __future__ import annotations
@@ -18,15 +19,12 @@ import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
+from spark_rapids_jni_tpu_torch.ops._decimal128 import (
+    _mean128_exact,
+    recombine_sum128,
+    split_sum128_lanes,
+)
 from spark_rapids_jni_tpu_torch.ops.sort import gather, int64_value, sort_order
-
-
-def _no_decimal128(col: Column, op: str) -> None:
-    if col.dtype.is_decimal128:
-        raise NotImplementedError(
-            f"DECIMAL128 {op} needs the limb-pair helpers (split_sum128_"
-            f"lanes, recombine_sum128, _mean128_exact), not ported yet "
-            f"(ROADMAP.md Queue 1 entry 3)")
 
 
 def count(col: Column) -> torch.Tensor:
@@ -36,12 +34,18 @@ def count(col: Column) -> torch.Tensor:
 
 def sum_(col: Column):
     """(sum, valid): integers and decimals in int64, unsigned integers in
-    uint64 (the same wrapping bits), floats in their own dtype."""
-    _no_decimal128(col, "sum")
+    uint64 (the same wrapping bits), floats in their own dtype; DECIMAL128
+    as an exact (2,) limb pair, null past 128 bits."""
     if col.dtype.is_string:
         raise TypeError("SUM of a STRING column")
     valid = col.valid_mask()
     has_any = valid.any()
+    if col.dtype.is_decimal128:
+        lo = torch.where(valid, col.data[:, 0], 0)
+        hi = torch.where(valid, col.data[:, 1], 0)
+        lanes = [lane.sum() for lane in split_sum128_lanes(lo, hi)]
+        lo_t, hi_t, ovf = recombine_sum128(*lanes)
+        return torch.stack([lo_t, hi_t]), has_any & ~ovf
     kind = col.dtype.storage_dtype.kind
     if kind in ("i", "u", "b"):
         total = torch.where(valid, int64_value(col.data), 0).sum()
@@ -50,7 +54,7 @@ def sum_(col: Column):
 
 
 def _minmax(col: Column, op: str):
-    if col.dtype.is_string:
+    if col.dtype.is_string or col.dtype.is_decimal128:
         # the winner is row 0 / the last valid row of the nulls-last order
         order = sort_order(Table([col]), [0], nulls_first=[False])
         valid = col.valid_mask()
@@ -58,7 +62,6 @@ def _minmax(col: Column, op: str):
             valid.to(torch.int64).sum() - 1).clamp(min=0)
         winner = gather(Table([col]), order[pos].reshape(1)).column(0)
         return winner, valid.any()
-    _no_decimal128(col, op)
     np_dt = col.dtype.storage_dtype
     if np_dt.kind == "f":
         neutral = np.inf if op == "min" else -np.inf
@@ -92,9 +95,13 @@ def max_(col: Column):
 
 def mean(col: Column):
     """(mean, valid) as FLOAT64, decimals rescaled to their true value
-    (the groupby mean's contract)."""
-    _no_decimal128(col, "mean")
+    (the groupby mean's contract); DECIMAL128 as the exact (2,) limb pair
+    of the unscaled mean at 4 more fractional digits."""
     total, has_any = sum_(col)
+    if col.dtype.is_decimal128:
+        limbs, overflow = _mean128_exact(total[0:1], total[1:2],
+                                         count(col).reshape(1))
+        return limbs[0], has_any & ~overflow[0]
     if total.dtype == torch.uint64:
         # the unsigned value, rounded once: two exact 32-bit halves
         bits = total.view(torch.int64)

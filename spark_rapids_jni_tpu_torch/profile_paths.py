@@ -12,7 +12,10 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``q19_planned``, ``q17``, ``q10``, ``hash_lineitem``, ``hash_q12``,
 ``partition_hash``, ``bloom_build``, ``bloom_probe``, ``q1_strings``,
 ``q13``, ``rlike``, ``json_extract``, ``upper_mixed``,
-``regexp_extract``, ``regexp_replace``, ``split``) select some of them.
+``regexp_extract``, ``regexp_replace``, ``split``, ``monthly_rollup``,
+``groupby_suppkey``, ``percentile``, ``plan_groupby_auto``,
+``groupby_orderkey``, ``apply_boolean_mask``, ``distinct``,
+``intersect_rows``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -36,7 +39,12 @@ single-pass reference, and for RLIKE over bench.py's 59,986,052 log
 lines, get_json_object ``$.meta.w`` over its documents tiled to
 59,986,052 rows, and upper of 1,000,000 mixed-script rows, and for
 regexp_extract ``status=(\\d+)``, regexp_replace ``status=\\d+`` and
-split on ' ' over the log lines, after a warm-up:
+split on ' ' over the log lines, and for the groupby workload's SF10
+lineitem (``tpch.lineitem_groupby_table``): the planned monthly rollup,
+the general groupby by l_suppkey with its 16 aggregates, its
+percentiles, ``plan_groupby_auto`` from 4,096, the groupby by l_orderkey,
+``apply_boolean_mask`` with q6's predicate, ``distinct`` of the flags and
+``intersect_rows`` of two l_orderkey slices, after a warm-up:
 the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
@@ -86,6 +94,9 @@ HASH_PATHS = ("hash_lineitem", "hash_q12", "partition_hash", "bloom_build",
               "bloom_probe", "q1_strings", "q13")
 ENGINE_PATHS = ("rlike", "json_extract", "upper_mixed")
 CAPTURE_PATHS = ("regexp_extract", "regexp_replace", "split")
+GROUPBY_PATHS = ("monthly_rollup", "groupby_suppkey", "percentile",
+                 "plan_groupby_auto", "groupby_orderkey",
+                 "apply_boolean_mask", "distinct", "intersect_rows")
 
 
 def device_us(evt) -> float:
@@ -161,6 +172,8 @@ def main(only: list[str]) -> int:
         profile_engines(run)
     if not only or set(only) & set(CAPTURE_PATHS):
         profile_capture(run)
+    if not only or set(only) & set(GROUPBY_PATHS):
+        profile_groupby(run)
     return 0
 
 
@@ -300,6 +313,63 @@ def profile_capture(run) -> None:
     run("regexp_replace", lambda: strings.regexp_replace(
         lines, r"status=\d+", "status=XXX"), Q3_REPS)
     run("split", lambda: strings_fns.split(lines, " ", max_pieces=5), Q3_REPS)
+
+
+
+def profile_groupby(run) -> None:
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import table_ops
+    from spark_rapids_jni_tpu_torch.ops.groupby import (
+        groupby_aggregate,
+        groupby_percentile,
+    )
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        month_bucket,
+        month_domain,
+        plan_groupby,
+        plan_groupby_auto,
+        scalar_domain,
+    )
+
+    suppliers = 100_000
+    tab, _ = tpch.lineitem_groupby_table(ROWS, ORDERS, suppliers)
+    c = tab.columns
+    work = Table([month_bucket(c[6]), c[4], c[5], c[0], c[1], c[9], c[10]])
+    aggs = [(3, "sum"), (3, "mean"), (3, "min"), (3, "max"), (4, "sum"),
+            (4, "mean"), (4, "min"), (4, "max"), (5, "sum"), (5, "min"),
+            (5, "max"), (6, "min"), (6, "max"), (4, "count")]
+    domains = [month_domain(1992, 12, 1999, 12),
+               scalar_domain(np.frombuffer(b"ANR", np.int8).tolist()),
+               scalar_domain(np.frombuffer(b"FO", np.int8).tolist())]
+    run("monthly_rollup", lambda: plan_groupby(work, [0, 1, 2], aggs, domains))
+    del work
+    gtab = Table([c[8], c[0], c[1], c[7], c[11]])
+    gaggs = ([(1, op) for op in ("var", "std", "var_pop", "std_pop")]
+             + [(1, ("covar_samp", 2)), (1, ("corr", 2)), (3, "nunique")]
+             + [(1, op) for op in ("first", "last", "first_include_nulls",
+                                   "last_include_nulls")]
+             + [(4, op) for op in ("sum", "mean", "min", "max", "var")])
+    run("groupby_suppkey", lambda: groupby_aggregate(
+        gtab, [0], gaggs, max_groups=suppliers), Q3_REPS)
+    run("percentile", lambda: groupby_percentile(
+        gtab, [0], 1, [0.25, 0.5, 0.9], max_groups=suppliers), Q3_REPS)
+    run("plan_groupby_auto", lambda: plan_groupby_auto(
+        gtab, [0], [(1, "sum"), (1, "count")], [None], budget=4096), Q3_REPS)
+    del gtab
+    otab = Table([c[7], c[1]])
+    run("groupby_orderkey", lambda: groupby_aggregate(
+        otab, [0], [(1, "sum"), (1, "count")], max_groups=ORDERS), Q3_REPS)
+    del otab
+    li = Table(c[:7])
+    mask = torch.from_numpy(tpch._q6_host_selection(li)).to(c[0].device)
+    run("apply_boolean_mask", lambda: table_ops.apply_boolean_mask(li, mask))
+    flags = Table([c[4], c[5]])
+    run("distinct", lambda: table_ops.distinct(flags))
+    a, b, e = ROWS // 3, ROWS // 4, 2 * ROWS // 3
+    left = Table([Column(c[7].dtype, c[7].data[:a])])
+    right = Table([Column(c[7].dtype, c[7].data[b:e])])
+    run("intersect_rows", lambda: table_ops.intersect_rows(left, right),
+        Q3_REPS)
 
 
 if __name__ == "__main__":

@@ -135,8 +135,6 @@ def _cycled_lanes(count, n, dev, rng):
                 kga.Lane("sum", cols[np_dt], None, 0),
                 kga.Lane("min", cols[np_dt], valid, int(info.max)),
                 kga.Lane("max", cols[np_dt], None, int(info.min))][i % 6]
-        if pick.op != "sum" and np_dt == np.uint64:
-            pick = kga.Lane("sum", cols[np_dt], valid, 0)  # minmax_width
         lanes.append(pick)
     return lanes
 
@@ -147,8 +145,8 @@ def _cycled_lanes(count, n, dev, rng):
     (12, 11, True), (17, 12, True), (2048, 1, True)])
 def test_accumulate_kernel_domains(dev, m, num_lanes, one_group):
     # m <= 16 takes the per-thread kernel, above it the warp-aggregated
-    # one; m*L = 2048 is the cap; one group is the worst contention.
-    # Three 8192-row tiles and a ragged tail.
+    # one; more than 64 lanes split over launches; one group is the worst
+    # contention. Three 8192-row tiles and a ragged tail.
     n = 3 * 8192 + 77
     rng = np.random.default_rng(m + num_lanes)
     g = np.full(n, m - 1) if one_group else rng.integers(0, m + 1, n)
@@ -318,18 +316,24 @@ def test_wide_rows_fall_back_with_reason(dev):
 
 
 def test_ineligible_groupby_raises(dev):
+    """The bounded inputs the kernel once refused (a float sum, a float
+    max) now launch it, with no fallback, and equal the CPU run."""
     n = 500
     rng = np.random.default_rng(1)
-    tbl = Table([
-        Column.from_numpy(rng.integers(1, 3, n).astype(np.int8), device=dev),
-        Column.from_numpy(rng.standard_normal(n), device=dev),
-    ])
-    for op, reason in (("sum", "float_agg"), ("max", "minmax_width")):
-        kernels.reset_counts()
-        with pytest.raises(NotImplementedError, match=reason):
-            groupby_aggregate_bounded(tbl, [0], [(1, op)], [(1, 2)])
-        assert kernels.fallbacks() == {(kga.NAME, reason): 1}
-        assert kernels.launches() == {}
+    f = rng.standard_normal(n)
+    k = rng.integers(1, 3, n).astype(np.int8)
+    for op in ("sum", "max"):
+        got = []
+        for d in (dev, "cpu"):
+            tbl = Table([Column.from_numpy(k, device=d),
+                         Column.from_numpy(f, device=d)])
+            kernels.reset_counts()
+            got.append(groupby_aggregate_bounded(tbl, [0], [(1, op)],
+                                                 [(1, 2)]).table)
+            assert kernels.fallbacks() == {}
+        assert kernels.launches() == {} and torch.allclose(
+            got[0].column(1).data.cpu(), got[1].column(1).data,
+            rtol=1e-12, atol=0)
 
 
 def test_empty_inputs_run_on_the_card(dev):
@@ -1069,3 +1073,227 @@ def test_string_functions_on_the_card_match_cpu(dev, n):
                 _same_list(got.column, want.column)
                 assert bool(got.overflowed) == bool(want.overflowed)
     assert telemetry.fallbacks() == {}
+
+
+# ---- kernel A's new inputs; the general groupby, DECIMAL128 and the table
+# operations on the card ------------------------------------------------------
+
+
+def _float_sum_close(got, want, gid, lane, m):
+    """A float sum lane of the kernel within FLOAT_SUM_REL * sum(|x|) of
+    the plain version's, NaN where it is NaN."""
+    g, w = got.view(torch.float64), want.view(torch.float64)
+    nan = torch.isnan(w)
+    near = (g - w).abs() <= kga.float_sum_bound(gid, lane, m)
+    return bool(((torch.isnan(g) == nan) & (nan | near)).all())
+
+
+def _check_lanes(gid, lanes, m):
+    got = kga._accumulate_cuda(gid, lanes, m)
+    want = kga.accumulate_plain(gid, lanes, m)
+    for i, lane in enumerate(lanes):
+        if lane.op == "sum" and lane.values is not None \
+                and lane.values.is_floating_point():
+            assert _float_sum_close(got[:, i], want[:, i], gid, lane, m), i
+        else:
+            assert torch.equal(got[:, i], want[:, i]), i
+
+
+@pytest.mark.parametrize("m", [5, 1032])
+def test_accumulate_kernel_uint64_and_float_lanes(dev, m):
+    # uint64 min/max around 2^63; float min/max with NaN and +-0 (ties
+    # give -0.0 for min, +0.0 for max, NaN wins); float sums in float64
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m)
+    gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
+    u = rng.integers(2**63 - 1000, 2**63 + 1000, n, dtype=np.uint64)
+    u[::7] = rng.integers(0, 2**64 - 1, len(u[::7]), dtype=np.uint64)
+    f = rng.standard_normal(n) * 1e3
+    f[rng.random(n) < 0.3] = 0.0
+    f[rng.random(n) < 0.3] *= -0.0
+    f[rng.random(n) < 0.002] = np.nan
+    u64 = torch.from_numpy(u).to(dev)
+    f64 = torch.from_numpy(f).to(dev)
+    f32 = f64.to(torch.float32)
+    valid = torch.from_numpy(_null_tail(n, 0.25, rng)).to(dev)
+    lanes = [kga.Lane("min", u64, valid, 2**64 - 1),
+             kga.Lane("max", u64, None, 0),
+             kga.Lane("sum", u64, valid, 0)]
+    for x in (f64, f32):
+        lanes += [kga.Lane("min", x, valid, float("inf")),
+                  kga.Lane("max", x, None, float("-inf")),
+                  kga.Lane("sum", x, valid, 0.0),
+                  kga.Lane("sum", x, None, 0.0)]
+    _check_lanes(gid, lanes, m)
+    # a float sum repeats bit for bit run to run (a fixed order)
+    first = kga._accumulate_cuda(gid, lanes, m)
+    assert torch.equal(first, kga._accumulate_cuda(gid, lanes, m))
+
+
+@pytest.mark.parametrize("m,num_lanes,with_float", [
+    (101, 22, False), (1032, 16, False), (1032, 40, False), (4096, 9, False),
+    (20_000, 1, False), (1032, 16, True), (17, 9, True), (3, 13, True)])
+def test_accumulate_kernel_past_the_old_cap(dev, m, num_lanes, with_float):
+    # m*L above the TPU kernel's 2048 cells; lanes past what one block's
+    # shared memory holds split over launches, each reading gid again.
+    # With a float lane, every integer kind goes through the kernels that
+    # hold the float paths (batched raw loads in the large one).
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m + num_lanes)
+    gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
+    lanes = _cycled_lanes(num_lanes, n, dev, rng)
+    if with_float:
+        f = torch.from_numpy(rng.standard_normal(n)).to(dev)
+        lanes.append(kga.Lane("max", f.to(torch.float32), None,
+                              float("-inf")))
+        num_lanes += 1
+    assert kga.unsupported_reason(lanes, m) is None
+    kernels.reset_counts()
+    _check_lanes(gid, lanes, m)
+    assert kernels.launches(kga.NAME) == kga.launches(m, num_lanes)
+    assert kga.unsupported_reason(lanes, 40_000) == "too_many_lanes"
+
+
+def _refused_inputs(n, device, rng):
+    """Columns the old bounded plan refused on the card: FLOAT64 and
+    FLOAT32 values (sums, means, min/max), UINT64 keys and values, and a
+    100-value key (m * L past 2048)."""
+    f = rng.standard_normal(n)
+    f[rng.random(n) < 0.01] = np.nan
+    keys = np.array([1, 2**63 - 1, 2**63, 2**64 - 1], np.uint64)
+    return Table([
+        Column.from_numpy(rng.integers(0, 100, n).astype(np.int32),
+                          device=device),
+        Column.from_numpy(rng.choice(keys, n), device=device),
+        Column.from_numpy(f, validity=rng.random(n) > 0.1, device=device),
+        Column.from_numpy(f.astype(np.float32), device=device),
+        Column.from_numpy(rng.integers(0, 2**64 - 1, n, dtype=np.uint64),
+                          device=device),
+    ]), keys
+
+
+@pytest.mark.parametrize("n", [257, 2049])
+def test_plan_groupby_takes_the_refused_inputs_on_the_card(dev, n):
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        plan_groupby,
+        scalar_domain,
+    )
+
+    aggs = [(2, "sum"), (2, "mean"), (2, "min"), (2, "max"), (3, "sum"),
+            (3, "max"), (4, "min"), (4, "max"), (4, "sum"), (2, "count")]
+    out = []
+    for d in (dev, "cpu"):
+        tbl, keys = _refused_inputs(n, d, np.random.default_rng(n))
+        doms = [scalar_domain(range(100)), scalar_domain(keys.tolist())]
+        kernels.reset_counts()
+        res = plan_groupby(tbl, [0, 1], aggs, doms)
+        assert res.lowered == "bounded" and kernels.fallbacks() == {}
+        out.append(res)
+    assert kernels.launches() == {}  # the CPU run: the plain version
+    card, cpu = out
+    assert torch.equal(card.present.cpu(), cpu.present)
+    for i, (a, b) in enumerate(zip(card.table.columns, cpu.table.columns)):
+        assert torch.equal(a.valid_mask().cpu(), b.valid_mask()), i
+        x, y = a.data.cpu(), b.data
+        if i in (2, 3, 6):  # float sums and means: another order
+            rtol = 1e-6 if x.dtype == torch.float32 else 1e-12
+            assert torch.allclose(x, y, rtol=rtol, atol=0, equal_nan=True), i
+        elif x.is_floating_point():
+            assert bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+        else:
+            assert torch.equal(x.view(torch.int64) if x.dtype == torch.uint64
+                               else x, y.view(torch.int64)
+                               if y.dtype == torch.uint64 else y), i
+
+
+def _wide_columns(n, device, rng):
+    """An INT8 key and a DECIMAL128 column of up to 110-bit values of
+    either sign, with a null tail."""
+    v = [int(x) << int(s) for x, s in zip(rng.integers(0, 2**62, n),
+                                           rng.integers(0, 48, n))]
+    v = [x if rng.random() < 0.5 else -x for x in v]
+    lo = [x & (2**64 - 1) for x in v]
+    limbs = np.array([[a - 2**64 if a >= 2**63 else a, x >> 64]
+                      for a, x in zip(lo, v)], np.int64)
+    return Table([
+        Column.from_numpy(rng.integers(0, 5, n).astype(np.int8),
+                          device=device),
+        Column.from_numpy(limbs, t.decimal128(-3),
+                          _null_tail(n, 0.2, rng), device=device)])
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_decimal128_mean_and_var_on_the_card_match_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops import reduce
+
+    aggs = [(1, "sum"), (1, "mean"), (1, "var"), (1, "std_pop"),
+            (1, "min"), (1, "max"), (1, ("corr", 0))]
+    card = _wide_columns(n, dev, np.random.default_rng(n))
+    cpu = _wide_columns(n, "cpu", np.random.default_rng(n))
+    got = groupby_aggregate(card, [0], aggs)
+    want = groupby_aggregate(cpu, [0], aggs)
+    assert int(got.num_groups) == int(want.num_groups)
+    k = int(want.num_groups)
+    for a, b in zip(got.table.columns, want.table.columns):
+        # bit for bit: integer limbs, then the same float steps
+        assert torch.equal(a.valid_mask()[:k].cpu(), b.valid_mask()[:k])
+        x, y = a.data[:k].cpu(), b.data[:k]
+        if x.is_floating_point():
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        assert torch.equal(x, y)
+    for fn in ("sum_", "mean", "min_", "max_"):
+        (a, ok_a), (b, ok_b) = (getattr(reduce, fn)(c.column(1))
+                                for c in (card, cpu))
+        a, b = (x.data if isinstance(x, Column) else x for x in (a, b))
+        assert bool(ok_a) == bool(ok_b) and torch.equal(a.cpu(), b), fn
+
+
+@pytest.mark.parametrize("n", [257, 2049])
+def test_general_aggregates_and_table_ops_on_the_card_match_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops import table_ops
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_percentile
+
+    def build(device):
+        tbl = _mixed_table(n, device, np.random.default_rng(n + 1))
+        words = string_column([["a", "bb", "", None][i % 4]
+                               for i in range(n)], device=device)
+        return Table(list(tbl.columns) + [words])
+
+    card, cpu = build(dev), build("cpu")
+    s = card.num_columns - 1
+    aggs = [(0, "var"), (4, "std"), (0, ("covar_samp", 4)),
+            (0, ("corr", 4)), (6, "nunique"), (4, "first"), (4, "last"),
+            (0, "first_include_nulls"), (s, "min"), (s, "max"),
+            (s, "last_include_nulls")]
+    got = groupby_aggregate(card, [1, 3], aggs)
+    want = groupby_aggregate(cpu, [1, 3], aggs)
+    k = int(want.num_groups)
+    assert int(got.num_groups) == k
+    for i, (a, b) in enumerate(zip(got.compact().columns,
+                                   want.compact().columns)):
+        if i in (2, 3, 4, 5):  # float64 two-pass moments: another order
+            assert torch.equal(a.valid_mask().cpu(), b.valid_mask())
+            scale = float(torch.nan_to_num(b.data).abs().max())
+            assert torch.allclose(a.data.cpu(), b.data, rtol=1e-9,
+                                  atol=1e-9 * scale, equal_nan=True), i
+        else:
+            assert a.equals(b), i
+    p_card = groupby_percentile(card, [1], 4, [0.1, 0.5, 0.99])
+    p_cpu = groupby_percentile(cpu, [1], 4, [0.1, 0.5, 0.99])
+    assert p_card.compact().equals(p_cpu.compact())
+    mask = torch.arange(n) % 3 != 1
+    kernels.reset_counts()
+    for fn in (lambda tb, m: table_ops.apply_boolean_mask(tb, m),
+               lambda tb, m: table_ops.distinct(tb, [1, 3, s]),
+               lambda tb, m: table_ops.intersect_rows(
+                   Table(tb.columns[1:2]), Table(tb.columns[1:2])),
+               lambda tb, m: table_ops.except_rows(
+                   Table(tb.columns[1:2]), Table([tb.columns[1]]))):
+        a = fn(card, mask.to(dev))
+        b = fn(cpu, mask)
+        assert int(a.num_rows) == int(b.num_rows)
+        assert a.table.equals(b.table)
+    cat = table_ops.concatenate([card, card])
+    assert cat.num_rows == 2 * n and cat.equals(table_ops.concatenate(
+        [cpu, cpu]))
+    assert kernels.launches() == {}  # no kernel of A-D on these paths

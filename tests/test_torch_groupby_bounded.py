@@ -1,7 +1,9 @@
 """The port's bounded groupby against the JAX package: sum / count /
 mean / min / max with null keys, null values, ``row_valid``, domain
-misses, an empty table and the fallback reasons, plus the plain
-accumulate kernel against the reference Pallas kernel in interpret mode.
+misses, an empty table, and the inputs the reference keeps off its
+kernel (wide domains, float and uint64 lanes) that the port's takes,
+plus the plain accumulate kernel against the reference Pallas kernel in
+interpret mode.
 
 Exact, float64 means included: both sides divide the same exact int64
 total by the same count. Float-column SUM/MEAN is the one exception (see
@@ -20,13 +22,19 @@ from spark_rapids_jni_tpu.ops.groupby import (
 )
 from spark_rapids_jni_tpu.ops.pallas import groupby_accumulate as jga
 from spark_rapids_jni_tpu_torch.ops import kernels
-from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate_bounded
+from spark_rapids_jni_tpu.ops.table_ops import trim_table as jtrim
+from spark_rapids_jni_tpu_torch.ops.groupby import (
+    bounded_lanes,
+    groupby_aggregate_bounded,
+)
+from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
 from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
 from spark_rapids_jni_tpu_torch.ops.planner import plan_groupby, scalar_domain
 from torch_parity import (
     EDGE_ROWS,
     assert_same_array,
     assert_same_table,
+    assert_same_valid_table,
     jax_table,
     to_port,
 )
@@ -105,10 +113,13 @@ def test_empty_table():
 
 
 def test_too_many_lanes_falls_back():
+    """101 slots x 22 lanes, past the TPU kernel's 2048 cells (the
+    reference falls back with too_many_lanes): the port's kernel takes
+    them, so no fallback is counted, and the result matches."""
     n = 600
     rng = np.random.default_rng(1)
     # 100-value domain -> m = 101 slots; 1 row lane + 7 columns x (valid
-    # count, sum, max) = 22 lanes; 101 * 22 > 2048 cells
+    # count, sum, max) = 22 lanes
     cols = [(int(jt.TypeId.INT32), 0,
              rng.integers(0, 105, n).astype(np.int32), None)]
     cols += [(int(jt.TypeId.INT64), 0, rng.integers(-99, 99, n),
@@ -117,36 +128,50 @@ def test_too_many_lanes_falls_back():
     kernels.reset_counts()
     res = _compare(jax_table(cols), aggs=aggs, domains=[tuple(range(100))])
     assert bool(res.domain_miss)
-    assert kernels.fallbacks() == {(kga.NAME, "too_many_lanes"): 1}
+    assert kga.unsupported_reason(
+        bounded_lanes(to_port(jax_table(cols)), aggs).lanes, 101) is None
+    assert kernels.fallbacks() == {}
 
 
 def test_float_aggregates_fall_back():
+    """Float min/max and float sums, which the reference keeps off its
+    kernel (minmax_width, float_agg), are kernel inputs in the port: no
+    fallback is counted. Min/max are exact (NaN masks equal, values ==);
+    sums and means are held to a relative 1e-12 (float64 sums in another
+    order; the float32 column's sum is rounded to float32)."""
     n = 2049
     rng = np.random.default_rng(2)
+    f64 = rng.standard_normal(n)
+    f64[rng.random(n) < 0.05] = np.nan
     jtab = jax_table([
         (int(jt.TypeId.INT8), 0, rng.integers(1, 3, n).astype(np.int8), None),
-        (int(jt.TypeId.FLOAT64), 0, rng.standard_normal(n),
-         rng.random(n) > 0.2),
+        (int(jt.TypeId.FLOAT64), 0, f64, rng.random(n) > 0.2),
         (int(jt.TypeId.FLOAT32), 0, rng.standard_normal(n).astype(np.float32),
          None),
     ])
     ptab = to_port(jtab)
-    kernels.reset_counts()
-    exact = [(1, "min"), (1, "max"), (2, "max"), (1, "count")]
-    _compare(jtab, aggs=exact, domains=[(1, 2)])
-    assert kernels.fallbacks() == {(kga.NAME, "minmax_width"): 1}
-    kernels.reset_counts()
-    summed = [(1, "sum"), (1, "mean"), (2, "sum")]
-    got = groupby_aggregate_bounded(ptab, [0], summed, [(1, 2)])
-    want = j_bounded(jtab, [0], summed, [(1, 2)])
-    assert kernels.fallbacks() == {(kga.NAME, "float_agg"): 1}
-    # float sums: torch and XLA add the terms in different orders, so the
-    # totals agree to a few ulps of float64 (float32 column: of float32)
-    for i, (g, w) in enumerate(zip(got.table.columns, want.table.columns)):
-        rtol = 1e-5 if g.data.dtype == torch.float32 else 1e-12
-        np.testing.assert_allclose(g.data.numpy(), np.asarray(w.data),
-                                   rtol=rtol, err_msg=f"column {i}")
-        assert_same_array(g.validity.numpy(), w.validity)
+    for aggs in ([(1, "min"), (1, "max"), (2, "max"), (1, "count")],
+                 [(1, "sum"), (1, "mean"), (2, "sum")]):
+        kernels.reset_counts()
+        got = groupby_aggregate_bounded(ptab, [0], aggs, [(1, 2)])
+        want = j_bounded(jtab, [0], aggs, [(1, 2)])
+        assert kernels.fallbacks() == {}
+        for i, (g, w) in enumerate(zip(got.table.columns,
+                                       want.table.columns)):
+            gd, wd = g.data.numpy(), np.asarray(w.data)
+            assert gd.dtype == wd.dtype
+            assert_same_array(np.isnan(gd) if gd.dtype.kind == "f"
+                              else gd == gd, np.isnan(wd) if wd.dtype.kind
+                              == "f" else wd == wd, f"column {i} NaNs")
+            if aggs[0][1] == "sum" and i > 0:
+                rtol = 1e-5 if gd.dtype == np.float32 else 1e-12
+                np.testing.assert_allclose(gd, wd, rtol=rtol,
+                                           err_msg=f"column {i}")
+            else:
+                ok = (gd == wd) | (np.isnan(gd) & np.isnan(wd)) \
+                    if gd.dtype.kind == "f" else gd == wd
+                assert ok.all(), f"column {i}"
+            assert_same_array(g.validity.numpy(), w.validity)
 
 
 def test_plan_groupby_bounded_and_general():
@@ -156,8 +181,18 @@ def test_plan_groupby_bounded_and_general():
     assert res.lowered == "bounded" and res.overflowed is False
     want = j_bounded(jtab, [0, 1], AGGS, DOMAINS)
     assert_same_table(res.table, want.table)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        plan_groupby(to_port(jtab), [0, 1], AGGS, [doms[0], None])
+    # one key without a domain: the general lowering, as the reference's
+    from spark_rapids_jni_tpu.ops import planner as jplanner
+
+    gen = plan_groupby(to_port(jtab), [0, 1], AGGS, [doms[0], None])
+    jdoms = [jplanner.Domain(d.values, d.kind, d.source) for d in doms]
+    jgen = jplanner.plan_groupby(jtab, [0, 1], AGGS, [jdoms[0], None])
+    assert gen.lowered == jgen.lowered == "general"
+    assert not bool(gen.overflowed)
+    k = int(np.asarray(jgen.present).sum())
+    assert int(gen.present.sum()) == k
+    assert_same_valid_table(trim_table(gen.table, k),
+                            jtrim(jgen.table, k))
 
 
 def test_plain_kernel_matches_pallas_interpret():

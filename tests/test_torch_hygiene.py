@@ -63,6 +63,8 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.ops.unicode_case_device, "
             "spark_rapids_jni_tpu_torch.ops.regex_capture_device, "
             "spark_rapids_jni_tpu_torch.ops.strings_fns, "
+            "spark_rapids_jni_tpu_torch.ops.table_ops, "
+            "spark_rapids_jni_tpu_torch.ops.reduce, "
             "spark_rapids_jni_tpu_torch.models.bench_strings, "
             "spark_rapids_jni_tpu_torch.utils.config, "
             "spark_rapids_jni_tpu_torch.columnar.arrow, "

@@ -50,6 +50,7 @@ from spark_rapids_jni_tpu_torch.ops import (
 from torch_parity import (
     EDGE_ROWS,
     assert_same_array,
+    assert_same_groups,
     assert_same_table,
     assert_same_valid_table,
     jax_table,
@@ -207,9 +208,14 @@ def test_string_key_groupby_matches_reference(n, keys):
 
 
 def test_string_min_max_aggregates_are_not_ported():
-    tab = to_port(jax_table(_keyed_host(20, 1)))
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 3"):
-        groupby.groupby_aggregate(tab, [1], [(0, "min")])
+    """STRING min/max, once refused by the port's groupby, match the
+    reference: the valid strings of every group, the validity and the
+    row order."""
+    jtab = jax_table(_keyed_host(20, 1))
+    aggs = [(0, "min"), (0, "max")]
+    want = jgroupby.groupby_aggregate(jtab, [1], aggs)
+    got = groupby.groupby_aggregate(to_port(jtab), [1], aggs)
+    assert_same_groups(got, want)
 
 
 @pytest.mark.parametrize("n", EDGE_ROWS)
@@ -427,7 +433,15 @@ def test_string_min_max_match_reference(n):
 
 
 def test_decimal128_reductions_are_not_ported():
-    col = to_port(jax_table(random_host_columns(8, 1)[-1:])).column(0)
+    """DECIMAL128 sum_/mean/min_/max_, once refused, match the reference
+    exactly (limb arithmetic; min/max the winner of one nulls-last
+    sort)."""
+    jtab = jax_table(random_host_columns(8, 1)[-1:])
+    col, jcol = to_port(jtab).column(0), jtab.column(0)
     for name in ("sum_", "mean", "min_", "max_"):
-        with pytest.raises(NotImplementedError, match="Queue 1 entry 3"):
-            getattr(reduce, name)(col)
+        got, gok = getattr(reduce, name)(col)
+        want, wok = getattr(jreduce, name)(jcol)
+        assert bool(gok) == bool(wok), name
+        got = got.data if isinstance(got, Column) else got
+        want = want.data if isinstance(want, JColumn) else want
+        assert_same_array(got.numpy(), want, name)

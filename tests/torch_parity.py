@@ -589,3 +589,39 @@ def bench_json_docs(n: int) -> list:
     seed 0, tiled to n rows."""
     pool = json_templates(min(n, 4096))
     return (pool * (n // len(pool) + 1))[:n]
+
+
+def assert_same_groups(got, want, tol=None) -> None:
+    """A port groupby result against the reference's: ``num_groups`` and
+    ``overflowed`` equal, and every column over the real groups equal in
+    type, validity and data bytes (under nulls too), except the columns
+    in ``tol`` ({column: relative bound}), FLOAT64 results of float sums
+    taken in another order, held where valid to ``|got - want| <= rel *
+    max(|want|, max_g |want_g|)`` with NaN equal to NaN."""
+    assert int(got.num_groups) == int(want.num_groups), "num_groups"
+    assert bool(got.overflowed) == bool(want.overflowed), "overflowed"
+    k = min(int(want.num_groups), want.table.num_rows)
+    got_cols = table_to_numpy(got.table)
+    want_cols = host_columns(want.table)
+    assert len(got_cols) == len(want_cols), "column count"
+    tol = tol or {}
+    for i, (g, w) in enumerate(zip(got_cols, want_cols)):
+        assert g[:2] == w[:2], f"column {i}: type {g[:2]} != {w[:2]}"
+        wv = np.ones(k, bool) if w[3] is None else w[3][:k]
+        gv = np.ones(k, bool) if g[3] is None else g[3][:k]
+        assert_same_array(gv, wv, f"column {i} validity")
+        if isinstance(w[2], tuple):
+            grows = [r for r, v in zip(_string_rows(g[2])[:k], gv) if v]
+            wrows = [r for r, v in zip(_string_rows(w[2])[:k], wv) if v]
+            assert grows == wrows, f"column {i} strings"
+        elif i in tol:
+            gd, wd = g[2][:k][wv], w[2][:k][wv]
+            assert gd.dtype == wd.dtype, f"column {i} dtype"
+            nan = np.isnan(wd)
+            assert_same_array(np.isnan(gd), nan, f"column {i} NaNs")
+            scale = np.abs(wd[~nan]).max(initial=0.0)
+            np.testing.assert_allclose(
+                gd[~nan], wd[~nan], rtol=tol[i], atol=tol[i] * scale,
+                err_msg=f"column {i}")
+        else:
+            assert_same_array(g[2][:k], w[2][:k], f"column {i} data")

@@ -110,7 +110,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    over ``bench.py``'s 4,096 templates tiled to 59,986,052 padded rows
    for ``$.meta.w``, ``$.sku``, ``$.price`` and ``$.nope``, equal to
    Python ``json`` over the templates, and 1,000 escaped documents
-   refused with ``NotImplementedError``, recorded; each path's host time
+   through the native host engine, recorded and equal to Python
+   ``json``; each path's host time
    (median of 3), rows/s and byte bound, the host fallbacks, and the
    phase's peak device memory (under 30 GiB);
 13. regexp_extract, regexp_replace (the linear capture engine) and the
@@ -152,7 +153,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``except_rows`` (no launch of A-D: the set operations sort, they do
    not probe); each path's host time (median of 3) beside its byte
    bound, and the phase's peak device memory (under 40 GiB);
-15. one ``{"kernels": [...]}`` line, the card line, and the final
+15. the readers, after the native library (``src/native``, built into
+   ``build/torch_native/`` beside nvcc's kernel build): SF10 lineitem
+   written as Parquet by ``chip_smoke_writers.py`` (bench.py's
+   parquet_q1 layout: four unscaled INT64 money columns, the flags as
+   INT32/INT_8 and l_shipdate as INT32/DATE with dictionaries;
+   1,048,576-row row groups, 1 MiB snappy pages), ``read_table`` of it
+   to the card (median of 3, split into native decode, copy-out into
+   pinned memory and staging, the staging rate beside a plain pinned
+   ``copy_`` of as many bytes) equal to the generator column by column,
+   planned q1 (kernel A launched exactly once) and fused q1 (kernel B
+   once) over it equal to the in-memory plans, parquet_q1 rows/s (read
+   and planned q1) with the card's busy share from ``torch.profiler``;
+   ``ParquetChunkedReader`` at 256 MiB (its plan equal to the
+   reference's rule, the concatenated chunks equal to ``read_table``)
+   serially and as ``chunk_sources(stage="host")`` decoded on 8
+   threads; the footer pruned to 3 columns and filtered to half the row
+   groups, and its serialized file re-parsed; TPC-DS q72 over
+   catalog_sales (14,401,261 rows) written the same way and read in
+   chunks, equal to the in-memory q72 with kernel D launched exactly 3
+   times and nothing else; 6,000,000 lineitem rows as ORC through
+   ``read_table`` and ``OrcChunkedReader``, equal to the generator; and
+   ``get_json_object`` over 1,000,000 escaped and malformed documents
+   through the native host engine, recorded and equal to Python
+   ``json``; the files are deleted at the end of the phase;
+16. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -2120,21 +2145,21 @@ def string_engines_phase(dev) -> dict:
     require(not fallbacks["json"], "the eligible documents left the card")
     del docs, tid
 
-    # escaped documents: the native engine's work, which the port refuses
+    # escaped documents: the native host engine's work (phase 15 runs it
+    # over 1,000,000 documents)
     esc = [t.replace('"s', '"\\"s', 1) for t in templates[:1000]]
     lens_e, mat_e = static_strings(esc, dev)
     col = Column(STRING, lens_e, None, chars=mat_e)
     telemetry.reset()
-    try:
-        get_json_object(col, "$.sku")
-        raise AssertionError("the escaped column did not raise")
-    except NotImplementedError:
-        pass
+    got = _no_launch("get_json_object (escaped)",
+                     lambda: get_json_object(col, "$.meta.w"))
+    require(got.to_pylist() == [_json_oracle(d, "$.meta.w") for d in esc],
+            "the escaped documents differ from Python json")
     fallbacks["json_escaped"] = _fallbacks_line("escaped documents")
     require(len(fallbacks["json_escaped"]) == 1,
-            "the escaped column's refusal is not recorded")
-    log("get_json_object over 1000 escaped documents: NotImplementedError "
-        "(the native engine's work), recorded")
+            "the escaped column's host engine run is not recorded")
+    log("get_json_object over 1000 escaped documents: the native host "
+        "engine, recorded, equal to Python json")
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 2**30
     require(peak < 30, f"string engines phase peak {peak:.2f} GiB")
@@ -3200,6 +3225,475 @@ def _check_auto(auto, gtab) -> None:
         f"{auto.table.num_rows}, {k} groups equal to np.bincount")
 
 
+# ---- phase 15: the readers (Parquet footer, Parquet and ORC data readers,
+# chunked reads) staged through pinned memory ---------------------------------
+
+PARQUET_RG_ROWS = 1_048_576    # row group (58 of them at SF10)
+PARQUET_PAGE_ROWS = 131_072    # 1 MiB PLAIN INT64 pages, pyarrow's default
+CHUNK_READ_LIMIT = 256 * 2**20  # the chunked reads' byte budget
+ORC_ROWS = 6_000_000           # lineitem rows written as ORC
+ORC_STRIPE_ROWS = 1_048_576
+JSON_HOST_DOCS = 1_000_000     # documents of the native JSON engine
+POOL_THREADS = 8               # the decode pool of the chunked host read
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_files"
+Q1_FILE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                   "l_returnflag", "l_linestatus", "l_shipdate")
+
+
+def _chunk_rule(infos, limit: int) -> list:
+    """The reference's chunk plan (``ParquetChunkedReader._chunk_end``),
+    written out again: each chunk is the longest run of row groups whose
+    summed bytes fit ``limit``, at least one."""
+    plans, start = [], 0
+    while start < len(infos):
+        end, total = start, 0
+        while end < len(infos):
+            total += infos[end][1]
+            if end > start and total > limit:
+                break
+            end += 1
+        plans.append(list(range(start, end)))
+        start = end
+    return plans
+
+
+def _same_tables(what: str, got, want) -> None:
+    """Same types, every data byte and the validity tri-state."""
+    require(got.num_columns == want.num_columns, f"{what}: column count")
+    for i, (a, b) in enumerate(zip(got.columns, want.columns)):
+        require(a.dtype == b.dtype, f"{what} column {i}: {a.dtype} vs "
+                f"{b.dtype}")
+        require(a.data.device == b.data.device
+                and torch.equal(a.data, b.data), f"{what} column {i} data")
+        require((a.validity is None) == (b.validity is None)
+                and (a.validity is None
+                     or torch.equal(a.validity, b.validity)),
+                f"{what} column {i} validity")
+
+
+def _launched_only(what: str, fn, want: dict):
+    """``fn()`` with the counts reset just before it and read just after:
+    the kernels launched are exactly ``want`` (``{name: n}``), and no
+    kernel fell back."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    require({k: v for k, v in got.items() if v} == want,
+            f"{what} launched {got}, not {want}")
+    require(not kernels.fallbacks(), f"{what} fell back: "
+            f"{kernels.fallbacks()}")
+    return out
+
+
+def _busy_share(fn) -> tuple:
+    """One run of ``fn`` under ``torch.profiler``: the device time of its
+    kernels, copies and memsets over the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(float(e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / wall_us, busy_us / 1e3, wall_us / 1e3
+
+
+def _pinned_copy_ms(nbytes: int, dev) -> float:
+    """Median time of one plain pinned host-to-device ``copy_`` of
+    ``nbytes``, the staging yardstick."""
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = median_ms(lambda: dst.copy_(src, non_blocking=True), reps=3)
+    del src, dst
+    return ms
+
+
+def _host_json_docs(n: int) -> tuple:
+    """``n`` documents tiled from bench.py's 4,096 templates, every third
+    with escapes in its sku (a quote, a tab and a \\u escape) and every
+    fifth malformed in one of three ways (an unclosed object, a trailing
+    word, an extra closing brace); with each template's repaired text,
+    which Python's json parses as the streaming engine reads the
+    malformed one: up to the fault."""
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+
+    docs, repaired = [], []
+    for i, d in enumerate(bs.json_templates()):
+        if i % 3 == 0:
+            d = d.replace('"sku":"s', '"sku":"\\"s\\t\\u00e9', 1)
+        fixed = d
+        if i % 5 == 0:
+            kind = (i // 5) % 3
+            if kind == 0:
+                d = d[:-1]
+            elif kind == 1:
+                d = d + " trailing"
+            else:
+                d = d + "}"
+        docs.append(d)
+        repaired.append(fixed)
+    reps = -(-n // len(docs))
+    return (docs * reps)[:n], repaired
+
+
+def readers_phase(dev) -> tuple:
+    """Phase 15: the port's readers over SF10 lineitem written as Parquet
+    by ``chip_smoke_writers`` (the whole-file read, planned and fused q1
+    over it, the chunked reads, the footer), TPC-DS q72 over its
+    catalog_sales read in chunks, lineitem as ORC, and the native JSON
+    engine; each result held to the generator or the in-memory run."""
+    import concurrent.futures
+    import shutil
+
+    import numpy as np
+
+    import chip_smoke_writers as w
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.column import string_column
+    from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import (
+        get_json_object,
+    )
+    from spark_rapids_jni_tpu_torch.ops.kernels import (
+        groupby_accumulate as kga,
+        hash_probe as khp,
+        q1 as kq1,
+    )
+    from spark_rapids_jni_tpu_torch.ops.table_ops import concatenate
+    from spark_rapids_jni_tpu_torch.orc import OrcChunkedReader
+    from spark_rapids_jni_tpu_torch.orc import read_table as orc_read
+    from spark_rapids_jni_tpu_torch.parquet import (
+        ParquetChunkedReader,
+        ParquetFooter,
+        read_table,
+        row_group_info,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    out, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    DATA_DIR.mkdir(parents=True)
+    try:
+        native.load_native()
+        out["native_build"] = {"s": native.build_seconds}
+
+        # ---- (a) SF10 lineitem as Parquet, bench.py's parquet_q1 layout
+        t0 = time.perf_counter()
+        gen = tpch.lineitem_table(ROWS, seed=0, device="cpu")
+        host = [c.data.numpy() for c in gen.columns]
+        cols = [w.ParquetColumn(name, host[i], w.INT64)
+                for i, name in enumerate(Q1_FILE_COLUMNS[:4])]
+        cols += [w.ParquetColumn(Q1_FILE_COLUMNS[i], host[i], w.INT32,
+                                 w.CONV_INT_8, dictionary=True)
+                 for i in (4, 5)]
+        cols.append(w.ParquetColumn("l_shipdate", host[6], w.INT32,
+                                    w.CONV_DATE, dictionary=True))
+        path = DATA_DIR / "lineitem_sf10.parquet"
+        size = w.write_parquet(path, cols, PARQUET_RG_ROWS,
+                               PARQUET_PAGE_ROWS)
+        del cols
+        write_s = time.perf_counter() - t0
+        infos = row_group_info(path)
+        log(f"parquet lineitem: {ROWS} rows, {len(infos)} row groups, "
+            f"{size} bytes written in {write_s:.1f} s (numpy writer)")
+        out["parquet_file"] = {"bytes": size, "row_groups": len(infos),
+                               "write_s": write_s}
+
+        # ---- (b) the whole-file read: decode, copy-out, staging -------
+        runs = []
+        for _ in range(4):  # the first allocates the pinned blocks
+            tm = {}
+            t0 = time.perf_counter()
+            tbl = read_table(path, timings=tm)
+            torch.cuda.synchronize()
+            tm["total_s"] = time.perf_counter() - t0
+            runs.append(tm)
+            if len(runs) < 4:
+                del tbl
+        first, timed = runs[0], runs[1:]
+        med = {k: statistics.median(r[k] for r in timed)
+               for k in ("decode_s", "copy_out_s", "stage_s", "total_s")}
+        staged = timed[0]["staged_bytes"]
+        plain_ms = _pinned_copy_ms(staged, dev)
+        out["read_table"] = {
+            "median_s": med, "first_s": first, "runs": timed,
+            "staged_bytes": staged, "stage_gb_s": staged / med["stage_s"]
+            / 1e9, "pinned_copy_ms": plain_ms,
+            "pinned_copy_gb_s": staged / plain_ms / 1e6,
+            "rows_per_s": ROWS / med["total_s"]}
+        log(f"read_table(path) to the card: median of 3 {med['total_s']:.3f}"
+            f" s = native decode {med['decode_s']:.3f} + copy-out into "
+            f"pinned memory {med['copy_out_s']:.3f} + staging and casts "
+            f"{med['stage_s']:.3f} s ({staged / med['stage_s'] / 1e9:.2f} "
+            f"GB/s of {staged} bytes; a plain pinned copy_ of as many bytes "
+            f"{plain_ms:.3f} ms, {staged / plain_ms / 1e6:.2f} GB/s); first "
+            f"read {first['total_s']:.3f} s (pinned blocks allocated)")
+
+        # every column equals the generator's; the money columns are
+        # unscaled INT64 in the file, as bench.py writes them
+        money = t.decimal64(-2)
+
+        def retyped(table):
+            cs = list(table.columns)
+            for i in range(4):
+                cs[i] = Column(money, cs[i].data, cs[i].validity)
+            return Table(cs)
+
+        li = Table([Column(c.dtype, c.data.to(dev), None)
+                    for c in gen.columns])
+        del gen, host
+        read_li = retyped(tbl)
+        _same_tables("parquet lineitem", read_li, li)
+        log("parquet lineitem: all 7 columns equal the generator's, no "
+            "validity")
+
+        # planned and fused q1 over the read table
+        want_planned = tpch.tpch_q1_planned_result(li)
+        want_fused = kq1.tpch_q1_pallas(li)
+        res = _launched_only("parquet planned q1", lambda:
+                             tpch.tpch_q1_planned_result(read_li),
+                             {kga.NAME: 1})
+        launches["parquet_q1_planned"] = {"A": 1}
+        require(not bool(res.domain_miss), "parquet q1 domain miss")
+        _same_tables("parquet planned q1", res.table, want_planned.table)
+        require(torch.equal(res.present, want_planned.present),
+                "parquet planned q1 groups")
+        fused = _launched_only("parquet fused q1",
+                               lambda: kq1.tpch_q1_pallas(read_li),
+                               {kq1.NAME: 1})
+        launches["parquet_q1_fused"] = {"B": 1}
+        _same_tables("parquet fused q1", fused, want_fused)
+        log("planned q1 over the read table equals the in-memory planned "
+            "q1 (A launched once); fused q1 equals the in-memory fused q1 "
+            "(B launched once); no fallback")
+        del res, fused, want_planned, want_fused, read_li
+
+        def parquet_q1():
+            return tpch.tpch_q1_planned(retyped(read_table(path)))
+
+        s = host_median_s(parquet_q1)
+        q1_s = host_median_s(lambda: tpch.tpch_q1_planned(li), warm=False)
+        share, busy_ms, wall_ms = _busy_share(parquet_q1)
+        out["parquet_q1"] = {"s": s, "rows_per_s": ROWS / s,
+                             "q1_planned_in_memory_s": q1_s,
+                             "device_busy_share": share,
+                             "device_busy_ms": busy_ms,
+                             "profiled_wall_ms": wall_ms}
+        log(f"parquet_q1 (read_table + planned q1, median of 3): "
+            f"{s:.3f} s, {ROWS / s:.4g} rows/s (planned q1 alone "
+            f"{q1_s * 1e3:.3f} ms); device busy {busy_ms:.1f} ms of "
+            f"{wall_ms:.1f} ms profiled, share {share:.4f}")
+
+        # ---- (c) chunked reads --------------------------------------
+        rdr = ParquetChunkedReader(path, CHUNK_READ_LIMIT)
+        plan = rdr.chunk_plan()
+        require(plan == _chunk_rule(infos, CHUNK_READ_LIMIT),
+                f"chunk plan {plan} differs from the reference's rule")
+        t0 = time.perf_counter()
+        chunks = list(rdr)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        _same_tables("chunked read", concatenate(chunks), tbl)
+        del chunks
+        srcs = ParquetChunkedReader(path, CHUNK_READ_LIMIT).chunk_sources(
+            stage="host")
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(POOL_THREADS) as pool:
+            host_chunks = list(pool.map(lambda f: f(), srcs))
+        pool_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        staged_chunks = [c.stage() for c in host_chunks]
+        torch.cuda.synchronize()
+        pool_stage_s = time.perf_counter() - t0
+        _same_tables("pooled chunked read", concatenate(staged_chunks), tbl)
+        del host_chunks, staged_chunks
+        out["chunked"] = {"chunks": len(plan), "limit_bytes":
+                          CHUNK_READ_LIMIT, "serial_s": chunked_s,
+                          "pool_threads": POOL_THREADS,
+                          "pool_decode_s": pool_s,
+                          "pool_stage_s": pool_stage_s}
+        log(f"ParquetChunkedReader at {CHUNK_READ_LIMIT} bytes: {len(plan)}"
+            f" chunks (the reference's rule), concatenated equal to "
+            f"read_table; serial {chunked_s:.3f} s; chunk_sources(host) on "
+            f"{POOL_THREADS} threads {pool_s:.3f} s + staging "
+            f"{pool_stage_s:.3f} s, equal too")
+        del tbl
+        torch.cuda.empty_cache()
+
+        # ---- (d) the footer ----------------------------------------
+        fb = w.footer_bytes(path)
+        starts = np.cumsum([4] + [b for _, b in infos[:-1]])
+        mids = starts + np.array([b for _, b in infos]) // 2
+        part_len = int(starts[len(infos) // 2])
+        keep = (mids >= 0) & (mids < part_len)
+        want_rows = int(sum(r for (r, _), k in zip(infos, keep) if k))
+        names = ["l_quantity", "l_discount", "l_shipdate"]
+        t0 = time.perf_counter()
+        with ParquetFooter.read_and_filter(fb, 0, part_len, names,
+                                           [0, 0, 0], 3) as ft:
+            footer_s = time.perf_counter() - t0
+            require((ft.num_rows, ft.num_columns) == (want_rows, 3),
+                    f"footer {ft.num_rows} rows {ft.num_columns} columns, "
+                    f"not {want_rows} and 3")
+            image = ft.serialize_thrift_file()
+        require(image[:4] == b"PAR1" and image[-4:] == b"PAR1",
+                "serialized footer framing")
+        with ParquetFooter.read_and_filter(image[4:-8], 0, -1, names,
+                                           [0, 0, 0], 3) as again:
+            require((again.num_rows, again.num_columns) == (want_rows, 3),
+                    "the serialized footer re-parses differently")
+        out["footer"] = {"bytes": len(fb), "row_groups_kept":
+                         int(keep.sum()), "rows": want_rows, "s": footer_s}
+        log(f"footer ({len(fb)} bytes): pruned to 3 columns and filtered to "
+            f"bytes [0, {part_len}): {int(keep.sum())} of {len(infos)} row "
+            f"groups, {want_rows} rows as counted here, in "
+            f"{footer_s * 1e3:.3f} ms; the serialized file re-parses alike")
+
+        # ---- (e) TPC-DS q72 over catalog_sales read in chunks --------
+        q72 = (tpcds.catalog_sales_table(DS_CATALOG_SALES,
+                                         num_items=DS_ITEMS),
+               tpcds.date_dim_table(), tpcds.item_table(DS_ITEMS),
+               tpcds.inventory_table(num_items=DS_ITEMS))
+        want = tpcds.tpcds_q72(*q72).compact()
+        cs_path = DATA_DIR / "catalog_sales_sf10.parquet"
+        cs_host = [c.data.cpu().numpy() for c in q72[0].columns]
+        cs_size = w.write_parquet(cs_path, [
+            w.ParquetColumn(name, a, w.INT64) for name, a in zip(
+                ("cs_item_sk", "cs_sold_date_sk", "cs_quantity",
+                 "cs_order_number"), cs_host)],
+            PARQUET_RG_ROWS, PARQUET_PAGE_ROWS)
+        del cs_host
+        t0 = time.perf_counter()
+        cs_rdr = ParquetChunkedReader(cs_path, CHUNK_READ_LIMIT)
+        cs_chunks = len(cs_rdr.chunk_plan())
+        cs = concatenate(list(cs_rdr))
+        torch.cuda.synchronize()
+        cs_s = time.perf_counter() - t0
+        _same_tables("catalog_sales read", cs, q72[0])
+        res = _launched_only("parquet q72", lambda: tpcds.tpcds_q72(
+            cs, *q72[1:]), {khp.NAME: 3})
+        launches["parquet_q72"] = {"D": 3}
+        _same_tables("parquet q72", res.compact(), want)
+        out["q72"] = {"bytes": cs_size, "chunks": cs_chunks, "read_s": cs_s,
+                      "rows_per_s": DS_CATALOG_SALES / cs_s}
+        log(f"catalog_sales: {DS_CATALOG_SALES} rows, {cs_size} bytes, "
+            f"read in {cs_chunks} chunks of at most {CHUNK_READ_LIMIT} bytes in {cs_s:.3f} s, "
+            f"equal to the generator; q72 over it equals the in-memory q72, "
+            f"D launched 3 times, nothing else")
+        del q72, cs, res, want
+        torch.cuda.empty_cache()
+
+        # ---- (f) lineitem as ORC ------------------------------------
+        ocols = [(Q1_FILE_COLUMNS[i], w.ORC_LONG,
+                  li.column(i).data[:ORC_ROWS].cpu().numpy())
+                 for i in range(4)]
+        ocols += [(Q1_FILE_COLUMNS[i], w.ORC_BYTE,
+                   li.column(i).data[:ORC_ROWS].cpu().numpy())
+                  for i in (4, 5)]
+        ocols.append(("l_shipdate", w.ORC_DATE,
+                      li.column(6).data[:ORC_ROWS].cpu().numpy()))
+        orc_path = DATA_DIR / "lineitem.orc"
+        t0 = time.perf_counter()
+        orc_size = w.write_orc(orc_path, ocols, ORC_STRIPE_ROWS)
+        orc_write_s = time.perf_counter() - t0
+        del ocols
+        want = Table([Column(t.INT64 if i < 4 else c.dtype,
+                             c.data[:ORC_ROWS], None)
+                      for i, c in enumerate(li.columns)])
+        orc_s = host_median_s(lambda: orc_read(orc_path))
+        _same_tables("orc read_table", orc_read(orc_path), want)
+        orc_chunks = list(OrcChunkedReader(orc_path, CHUNK_READ_LIMIT))
+        _same_tables("orc chunked", concatenate(orc_chunks), want)
+        out["orc"] = {"rows": ORC_ROWS, "bytes": orc_size,
+                      "write_s": orc_write_s, "read_s": orc_s,
+                      "rows_per_s": ORC_ROWS / orc_s,
+                      "chunks": len(orc_chunks)}
+        log(f"orc lineitem: {ORC_ROWS} rows, {orc_size} bytes written in "
+            f"{orc_write_s:.1f} s; read_table {orc_s:.3f} s (median of 3), "
+            f"{ORC_ROWS / orc_s:.4g} rows/s, and OrcChunkedReader "
+            f"({len(orc_chunks)} chunks) equal to the generator")
+        del orc_chunks, want, li
+        torch.cuda.empty_cache()
+
+        # ---- (g) the native JSON engine ------------------------------
+        docs, repaired = _host_json_docs(JSON_HOST_DOCS)
+        col = string_column(docs, device=dev)
+        for path_ in JSON_PATHS:
+            telemetry.reset()
+            t0 = time.perf_counter()
+            got = _launched_only(f"get_json_object {path_}",
+                                 lambda: get_json_object(col, path_), {})
+            json_s = time.perf_counter() - t0
+            fb_ = telemetry.fallbacks()
+            require(len(fb_) == 1 and next(iter(fb_.values())) == {
+                "calls": 1, "rows": JSON_HOST_DOCS},
+                f"the host engine's run is not recorded once: {fb_}")
+            want = [_json_oracle(d, path_) for d in repaired]
+            got_l = got.to_pylist()
+            require(all(g == want[i % len(want)]
+                        for i, g in enumerate(got_l)),
+                    f"get_json_object {path_} (host engine) differs from "
+                    f"Python json")
+            out.setdefault("json_host", {})[path_] = {
+                "s": json_s, "rows_per_s": JSON_HOST_DOCS / json_s}
+            log(f"get_json_object {path_} over {JSON_HOST_DOCS} escaped and "
+                f"malformed documents: native host engine (recorded), "
+                f"{json_s:.3f} s, equal to Python json; no launch")
+        del col, got
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["peak_gib"] = peak
+        log(f"peak device memory of the readers phase {peak:.2f} GiB")
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return launches, out
+
+
+def _start_native_build():
+    """Build the readers' native library on a thread while nvcc builds
+    the kernels; the returned call waits for it and raises its error."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    errors = []
+
+    def build():
+        try:
+            native.load_native()
+        except BaseException as exc:  # re-raised on the main thread
+            errors.append(exc)
+
+    th = threading.Thread(target=build)
+    th.start()
+
+    def wait():
+        th.join()
+        if errors:
+            raise errors[0]
+        if native.build_seconds is None:
+            log(f"native library: {native.load_native().path} (no build)")
+        else:
+            log(f"native library built in {native.build_seconds:.1f} s")
+        (OUT_DIR / "native_build.log").write_text(
+            (native.BUILD_DIR / "build.log").read_text()
+            if (native.BUILD_DIR / "build.log").exists() else "")
+
+    return wait
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3212,12 +3706,14 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
+    native_build = _start_native_build()
     _build.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds})")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernels_build.log").write_text(
         (_build.BUILD_DIR / "build.log").read_text())
+    native_build()
 
     t0 = time.perf_counter()
     li = tpch.lineitem_table(ROWS, seed=0)
@@ -3269,10 +3765,12 @@ def main() -> int:
         groupby_phase(dev)
     path_times["groupby_and_table_ops"]["accumulate_at"] = {
         "monthly rollup": a_rollup}
+    rd_launches, path_times["readers"] = readers_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
-               **gb_launches}
+               **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
+                                 for p, n in rd_launches.items()}}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

@@ -105,6 +105,28 @@ def observed_domain(col: Column, max_size: int = _OBSERVED_DEFAULT_CAP,
     return Domain(tuple(int(v) for v in vals), "scalar", source)
 
 
+def domain_from_parquet(path, column: int,
+                        max_size: int = _OBSERVED_DEFAULT_CAP,
+                        sample_row_groups: int = 1,
+                        device=None) -> Domain | None:
+    """Planner-time domain of one Parquet column: decode the first
+    ``sample_row_groups`` row groups of ``column`` through the native
+    reader and take the observed distinct values. A sample, so the
+    domain is declared ``source="observed"`` and the runtime
+    ``domain_miss`` check stays the backstop: a wrong sample means a
+    re-plan, never a wrong answer."""
+    from spark_rapids_jni_tpu_torch.parquet.reader import (
+        read_table,
+        row_group_info,
+    )
+
+    n_groups = len(row_group_info(path))
+    groups = list(range(min(sample_row_groups, n_groups)))
+    tbl = read_table(path, columns=[column], row_groups=groups,
+                     device=device)
+    return observed_domain(tbl.column(0), max_size=max_size)
+
+
 def month_code(year: int, month: int) -> int:
     """Static month-bucket code: year*12 + (month-1)."""
     return year * 12 + (month - 1)

@@ -8,6 +8,9 @@ here; the rest waits for ROADMAP.md Queue 1 entry 12.
   column has no embedded NUL, the host engine otherwise); ``"device"``
   requires the DFA engine and raises where it cannot run; ``"host"``
   pins the host engine.
+- ``integrity.enabled``: validate untrusted file input (the readers'
+  envelope and decoded-size checks); the environment variable
+  ``SPARK_RAPIDS_TPU_INTEGRITY`` wins over it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any
 # option name -> (default, allowed values)
 _OPTIONS: dict[str, tuple[Any, tuple]] = {
     "regex.force_engine": (None, (None, "device", "host")),
+    "integrity.enabled": (True, (True, False)),
 }
 _overrides: dict[str, Any] = {}
 

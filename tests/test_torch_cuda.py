@@ -2,8 +2,9 @@
 card, at the reference's edge row counts.
 
 A CUDA kernel has no CPU mode, so every test here needs a CUDA device and
-skips without one. This file imports no JAX, so it also runs where JAX is
-absent:
+skips without one. The readers' tests hold a read to the card equal to
+the same read on the CPU, with the host-staged buffers pinned. This file
+imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -65,6 +66,7 @@ from torch_parity import (
     seeded_cast_strings,
     seeded_days,
     seeded_timestamps,
+    writer_module,
 )
 
 pytestmark = pytest.mark.cuda
@@ -965,10 +967,15 @@ def test_get_json_object_on_the_card_matches_cpu(dev, n):
     for path in ("$.meta.w", "$.sku", "$.price", "$.nope", "$", "$.a[1]",
                  "$[1][0]"):
         _same_bytes(get_json_object(col, path), get_json_object(ccol, path))
-    esc = _cast_string_columns(docs[:-1] + ['{"s": "a\\"b"}'], None, dev)
+    # an escaped row sends the column to the native host engine, whose
+    # result comes back to the card
+    esc_docs = docs[:-1] + ['{"s": "a\\"b"}']
+    esc = _cast_string_columns(esc_docs, None, dev)
     assert not bool(pjd.device_eligible(esc))
-    with pytest.raises(NotImplementedError):
-        get_json_object(esc, "$.s")
+    got = get_json_object(esc, "$.s")
+    assert got.data.device.type == got.chars.device.type == dev.type
+    _same_bytes(got, get_json_object(
+        _cast_string_columns(esc_docs, None, "cpu"), "$.s"))
 
 
 @pytest.mark.parametrize("n", EDGE_ROWS)
@@ -1297,3 +1304,107 @@ def test_general_aggregates_and_table_ops_on_the_card_match_cpu(dev, n):
     assert cat.num_rows == 2 * n and cat.equals(table_ops.concatenate(
         [cpu, cpu]))
     assert kernels.launches() == {}  # no kernel of A-D on these paths
+
+
+# ---- the readers: native decode staged through pinned memory --------------
+
+
+def _reader_parquet(n: int) -> bytes:
+    """A Parquet file of every type the reader maps (FLBA decimals at 7
+    and 12 bytes, negatives), a null tail, v1 snappy pages."""
+    pq = writer_module("parquet_util")
+    rng = np.random.default_rng(n)
+    tail = max(1, n // 3)
+
+    def col(name, phys, vals, **kw):
+        vals = list(vals)[:n - tail] + [None] * tail
+        return pq.ColumnSpec(name, phys, vals, **kw)
+
+    ints = rng.integers(-2**40, 2**40, n)
+    cols = [
+        col("b", pq.BOOLEAN, (bool(v & 1) for v in ints)),
+        col("i8", pq.INT32, (int(v) % 256 - 128 for v in ints),
+            converted=15),
+        col("u16", pq.INT32, (int(v) % 65536 for v in ints), converted=12),
+        col("date", pq.INT32, (int(v) % 40000 for v in ints), converted=6),
+        col("i64", pq.INT64, (int(v) for v in ints)),
+        col("f64", pq.DOUBLE, (float(v) / 7 for v in ints)),
+        col("s", pq.BYTE_ARRAY, (f"r{int(v)}" for v in ints), converted=0),
+        col("d7", pq.FLBA, (int(v) for v in ints), converted=5, scale=2,
+            precision=16, type_length=7),
+        col("d12", pq.FLBA, (int(v) * 10**9 for v in ints), converted=5,
+            scale=2, precision=28, type_length=12),
+        col("dict", pq.INT64, (int(v) % 13 for v in ints),
+            use_dictionary=True),
+    ]
+    return pq.write_parquet(cols, row_group_size=1024, codec=pq.SNAPPY,
+                            page_rows=256)
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_parquet_read_on_the_card_matches_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.parquet import reader as preader
+
+    data = _reader_parquet(n)
+    want = preader.read_table(data, device="cpu")
+    got = preader.read_table(data, device=dev)
+    assert all(c.data.device.type == dev.type for c in got.columns)
+    for a, b in zip(got.columns, want.columns, strict=True):
+        _same_bytes(a, b)
+    host = preader.read_table(data, stage="host", device=dev)
+    for dtype, values, validity, chars, _ in host.cols:
+        for x in (values, validity, chars):
+            assert x is None or x.is_pinned(), dtype
+    for a, b in zip(host.stage().columns, want.columns, strict=True):
+        assert a.data.device.type == dev.type
+        _same_bytes(a, b)
+    chunks = list(preader.ParquetChunkedReader(data, 1, device=dev))
+    from spark_rapids_jni_tpu_torch.ops.table_ops import concatenate
+
+    for a, b in zip(concatenate(chunks).columns, want.columns, strict=True):
+        _same_bytes(a, b)
+
+
+@pytest.mark.parametrize("width", [1, 4, 7, 8, 9, 12, 15, 16])
+def test_flba_widening_on_the_card_matches_cpu(dev, width):
+    from spark_rapids_jni_tpu_torch.parquet import reader as preader
+
+    raw = torch.from_numpy(np.random.default_rng(width).integers(
+        0, 256, 4096 * width).astype(np.uint8))
+    raw[:width] = 0x80
+    fn = preader._flba_to_int64 if width <= 8 else preader._flba_to_int128
+    assert torch.equal(fn(raw.to(dev), width).cpu(), fn(raw, width))
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_orc_read_on_the_card_matches_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.orc import reader as oreader
+
+    ou = writer_module("orc_util")
+
+    rng = np.random.default_rng(n)
+    ints = [int(v) for v in rng.integers(-2**40, 2**40, n)]
+    nul = [v if i % 5 else None for i, v in enumerate(ints)]
+    data = ou.write_orc([
+        ou.ColumnSpec("b", ou.BOOLEAN, [v & 1 == 1 for v in ints]),
+        ou.ColumnSpec("i8", ou.BYTE, [v % 256 - 128 for v in ints]),
+        ou.ColumnSpec("i16", ou.SHORT, [v % 65536 - 32768 for v in ints]),
+        ou.ColumnSpec("i64", ou.LONG, nul),
+        ou.ColumnSpec("f32", ou.FLOAT, [float(np.float32(v / 3))
+                                        for v in ints]),
+        ou.ColumnSpec("s", ou.STRING, [f"o{v}" for v in ints]),
+        ou.ColumnSpec("d", ou.DATE, [v % 40000 for v in ints]),
+        ou.ColumnSpec("dec", ou.DECIMAL, [v * 10**9 for v in ints],
+                      precision=30, scale=3),
+    ], stripe_size=1000, codec=ou.ZLIB)
+    want = oreader.read_table(data, device="cpu")
+    got = oreader.read_table(data, device=dev)
+    for a, b in zip(got.columns, want.columns, strict=True):
+        assert a.data.device.type == dev.type
+        _same_bytes(a, b)
+    host = oreader.read_table(data, stage="host", device=dev)
+    for dtype, values, validity, chars, _ in host.cols:
+        for x in (values, validity, chars):
+            assert x is None or x.is_pinned(), dtype
+    for a, b in zip(host.stage().columns, want.columns, strict=True):
+        _same_bytes(a, b)

@@ -38,8 +38,11 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_smoke_writers.py"]
+
+
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + SCRIPTS,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for mod in _imported_modules(path):
@@ -70,7 +73,18 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.columnar.arrow, "
             "spark_rapids_jni_tpu_torch.telemetry, "
             "spark_rapids_jni_tpu_torch.profile_paths, "
-            "spark_rapids_jni_tpu_torch.interop; "
+            "spark_rapids_jni_tpu_torch.interop, "
+            "spark_rapids_jni_tpu_torch.parquet, "
+            "spark_rapids_jni_tpu_torch.parquet.nested, "
+            "spark_rapids_jni_tpu_torch.orc, "
+            "spark_rapids_jni_tpu_torch.runtime.native, "
+            "spark_rapids_jni_tpu_torch.runtime.memory, "
+            "spark_rapids_jni_tpu_torch.runtime.faults, "
+            "spark_rapids_jni_tpu_torch.runtime.integrity, "
+            "spark_rapids_jni_tpu_torch.utils.fspath, "
+            "spark_rapids_jni_tpu_torch.utils.tracing, "
+            "spark_rapids_jni_tpu_torch.ops.planner, "
+            "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spark_rapids_jni_tpu', 'pyarrow')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -79,10 +93,15 @@ def test_import_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules whose functions may import pyarrow: the Arrow interchange,
+# and the ORC reader's wall-clock -> UTC conversion (the tz database)
+PYARROW_USERS = {"columnar/arrow.py", "orc/reader.py"}
+
+
 def test_pyarrow_is_imported_only_inside_the_arrow_functions():
-    # the card's machine has no pyarrow: no module of the port may need
-    # it to import, and only columnar/arrow.py's functions use it
-    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    # no module of the port may need pyarrow to import, and only the
+    # functions of PYARROW_USERS use it
+    for path in sorted(PKG.rglob("*.py")) + SCRIPTS:
         tree = ast.parse(path.read_text(), filename=str(path))
         top = [n for n in tree.body
                if isinstance(n, (ast.Import, ast.ImportFrom))]
@@ -92,7 +111,9 @@ def test_pyarrow_is_imported_only_inside_the_arrow_functions():
             n.module.split(".")[0] for n in top
             if isinstance(n, ast.ImportFrom) and n.module}
         assert "pyarrow" not in top_names, path.name
-        if path.name != "arrow.py":
+        rel = path.relative_to(PKG).as_posix() \
+            if path.is_relative_to(PKG) else path.name
+        if rel not in PYARROW_USERS:
             assert "pyarrow" not in names, path.name
 
 
@@ -178,3 +199,73 @@ def test_build_failure_raises_with_nvcc_output(monkeypatch, tmp_path):
     for src in _build.sources():
         assert src.name in str(err.value)
     assert not (tmp_path / "torch_kernels" / _build.LIB_NAME).exists()
+
+
+def test_native_library_builds_in_its_own_directory():
+    """The readers' library loads from build/torch_native/ (built there
+    when absent), never from the JAX package's build/native/, and the
+    port's loader imports nothing of the JAX package."""
+    code = ("import sys; from spark_rapids_jni_tpu_torch.runtime import "
+            "native; lib = native.load_native(); "
+            "print(lib.path); bad = [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'spark_rapids_jni_tpu')]; "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k != "SPARK_RAPIDS_TPU_NATIVE_LIB"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert Path(proc.stdout.strip()) == \
+        ROOT / "build" / "torch_native" / "libtpudf.so"
+
+
+def test_native_build_without_a_compiler_raises_with_the_trail(
+        monkeypatch, tmp_path):
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "torch_native")
+    monkeypatch.setattr(native, "_loaded", None)
+    monkeypatch.delenv("SPARK_RAPIDS_TPU_NATIVE_LIB", raising=False)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(OSError, match="searched") as err:
+        native.load_native()
+    assert "a C++ compiler" in str(err.value)
+    assert not (tmp_path / "torch_native" / "libtpudf.so").exists()
+
+
+def test_gxx_route_with_declared_zstd_builds_a_working_library(tmp_path):
+    """The route of a machine with zstd's runtime library but neither its
+    header nor its link name: one g++ a source, the port's declaration
+    header, the runtime library by soname. The library decodes a ZSTD
+    page."""
+    import ctypes
+
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    log: list = []
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tc = native.probe_toolchain(log)
+    if not (tc["cxx"] and tc.get("zstd_soname") and tc.get("z_header")):
+        pytest.skip("no C++ compiler, zlib.h or zstd runtime library")
+    tc.update(zstd_header=False, zstd_link=False)
+    lib_path = native._build_gxx(tc, tmp_path, log)
+    assert any("native_include" in entry for entry in log)
+    # one compile a source, with the flags of CMakeLists.txt's Release build
+    compiles = [entry for entry in log if " -c " in entry]
+    assert len(compiles) == len(native.SOURCES)
+    assert all("-O3 -DNDEBUG" in entry for entry in compiles)
+    assert any("-l:" in entry for entry in log)
+    lib = native.NativeLib(ctypes.CDLL(str(lib_path)), lib_path)
+    pq = pytest.importorskip("pyarrow.parquet")
+    import io
+
+    import pyarrow as pa
+
+    buf = io.BytesIO()
+    pq.write_table(pa.table({"a": list(range(1000))}), buf,
+                   compression="zstd")
+    data = buf.getvalue()
+    handle = lib.tpudf_parquet_read(data, len(data), None, 0, None, 0)
+    assert handle != 0, lib.last_error()
+    assert lib.tpudf_read_num_rows(handle) == 1000
+    lib.tpudf_read_close(handle)

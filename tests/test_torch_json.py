@@ -5,11 +5,12 @@ reference's device engine over the reference's randomized documents and
 its adversarial structural cases, and at the edge row counts with null
 tails over ``bench.py``'s documents (and in blocks of 100 rows); the
 same eligibility verdicts; path errors raised before an engine is
-chosen; and, where the reference would call its native host engine
-(escaped or malformed documents), a recorded fallback and
-``NotImplementedError``. The reference's device engine runs traced
-(``traced_reference``): one compile per path and shape, its largest edge
-count serving the smaller ones (it works row by row)."""
+chosen; and, where the reference calls its native host engine (escaped
+or malformed documents), the port's call of the same engine (the
+library it builds) with the same bytes and a recorded fallback. The
+reference's device engine runs traced (``traced_reference``): one
+compile per path and shape, its largest edge count serving the smaller
+ones (it works row by row)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import random
 import pytest
 
 from spark_rapids_jni_tpu.columnar import Table as JTable
+from spark_rapids_jni_tpu.ops import get_json_object as jgoj
 from spark_rapids_jni_tpu.ops import json_device as jjd
 from spark_rapids_jni_tpu.ops import strings as jstr
 from spark_rapids_jni_tpu_torch import telemetry
@@ -36,6 +38,7 @@ from torch_parity import (
     bench_json_docs,
     both_strings,
     null_tail,
+    reference_native,
     traced_reference,
 )
 
@@ -172,22 +175,46 @@ def test_row_blocks_give_the_same_bytes(edge_reference, monkeypatch):
     ['{"a":1', '{"a":2}'],
     ['{"a":1}}', '{"a":2}'],
 ], ids=["trailing", "escaped", "open", "extra_close"])
-def test_ineligible_columns_go_to_the_host_engine(docs):
-    """The reference calls its native engine here; the port records the
-    fallback and raises."""
+def test_ineligible_columns_go_to_the_host_engine(docs, monkeypatch):
+    """Both packages call the native host engine here (the port's build
+    of it): the same bytes, and the port records the fallback."""
+    reference_native(monkeypatch)
     pc, jc = both_strings(docs)
     ref = traced_reference(lambda t: jjd.device_eligible(t.column(0)),
                            JTable([jc]))
     assert not bool(ref)
     assert not bool(jd.device_eligible(pc))
     telemetry.reset()
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 5"):
-        get_json_object(pc, "$.a")
+    assert_same_column(get_json_object(pc, "$.a"),
+                       jgoj.get_json_object_host(jc, "$.a"))
     assert telemetry.fallbacks() == {
         ("get_json_object",
          "escaped or malformed documents: escape decoding and full "
          "grammar validation live in the native host engine"):
             {"calls": 1, "rows": len(docs)}}
+
+
+HOST_PATHS = ["$", "$.sku", "$.meta.w", "$.meta", "$.price", "$['sku']",
+              "$.nope", "$[0]"]
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_host_engine_matches_reference(n, monkeypatch):
+    """The native engine over bench.py's documents with escapes, the
+    malformed shapes and a null tail, from both string layouts."""
+    reference_native(monkeypatch)
+    docs = bench_json_docs(n)
+    bad = ['{"sku":"a\\"b\\u00e9\\n","price":1}', '{"sku":"s1"',
+           '{"sku":"s2"}}', '{"sku":"s3"} x', '[1, {"sku": 2}]', '"s"']
+    docs = [bad[i % len(bad)] if i % 5 == 0 else d
+            for i, d in enumerate(docs)]
+    valid = null_tail(n, n)
+    pc, jc = both_strings(docs, valid)
+    padded = strings.pad_strings(pc)
+    for path in HOST_PATHS:
+        want = jgoj.get_json_object_host(jc, path)
+        assert_same_column(get_json_object_host(pc, path), want)
+        assert_same_column(get_json_object_host(padded, path), want)
 
 
 @pytest.mark.parametrize("path", ["$.a[*]", "no-dollar", "$.*", "$..a",

@@ -625,3 +625,82 @@ def assert_same_groups(got, want, tol=None) -> None:
                 err_msg=f"column {i}")
         else:
             assert_same_array(g[2][:k], w[2][:k], f"column {i} data")
+
+
+def reference_native(monkeypatch) -> None:
+    """Point the JAX package's native loader at the library the port
+    built (``build/torch_native/``) for one test: ``monkeypatch`` puts
+    the loader back as it was, so the reference's own tests see it
+    unchanged and nothing writes ``build/native/``."""
+    import ctypes
+
+    from spark_rapids_jni_tpu.runtime import native as jnative
+    from spark_rapids_jni_tpu_torch.runtime.native import load_native
+
+    lib = load_native()
+    monkeypatch.setattr(jnative, "_loaded", jnative.NativeLib(
+        ctypes.CDLL(str(lib.path)), lib.path))
+
+
+def read_outcome(fn):
+    """``("table", result)``, or ``("error", class name, op)`` when
+    ``fn()`` raises: the op is the classified error's ``context["op"]``
+    (None for an unclassified one)."""
+    try:
+        return ("table", fn())
+    except Exception as exc:  # compared across the two packages
+        ctx = getattr(exc, "context", None) or {}
+        return ("error", type(exc).__name__, ctx.get("op"))
+
+
+def assert_same_list_column(got, want) -> None:
+    """A port LIST column equals a JAX one: offsets, validity and the
+    child (``assert_same_column``) byte for byte."""
+    assert int(got.dtype.type_id) == int(want.dtype.type_id), "type"
+    assert_same_array(got.data.cpu().numpy(), np.asarray(want.data),
+                      "offsets")
+    assert (got.validity is None) == (want.validity is None), "tri-state"
+    if got.validity is not None:
+        assert_same_array(got.validity.cpu().numpy(),
+                          np.asarray(want.validity), "validity")
+    assert_same_column(got.children[0], want.children[0])
+
+
+def assert_same_read(got, want) -> None:
+    """Reader results across the packages: the same outcome; tables
+    byte for byte (LIST columns by ``assert_same_list_column``)."""
+    assert got[0] == want[0], f"outcome {got} vs {want}"
+    if got[0] == "error":
+        assert got == want
+        return
+    pt, jt = got[1], want[1]
+    assert pt.num_columns == jt.num_columns
+    for pc, jc in zip(pt.columns, jt.columns):
+        if pc.dtype.is_list:
+            assert_same_list_column(pc, jc)
+        else:
+            assert_same_column(pc, jc)
+
+
+def writer_module(name: str):
+    """The tests' file writer ``tests/<name>.py`` (``thrift_util``,
+    ``parquet_util`` or ``orc_util``), loaded from this directory under
+    its ``tests.<name>`` name with the writers it imports: another
+    package named ``tests`` on the path (the card's machine has one)
+    must not shadow them."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    chain = ("thrift_util", "parquet_util", "orc_util")
+    for dep in chain[:chain.index(name) + 1]:
+        key = f"tests.{dep}"
+        mod = sys.modules.get(key)
+        if mod is not None and Path(mod.__file__).resolve().parent == here:
+            continue
+        spec = importlib.util.spec_from_file_location(key, here / f"{dep}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[f"tests.{name}"]

@@ -135,7 +135,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its byte bound, and the phase's peak device memory (under 40 GiB);
 14. the rest of the general groupby, the planner's general lowering and
    month buckets, the DECIMAL128 reductions and the table operations
-   over SF10 lineitem (59,986,052 rows with q5's l_orderkey and
+   over half of SF10 lineitem (29,993,026 rows with q5's l_orderkey and
    l_suppkey, seeded nulls in l_quantity and the flags, a FLOAT64 price
    with NaN rows, Spark's xxhash64 of l_orderkey as UINT64, and
    l_extendedprice x 10^20 as DECIMAL128 with negative rows), each
@@ -177,7 +177,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``get_json_object`` over 1,000,000 escaped and malformed documents
    through the native host engine, recorded and equal to Python
    ``json``; the files are deleted at the end of the phase;
-16. one ``{"kernels": [...]}`` line, the card line, and the final
+16. the plan executor and the C ABI bridge: planned q1 (kernel A once),
+   q6 (no launch) over SF10 lineitem and TPC-DS q72 over its SF10
+   tables (kernel D three times) through ``fusion.execute``, each equal
+   to the same nodes called by hand and timed against them interleaved
+   (medians of 9 each, their difference); SF10 lineitem (two columns
+   with every 7th row null) from its host bytes through the port's
+   ``libtpudf_rt.so`` loaded with ctypes in this process:
+   ``column_from_host``, ``convert_to_rows`` (2 batches, kernel C
+   once), ``rows_to_host`` equal byte for byte to the direct
+   ``convert_to_rows``, ``rows_from_host``, ``convert_from_rows`` and
+   ``column_to_host`` equal to the input bytes and validity, each step's
+   seconds and GB/s beside a plain pinned ``copy_`` of as many bytes,
+   and the process's peak host memory; then the embedded-interpreter
+   self test (a C program that owns ``Py_Initialize``) on the card
+   where the interpreter has a shared libpython;
+17. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -196,6 +211,9 @@ import torch
 
 SF10_ROWS = 59_986_052     # TPC-H SF10 lineitem
 ROWS = SF10_ROWS
+# phase 14 runs over half of SF10 lineitem (its host oracles are most of
+# its time), which keeps the whole script near 700 s
+GROUPBY_ROWS = SF10_ROWS // 2
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
 DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
@@ -2734,7 +2752,7 @@ def _rollup_oracle(host) -> dict:
 def groupby_phase(dev) -> tuple:
     """Phase 14: the rest of the general groupby, the planner's general
     lowering and month buckets, the DECIMAL128 reductions and the table
-    operations over SF10 lineitem, each result held
+    operations over half of SF10 lineitem (``GROUPBY_ROWS``), each held
     to a numpy or Python-int oracle (the table:
     ``tpch.lineitem_groupby_table``): (a) the planned monthly rollup,
     bounded, through kernel A (one launch, no fallback), with A at its
@@ -2766,7 +2784,8 @@ def groupby_phase(dev) -> tuple:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tab, neg = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
+    rows = GROUPBY_ROWS
+    tab, neg = tpch.lineitem_groupby_table(rows, Q3_ORDERS, SUPPLIERS)
     torch.cuda.synchronize()
     log(f"phase 14 table: {tab.num_rows} rows, {tab.num_columns} columns in "
         f"{time.perf_counter() - t0:.1f} s (host numpy {np.__version__})")
@@ -2815,7 +2834,7 @@ def groupby_phase(dev) -> tuple:
         "plan_groupby(monthly rollup)",
         lambda: plan_groupby(work, [0, 1, 2], aggs, domains),
         distinct_bytes([c.data for c in work.columns]
-                       + [c.validity for c in work.columns]), ROWS)
+                       + [c.validity for c in work.columns]), rows)
     del work
 
     # ---- (b) the general groupby by l_suppkey --------------------------
@@ -2839,7 +2858,7 @@ def groupby_phase(dev) -> tuple:
     times["groupby_suppkey"] = _timed(
         "groupby_aggregate(l_suppkey, 16 aggregates)",
         lambda: groupby_aggregate(gtab, [0], gaggs, max_groups=SUPPLIERS),
-        gbytes, ROWS)
+        gbytes, rows)
     qs = [0.25, 0.5, 0.9]
     pct = _no_launch("percentile", lambda: groupby_percentile(
         gtab, [0], 1, qs, max_groups=SUPPLIERS))
@@ -2847,7 +2866,7 @@ def groupby_phase(dev) -> tuple:
     times["percentile"] = _timed(
         "groupby_percentile(l_quantity by l_suppkey)",
         lambda: groupby_percentile(gtab, [0], 1, qs, max_groups=SUPPLIERS),
-        gbytes, ROWS)
+        gbytes, rows)
     del pct
     auto = _no_launch("plan_groupby_auto", lambda: plan_groupby_auto(
         gtab, [0], [(1, "sum"), (1, "count")], [None], budget=4096))
@@ -2855,7 +2874,7 @@ def groupby_phase(dev) -> tuple:
     times["plan_groupby_auto"] = _timed(
         "plan_groupby_auto(l_suppkey, from 4,096)",
         lambda: plan_groupby_auto(gtab, [0], [(1, "sum"), (1, "count")],
-                                  [None], budget=4096), gbytes, ROWS)
+                                  [None], budget=4096), gbytes, rows)
     del auto
     otab = Table([tab.column(OKEY), tab.column(PRICE)])
     og = _no_launch("groupby by l_orderkey", lambda: groupby_aggregate(
@@ -2879,7 +2898,7 @@ def groupby_phase(dev) -> tuple:
         "groupby_aggregate(l_orderkey, sum + count)",
         lambda: groupby_aggregate(otab, [0], [(1, "sum"), (1, "count")],
                                   max_groups=Q3_ORDERS),
-        distinct_bytes([c.data for c in otab.columns]), ROWS)
+        distinct_bytes([c.data for c in otab.columns]), rows)
     del otab
 
     # ---- (c) the DECIMAL128 reductions ---------------------------------
@@ -2888,7 +2907,7 @@ def groupby_phase(dev) -> tuple:
     total = int(signed.sum()) * DEC128_SHIFT
     want = {"sum_": total, "min_": int(signed.min()) * DEC128_SHIFT,
             "max_": int(signed.max()) * DEC128_SHIFT,
-            "mean": _half_up(total * 10_000, ROWS)}
+            "mean": _half_up(total * 10_000, rows)}
     for fn in ("sum_", "mean", "min_", "max_"):
         val, ok = _no_launch(fn, lambda: getattr(reduce, fn)(d))
         limbs = val.data if hasattr(val, "data") else val
@@ -2897,14 +2916,14 @@ def groupby_phase(dev) -> tuple:
                 f"DECIMAL128 {fn}: {got} != {want[fn]}")
         times[f"decimal128_{fn}"] = _timed(
             f"reduce.{fn}(DECIMAL128)", lambda: getattr(reduce, fn)(d),
-            d.data.nbytes, ROWS)
+            d.data.nbytes, rows)
     log(f"DECIMAL128 sum_/mean/min_/max_ equal to the Python-int oracle "
         f"(sum {total})")
     del d, signed
 
     # ---- (d) the table operations -------------------------------------
     li = Table(tab.columns[:7])
-    half = ROWS // 2
+    half = rows // 2
     parts = table_ops.contiguous_split(li, [half])
     cat = _no_launch("concatenate", lambda: table_ops.concatenate(parts))
     require(all(a.equals(b) for a, b in zip(cat.columns, li.columns)),
@@ -2913,7 +2932,7 @@ def groupby_phase(dev) -> tuple:
     times["concatenate"] = _timed(
         "concatenate(two halves)", lambda: table_ops.concatenate(parts),
         2 * distinct_bytes([c.data for c in li.columns]
-                           + [c.validity for c in li.columns]), ROWS)
+                           + [c.validity for c in li.columns]), rows)
     del parts
     sel = tpch._q6_host_selection(li)
     mask = torch.from_numpy(sel).to(dev)
@@ -2931,7 +2950,7 @@ def groupby_phase(dev) -> tuple:
         "apply_boolean_mask(q6)", lambda: table_ops.apply_boolean_mask(
             li, mask), 2 * distinct_bytes([c.data for c in li.columns]
                                           + [c.validity for c in li.columns]),
-        ROWS)
+        rows)
     flags = Table([li.column(RFLAG), li.column(LSTAT)])
     dres = _no_launch("distinct", lambda: table_ops.distinct(flags))
     rv, lv = hvalid(RFLAG), hvalid(LSTAT)
@@ -2951,11 +2970,11 @@ def groupby_phase(dev) -> tuple:
     times["distinct"] = _timed(
         "distinct(flags)", lambda: table_ops.distinct(flags),
         distinct_bytes([c.data for c in flags.columns]
-                       + [c.validity for c in flags.columns]), ROWS)
-    cuts = sorted(np.random.default_rng(14).choice(ROWS, 10, replace=False))
+                       + [c.validity for c in flags.columns]), rows)
+    cuts = sorted(np.random.default_rng(14).choice(rows, 10, replace=False))
     pieces = _no_launch("contiguous_split", lambda: table_ops.contiguous_split(
         li, cuts))
-    bounds = [0] + [int(c) for c in cuts] + [ROWS]
+    bounds = [0] + [int(c) for c in cuts] + [rows]
     require(len(pieces) == 11 and all(
         p.num_rows == hi - lo and torch.equal(p.column(PRICE).data,
                                               li.column(PRICE).data[lo:hi])
@@ -2964,10 +2983,10 @@ def groupby_phase(dev) -> tuple:
     del pieces
     times["contiguous_split"] = _timed(
         "contiguous_split(10 points)",
-        lambda: table_ops.contiguous_split(li, cuts), 0, ROWS)
+        lambda: table_ops.contiguous_split(li, cuts), 0, rows)
     okey = tab.column(OKEY)
     # overlapping thirds: rows [0, n/3) and [n/4, 2n/3)
-    a, b, c = ROWS // 3, ROWS // 4, 2 * ROWS // 3
+    a, b, c = rows // 3, rows // 4, 2 * rows // 3
     left = Table([Column(okey.dtype, okey.data[:a])])
     right = Table([Column(okey.dtype, okey.data[b:c])])
     okeys = host(OKEY)
@@ -3210,7 +3229,8 @@ def _check_auto(auto, gtab) -> None:
     while budget < len(live):
         budget *= 2
     require(auto.lowered == "general" and not bool(auto.overflowed)
-            and k == len(live) and auto.table.num_rows == min(budget, ROWS),
+            and k == len(live)
+            and auto.table.num_rows == min(budget, gtab.num_rows),
             f"plan_groupby_auto: {auto.lowered}, {k} groups, "
             f"{auto.table.num_rows} rows")
     t = auto.table
@@ -3662,6 +3682,342 @@ def readers_phase(dev) -> tuple:
     return launches, out
 
 
+BRIDGE_NULL_COLUMNS = (2, 6)  # l_discount, l_shipdate: every 7th row null
+EXEC_REPS = 9  # interleaved runs of each plan, through execute and by hand
+
+
+def _rt(lib, ok: bool, what: str) -> None:
+    require(ok, f"{what}: {lib.tpudf_rt_last_error()!r}")
+
+
+def _pinned_d2h_ms(nbytes: int, dev) -> float:
+    """Median time of one plain device-to-pinned-host ``copy_`` of
+    ``nbytes``, the read-back yardstick."""
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    ms = median_ms(lambda: dst.copy_(src, non_blocking=True), reps=3)
+    del src, dst
+    return ms
+
+
+def _max_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _bridge_round_trip(li, dev) -> dict:
+    """SF10 lineitem from host bytes through the port's C ABI
+    (``libtpudf_rt.so`` over ctypes, in this process) to packed rows and
+    back: each step's seconds and GB/s, the row image equal byte for byte
+    to the direct ``convert_to_rows``, the columns equal to the input."""
+    import ctypes
+
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import row_transpose as krt
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    out = {}
+    t0 = time.perf_counter()
+    lib = native.load_rt_bridge()
+    _rt(lib, lib.tpudf_rt_init(str(Path(__file__).resolve().parent)
+                               .encode(), b"") == 0, "tpudf_rt_init")
+    out["load_init_s"] = time.perf_counter() - t0
+    out["build_s"] = native.rt_build_seconds
+    n = li.num_rows
+    datas = [c.data.cpu().numpy() for c in li.columns]
+    null_row = (np.arange(n) % 7 == 0)
+    valids = [(~null_row).astype(np.uint8) if i in BRIDGE_NULL_COLUMNS
+              else None for i in range(len(datas))]
+    in_bytes = sum(d.nbytes for d in datas) + sum(
+        v.nbytes for v in valids if v is not None)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def from_host():
+        return [lib.tpudf_rt_column_from_host(
+            int(c.dtype.type_id), c.dtype.scale, n, d.ctypes.data, d.nbytes,
+            None if v is None else v.ctypes.data)
+            for c, d, v in zip(li.columns, datas, valids)]
+
+    cols, s = timed(from_host)
+    _rt(lib, all(h > 0 for h in cols), "column_from_host")
+    out["column_from_host"] = {"s": s, "bytes": in_bytes,
+                               "gb_per_s": in_bytes / s / 1e9,
+                               "plain_pinned_copy_s":
+                               _pinned_copy_ms(in_bytes, dev) / 1e3}
+    arr = (ctypes.c_int64 * len(cols))(*cols)
+    tbl = lib.tpudf_rt_table_create(arr, len(cols))
+    _rt(lib, tbl > 0, "table_create")
+    for h in cols:
+        lib.tpudf_rt_free(h)
+
+    batches = (ctypes.c_int64 * 4)()
+    nb = ctypes.c_int32(0)
+    kernels.reset_counts()
+    rc, s = timed(lambda: lib.tpudf_rt_convert_to_rows(
+        tbl, batches, 4, ctypes.byref(nb)))
+    _rt(lib, rc == 0, "convert_to_rows")
+    launches = kernels.launches()
+    require(launches == {krt.NAME: 1} and not kernels.fallbacks(),
+            f"the bridge's convert_to_rows launched {launches}")
+    lib.tpudf_rt_free(tbl)
+    handles = list(batches[:nb.value])
+    sizes = []
+    for h in handles:
+        rn, rs = ctypes.c_int64(0), ctypes.c_int64(0)
+        _rt(lib, lib.tpudf_rt_rows_info(h, ctypes.byref(rn),
+                                        ctypes.byref(rs)) == 0, "rows_info")
+        sizes.append((rn.value, rs.value))
+    rows_bytes = sum(a * b for a, b in sizes)
+    out["convert_to_rows"] = {"s": s, "batches": sizes,
+                              "launches": launches}
+    require(sum(a for a, _ in sizes) == n and len(sizes) == (
+        2 if n == SF10_ROWS else len(sizes)), f"batches {sizes}")
+
+    images = [np.empty(a * b, np.uint8) for a, b in sizes]
+
+    def to_host():
+        for h, img in zip(handles, images):
+            _rt(lib, lib.tpudf_rt_rows_to_host(h, img.ctypes.data,
+                                               img.nbytes) == 0,
+                "rows_to_host")
+    _, s = timed(to_host)
+    out["rows_to_host"] = {"s": s, "bytes": rows_bytes,
+                           "gb_per_s": rows_bytes / s / 1e9,
+                           "plain_pinned_copy_s":
+                           _pinned_d2h_ms(rows_bytes, dev) / 1e3}
+    for h in handles:
+        lib.tpudf_rt_free(h)
+    direct = convert_to_rows(_null_every_7th(li, null_row, dev))
+    for img, b in zip(images, direct, strict=True):
+        require(torch.equal(torch.from_numpy(img).to(dev), b.data),
+                "the bridge's row image differs from convert_to_rows")
+    del direct
+    torch.cuda.empty_cache()
+
+    def from_rows_host():
+        return [lib.tpudf_rt_rows_from_host(a, b, img.ctypes.data)
+                for (a, b), img in zip(sizes, images)]
+    back_rows, s = timed(from_rows_host)
+    _rt(lib, all(h > 0 for h in back_rows), "rows_from_host")
+    out["rows_from_host"] = {"s": s, "bytes": rows_bytes,
+                             "gb_per_s": rows_bytes / s / 1e9,
+                             "plain_pinned_copy_s":
+                             _pinned_copy_ms(rows_bytes, dev) / 1e3}
+    del images
+    k = len(datas)
+    tids = (ctypes.c_int32 * k)(*[int(c.dtype.type_id) for c in li.columns])
+    scales = (ctypes.c_int32 * k)(*[c.dtype.scale for c in li.columns])
+
+    def from_rows():
+        return [lib.tpudf_rt_convert_from_rows(h, tids, scales, k)
+                for h in back_rows]
+    tables, s = timed(from_rows)
+    _rt(lib, all(h > 0 for h in tables), "convert_from_rows")
+    out["convert_from_rows"] = {"s": s}
+    for h in back_rows:
+        lib.tpudf_rt_free(h)
+
+    got = [np.empty_like(d) for d in datas]
+    got_v = [np.empty(n, np.uint8) for _ in datas]
+
+    def to_host_cols():
+        start = 0
+        for h, (rn, _) in zip(tables, sizes):
+            for i in range(k):
+                col = lib.tpudf_rt_table_column(h, i)
+                _rt(lib, col > 0, "table_column")
+                dst, vdst = got[i][start:start + rn], got_v[i][start:
+                                                              start + rn]
+                _rt(lib, lib.tpudf_rt_column_to_host(
+                    col, dst.ctypes.data, dst.nbytes, vdst.ctypes.data,
+                    vdst.nbytes) == 0, "column_to_host")
+                lib.tpudf_rt_free(col)
+            start += rn
+    _, s = timed(to_host_cols)
+    out_bytes = sum(d.nbytes for d in datas) + n * k
+    out["column_to_host"] = {"s": s, "bytes": out_bytes,
+                             "gb_per_s": out_bytes / s / 1e9,
+                             "plain_pinned_copy_s":
+                             _pinned_d2h_ms(out_bytes, dev) / 1e3}
+    for h in tables:
+        lib.tpudf_rt_free(h)
+    for i in range(k):
+        require(np.array_equal(got[i], datas[i]),
+                f"column {i} data differs after the round trip")
+        want_v = np.ones(n, np.uint8) if valids[i] is None else valids[i]
+        require(np.array_equal(got_v[i], want_v),
+                f"column {i} validity differs after the round trip")
+    out["host_max_rss_gib"] = _max_rss_gib()
+    for step in ("column_from_host", "rows_to_host", "rows_from_host",
+                 "column_to_host"):
+        o = out[step]
+        log(f"bridge {step}: {o['s']:.3f} s, {o['bytes']} bytes, "
+            f"{o['gb_per_s']:.2f} GB/s (plain pinned copy_ "
+            f"{o['plain_pinned_copy_s']:.3f} s)")
+    log(f"bridge convert_to_rows: {out['convert_to_rows']['s']:.3f} s, "
+        f"batches {sizes}, kernel C launched once; convert_from_rows "
+        f"{out['convert_from_rows']['s']:.3f} s; the row image equals "
+        f"convert_to_rows byte for byte and every column and validity "
+        f"byte comes back; process max RSS {out['host_max_rss_gib']:.2f} "
+        f"GiB")
+    return out
+
+
+def _null_every_7th(li, null_row, dev):
+    """``li`` with the bridge's validity on ``BRIDGE_NULL_COLUMNS``."""
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+
+    keep = torch.from_numpy(~null_row).to(dev)
+    return Table([Column(c.dtype, c.data, keep if i in BRIDGE_NULL_COLUMNS
+                         else c.validity)
+                  for i, c in enumerate(li.columns)])
+
+
+def _embedded_selftest() -> dict:
+    """The C self test that owns ``Py_Initialize`` (the reference's
+    8-column table through the ABI on the card), where the interpreter
+    has a shared libpython."""
+    import site
+    import subprocess
+
+    from spark_rapids_jni_tpu_torch.runtime import native
+
+    exe = native.rt_selftest_path()
+    if exe is None:
+        log(f"embedded self test: not built, no shared libpython "
+            f"({native.python_embed()})")
+        return {"ran": False, "python": native.python_embed()}
+    env = dict(__import__("os").environ, TPUDF_RT_PLATFORM="",
+               TPUDF_PY_PATH=":".join([str(Path(__file__).resolve().parent),
+                                       *site.getsitepackages()]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    s = time.perf_counter() - t0
+    require(proc.returncode == 0 and "all checks passed" in proc.stdout,
+            f"embedded self test failed: {proc.stdout}{proc.stderr}")
+    log(f"embedded self test on the card: all checks passed in {s:.1f} s")
+    return {"ran": True, "s": s}
+
+
+def _q72_by_hand(cs, dd, item, inv):
+    """q72's nodes called by hand, in the plan's order (the composition
+    the models had before they ran through ``fusion.execute``)."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.ops.join import apply_join_maps, join
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+
+    n = cs.num_rows
+    d = tpcds._q72_dd_fn(dd, 2000)
+    j1 = apply_join_maps(cs, d, join(cs, d, [tpcds.CS_SOLD_DATE_SK], [0], n))
+    j2 = apply_join_maps(j1, item, join(j1, item, [0], [tpcds.I_ITEM_SK], n))
+    probe, invk = tpcds._q72_probe_fn(j2), tpcds._q72_inv_fn(inv)
+    maps = join(probe, invk, [0], [0], 2 * n)
+    g = groupby_aggregate(tpcds._q72_keyed_fn(
+        apply_join_maps(probe, invk, maps)), (0, 1), ((2, "count"),))
+    return sort_table(g.table, [2, 0], ascending=[False, True],
+                      nulls_first=[False, False]), g.num_groups
+
+
+def _executor_cost(name: str, via_execute, by_hand, same) -> dict:
+    """``via_execute`` and ``by_hand`` timed interleaved, EXEC_REPS runs
+    each after one checked run of each: equal outputs, medians and their
+    difference."""
+    a, b = via_execute(), by_hand()
+    torch.cuda.synchronize()
+    require(same(a, b), f"{name}: execute differs from the hand-composed "
+            f"nodes")
+    del a, b
+    times = {"execute": [], "hand": []}
+    for _ in range(EXEC_REPS):
+        for key, fn in (("execute", via_execute), ("hand", by_hand)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    row = {"execute_ms": med["execute"], "hand_ms": med["hand"],
+           "difference_ms": med["execute"] - med["hand"]}
+    log(f"{name}: through execute {row['execute_ms']:.3f} ms, by hand "
+        f"{row['hand_ms']:.3f} ms (difference {row['difference_ms']:+.3f} "
+        f"ms, medians of {EXEC_REPS} interleaved); outputs equal")
+    return row
+
+
+def executor_bridge_phase(dev) -> tuple:
+    """Phase 16: the plan executor's own cost (planned q1, q6 and TPC-DS
+    q72 through ``fusion.execute`` against their nodes called by hand,
+    interleaved) and the SF10 row round trip through the port's C ABI,
+    then the embedded-interpreter self test."""
+    from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        plan_groupby,
+        scalar_domain,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    li = tpch.lineitem_table(ROWS, seed=0)
+    domains = (scalar_domain(tpch._Q1_RF_DOMAIN),
+               scalar_domain(tpch._Q1_LS_DOMAIN))
+
+    def same_planned(a, b):
+        return (a.table.equals(b.table) and torch.equal(a.present, b.present)
+                and torch.equal(a.domain_miss, b.domain_miss))
+
+    res, launches["executor: tpch_q1_planned"] = _run_plan(
+        "planned q1 through execute",
+        lambda: tpch.tpch_q1_planned_result(li), {"A": 1})
+    require(not bool(res.domain_miss), "planned q1: domain miss")
+    out["tpch_q1_planned"] = _executor_cost(
+        "planned q1", lambda: tpch.tpch_q1_planned_result(li),
+        lambda: plan_groupby(tpch._q1_work_table(li), (0, 1), tpch._Q1_AGGS,
+                             domains), same_planned)
+    _, launches["executor: tpch_q6"] = _run_plan(
+        "q6 through execute", lambda: tpch.tpch_q6(li), {})
+    out["tpch_q6"] = _executor_cost(
+        "q6", lambda: tpch.tpch_q6(li),
+        lambda: tpch._q6_reduce(li, None).column(0),
+        lambda a, b: a.equals(b))
+    out["bridge"] = _bridge_round_trip(li, dev)
+    del li
+    torch.cuda.empty_cache()
+
+    q72 = (tpcds.catalog_sales_table(DS_CATALOG_SALES, num_items=DS_ITEMS),
+           tpcds.date_dim_table(), tpcds.item_table(DS_ITEMS),
+           tpcds.inventory_table(num_items=DS_ITEMS))
+    _, launches["executor: tpcds_q72"] = _run_plan(
+        "q72 through execute", lambda: tpcds.tpcds_q72(*q72), {"D": 3})
+    out["tpcds_q72"] = _executor_cost(
+        "TPC-DS q72", lambda: tpcds.tpcds_q72(*q72),
+        lambda: _q72_by_hand(*q72),
+        lambda a, b: a.table.equals(b[0])
+        and int(a.num_groups) == int(b[1]))
+    del q72
+    torch.cuda.empty_cache()
+    out["embedded_selftest"] = _embedded_selftest()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"executor and bridge phase: {out['phase_s']:.1f} s, peak device "
+        f"memory {out['peak_gib']:.2f} GiB")
+    return launches, out
+
+
 def _start_native_build():
     """Build the readers' native library on a thread while nvcc builds
     the kernels; the returned call waits for it and raises its error."""
@@ -3674,6 +4030,7 @@ def _start_native_build():
     def build():
         try:
             native.load_native()
+            native.load_rt_bridge()
         except BaseException as exc:  # re-raised on the main thread
             errors.append(exc)
 
@@ -3688,9 +4045,12 @@ def _start_native_build():
             log(f"native library: {native.load_native().path} (no build)")
         else:
             log(f"native library built in {native.build_seconds:.1f} s")
-        (OUT_DIR / "native_build.log").write_text(
-            (native.BUILD_DIR / "build.log").read_text()
-            if (native.BUILD_DIR / "build.log").exists() else "")
+        log(f"bridge library {native.RT_LIB_NAME}: built in "
+            f"{native.rt_build_seconds} s (None: current)")
+        (OUT_DIR / "native_build.log").write_text("\n".join(
+            (native.BUILD_DIR / name).read_text()
+            for name in ("build.log", "rt_build.log")
+            if (native.BUILD_DIR / name).exists()))
 
     return wait
 
@@ -3766,17 +4126,24 @@ def main() -> int:
     path_times["groupby_and_table_ops"]["accumulate_at"] = {
         "monthly rollup": a_rollup}
     rd_launches, path_times["readers"] = readers_phase(dev)
+    ex_launches, path_times["executor_and_bridge"] = \
+        executor_bridge_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
                **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
-                                 for p, n in rd_launches.items()}}
+                                 for p, n in rd_launches.items()},
+               **ex_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}
     kernel_rows["D"]["launches_by_path"] = {
         p: n["D"] for p, n in by_plan.items() if n["D"]}
-    for k in ("A", "D"):
+    kernel_rows["C"]["launches_by_path"] = {
+        "row round trip": launches[kernel_rows["C"]["name"]],
+        "bridge convert_to_rows": path_times["executor_and_bridge"][
+            "bridge"]["convert_to_rows"]["launches"][kernel_rows["C"]["name"]]}
+    for k in ("A", "C", "D"):
         launches[kernel_rows[k]["name"]] = sum(
             kernel_rows[k]["launches_by_path"].values())
 

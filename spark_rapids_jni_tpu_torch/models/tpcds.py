@@ -17,13 +17,14 @@ TPC-DS q3:
 
 A WHERE before a join nulls the join key (null keys never match); a
 WHERE after a join nulls validity so the row falls out of the aggregate.
-The general plans compose the nodes of the reference's fusion plans
-directly, in their order (join capacities from the fact table's true
-row count, the groupby padded to its input rows); the planned plans use
-the dense primary-key join and the dense-id reductions of
-``ops/planner.py``. On the card the general plans' joins launch the
-join probe kernel (``join.hash_probe``): three times per q72, once per
-q64; the planned plans and q3 launch none.
+The general q72 and q64 are the reference's plans
+(``runtime/fusion.py``) and run through ``fusion.execute``, as there
+(join capacities from the fact table's row count, the groupby padded to
+its input rows); the planned plans and q3 compose their operators
+directly, as the reference's do, with the dense primary-key join and
+the dense-id reductions of ``ops/planner.py``. On the card the general
+plans' joins launch the join probe kernel (``join.hash_probe``): three
+times per q72, once per q64; the planned plans and q3 launch none.
 
 The generators draw the reference's numpy values from the same seeds, in
 the same order and dtypes, so both packages see the same rows.
@@ -38,14 +39,10 @@ import torch
 
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
+from spark_rapids_jni_tpu_torch.models.tpch import join_probe_inputs
 from spark_rapids_jni_tpu_torch.ops.groupby import (
     GroupByResult,
     groupby_aggregate,
-)
-from spark_rapids_jni_tpu_torch.ops.join import (
-    _sorted_valid_keys,
-    apply_join_maps,
-    join,
 )
 from spark_rapids_jni_tpu_torch.ops.planner import (
     dense_id_counts,
@@ -53,6 +50,7 @@ from spark_rapids_jni_tpu_torch.ops.planner import (
     dense_pk_join,
 )
 from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+from spark_rapids_jni_tpu_torch.runtime import fusion
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 # Composite-key packing bounds (the generators respect these).
@@ -155,13 +153,6 @@ def _floor_div(x: torch.Tensor, d: int) -> torch.Tensor:
     return torch.div(x, d, rounding_mode="floor")
 
 
-def _sorted_build(key: Column) -> tuple:
-    """A join's build keys as the probe kernel gets them: sorted, the
-    null tail overwritten with the dtype's max; (keys, n_valid)."""
-    build, n_valid, _ = _sorted_valid_keys(key.data, key.valid_mask())
-    return build, n_valid
-
-
 # ---- q72 -------------------------------------------------------------------
 
 
@@ -204,50 +195,57 @@ def _q72_keyed_fn(j3: Table) -> Table:
     ])
 
 
-def _q72_join_sides(catalog_sales: Table, date_dim: Table, item: Table,
-                    inventory: Table, year: int) -> list:
-    """The reference's ``_q72_plan`` up to join 3: join 1 (sales x
-    year-filtered dates) and join 2 (x items), each at capacity
-    ``catalog_sales.num_rows``. Returns the sides of all three joins,
-    ``[(probe, probe key column, build, build key column), ...]``; join
-    3's are the packed (item, week) probe and the inventory grain."""
-    n = catalog_sales.num_rows
-    dd = _q72_dd_fn(date_dim, year)
-    j1 = apply_join_maps(catalog_sales, dd,
-                         join(catalog_sales, dd, [CS_SOLD_DATE_SK], [0], n))
-    j2 = apply_join_maps(j1, item, join(j1, item, [0], [I_ITEM_SK], n))
-    return [(catalog_sales, CS_SOLD_DATE_SK, dd, 0),
-            (j1, 0, item, I_ITEM_SK),
-            (_q72_probe_fn(j2), 0, _q72_inv_fn(inventory), 0)]
+def _q72_plan(year: int, out_factor: int) -> fusion.Plan:
+    """q72 (the reference's ``_q72_plan``): catalog_sales x year-filtered
+    dates (join 1) x items (join 2), each at capacity ``catalog_sales``
+    rows, the packed (item, week) probe x the inventory grain (join 3,
+    ``out_factor`` x the fact rows), the post-filter, the count per
+    (item, brand), ORDER BY count desc, item asc, nulls last."""
+    cs = fusion.Scan("catalog_sales")
+    dd = fusion.Project(fusion.Scan("date_dim"), _q72_dd_fn, (year,))
+    j1 = fusion.Join(cs, dd, (CS_SOLD_DATE_SK,), (0,),
+                     fusion.rows_of("catalog_sales"), label="join1")
+    j2 = fusion.Join(j1, fusion.Scan("item"), (0,), (I_ITEM_SK,),
+                     fusion.rows_of("catalog_sales"), label="join2")
+    probe = fusion.Project(j2, _q72_probe_fn)
+    inv = fusion.Project(fusion.Scan("inventory"), _q72_inv_fn)
+    j3 = fusion.Join(probe, inv, (0,), (0,),
+                     fusion.rows_of("catalog_sales", out_factor),
+                     label="join3")
+    g = fusion.GroupBy(fusion.Project(j3, _q72_keyed_fn), (0, 1),
+                       ((2, "count"),), label="groupby")
+    return fusion.Plan("tpcds_q72", fusion.Sort(
+        g, (2, 0), ascending=(False, True), nulls_first=(False, False)))
+
+
+def _q72_bindings(catalog_sales: Table, date_dim: Table, item: Table,
+                  inventory: Table) -> dict:
+    return {"catalog_sales": catalog_sales, "date_dim": date_dim,
+            "item": item, "inventory": inventory}
 
 
 def tpcds_q72(catalog_sales: Table, date_dim: Table, item: Table,
               inventory: Table, year: int = 2000,
               out_factor: int = 2) -> GroupByResult:
     """Count, per item, catalog sales in ``year`` where on-hand inventory
-    in the sale's week was below the ordered quantity (the q72 core).
-    Join 3 runs at ``out_factor`` x the fact rows. Returns groups
-    (i_item_sk, i_brand_id, count) padded to join 3's capacity, ORDER BY
-    count desc, item asc, nulls last; callers ``compact()``."""
-    probe, _, inv, _ = _q72_join_sides(catalog_sales, date_dim, item,
-                                       inventory, year)[2]
-    maps = join(probe, inv, [0], [0], out_factor * catalog_sales.num_rows)
-    g = groupby_aggregate(_q72_keyed_fn(apply_join_maps(probe, inv, maps)),
-                          (0, 1), ((2, "count"),))
-    srt = sort_table(g.table, [2, 0], ascending=[False, True],
-                     nulls_first=[False, False])
-    return GroupByResult(srt, g.num_groups)
+    in the sale's week was below the ordered quantity (the q72 core),
+    through ``fusion.execute`` (``_q72_plan``). Returns groups
+    (i_item_sk, i_brand_id, count) padded to join 3's capacity; callers
+    ``compact()``."""
+    res = fusion.execute(
+        _q72_plan(year, out_factor),
+        _q72_bindings(catalog_sales, date_dim, item, inventory))
+    return GroupByResult(res.table, res.meta["groupby.num_groups"])
 
 
 def q72_probe_inputs(catalog_sales: Table, date_dim: Table, item: Table,
                      inventory: Table, year: int = 2000) -> list:
-    """The join probe kernel's inputs at q72's three joins, for timing and
-    checking the kernel alone: ``[(build, n_valid, probe), ...]``, each
-    build sorted and sentinel-padded as ``join`` gives it to the
-    kernel."""
-    sides = _q72_join_sides(catalog_sales, date_dim, item, inventory, year)
-    return [(*_sorted_build(build.column(bk)), probe.column(pk).data)
-            for probe, pk, build, bk in sides]
+    """The join probe kernel's inputs at q72's three joins (sub-plans of
+    ``_q72_plan``): ``[(build, n_valid, probe), ...]``."""
+    return join_probe_inputs(
+        _q72_plan(year, 2),
+        _q72_bindings(catalog_sales, date_dim, item, inventory),
+        ("join1", "join2", "join3"))
 
 
 class Q72PlannedResult(NamedTuple):
@@ -448,6 +446,25 @@ def _q64_keyed_fn(joined: Table) -> Table:
     ])
 
 
+def _q64_plan(year1: int, year2: int, num_days_per_year: int,
+              base_year: int, out_factor: int) -> fusion.Plan:
+    """q64's cross-year self-join (the reference's ``_q64_plan``): both
+    Projects hang off the same store_sales Scan; the join runs at
+    ``out_factor`` x the fact rows; the count per item, ORDER BY count
+    desc, item asc, nulls last."""
+    ss = fusion.Scan("store_sales")
+    left = fusion.Project(ss, _q64_left_fn,
+                          (year1, num_days_per_year, base_year))
+    right = fusion.Project(ss, _q64_right_fn,
+                           (year2, num_days_per_year, base_year))
+    j = fusion.Join(left, right, (0,), (0,),
+                    fusion.rows_of("store_sales", out_factor), label="join")
+    g = fusion.GroupBy(fusion.Project(j, _q64_keyed_fn), (0,),
+                       ((1, "count"),), label="groupby")
+    return fusion.Plan("tpcds_q64", fusion.Sort(
+        g, (1, 0), ascending=(False, True), nulls_first=(False, False)))
+
+
 class Q64Result(NamedTuple):
     result: GroupByResult
     join_total: torch.Tensor  # true self-join match count (0-d)
@@ -459,34 +476,28 @@ def tpcds_q64(store_sales: Table, year1: int = 2000, year2: int = 2001,
               num_days_per_year: int = 365, base_year: int = 2000,
               out_factor: int = 4) -> Q64Result:
     """Count, per item, (year1 purchase, year2 purchase) pairs by the same
-    customer (q64's cross-year self-join core). One store_sales scan feeds
-    both sides; the join runs at ``out_factor`` x the fact rows. Groups
-    are (ss_item_sk, count), padded, ORDER BY count desc, item asc;
-    ``base_year`` anchors date_sk = 1. Check ``join_total <= out_size``:
-    duplicate (item, customer) pairs multiply, so the self-join is not
-    structurally bounded."""
-    args = (num_days_per_year, base_year)
-    left = _q64_left_fn(store_sales, year1, *args)
-    right = _q64_right_fn(store_sales, year2, *args)
-    out_size = store_sales.num_rows * out_factor
-    maps = join(left, right, [0], [0], out_size)
-    g = groupby_aggregate(_q64_keyed_fn(apply_join_maps(left, right, maps)),
-                          (0,), ((1, "count"),))
-    srt = sort_table(g.table, [1, 0], ascending=[False, True],
-                     nulls_first=[False, False])
-    return Q64Result(GroupByResult(srt, g.num_groups), maps.total, out_size)
+    customer (q64's cross-year self-join core), through
+    ``fusion.execute`` (``_q64_plan``). Groups are (ss_item_sk, count),
+    padded; ``base_year`` anchors date_sk = 1. Check ``join_total <=
+    out_size``: duplicate (item, customer) pairs multiply, so the
+    self-join is not structurally bounded."""
+    res = fusion.execute(
+        _q64_plan(year1, year2, num_days_per_year, base_year, out_factor),
+        {"store_sales": store_sales})
+    return Q64Result(
+        GroupByResult(res.table, res.meta["groupby.num_groups"]),
+        res.meta["join.total"], store_sales.num_rows * out_factor)
 
 
 def q64_probe_inputs(store_sales: Table, year1: int = 2000,
                      year2: int = 2001, num_days_per_year: int = 365,
                      base_year: int = 2000) -> tuple:
-    """The join probe kernel's inputs at q64's self-join, (build,
-    n_valid, probe), the build sorted and sentinel-padded as ``join``
-    gives it to the kernel."""
-    args = (num_days_per_year, base_year)
-    probe = _q64_left_fn(store_sales, year1, *args).column(0)
-    build = _q64_right_fn(store_sales, year2, *args).column(0)
-    return (*_sorted_build(build), probe.data)
+    """The join probe kernel's inputs at q64's self-join (sub-plans of
+    ``_q64_plan``): (build, n_valid, probe)."""
+    (row,) = join_probe_inputs(
+        _q64_plan(year1, year2, num_days_per_year, base_year, 4),
+        {"store_sales": store_sales}, ("join",))
+    return row
 
 
 class Q64PlannedResult(NamedTuple):

@@ -11,12 +11,14 @@ TPC-H q1 (pricing summary report):
     FROM lineitem WHERE l_shipdate <= date '1998-12-01' - 90 days
     GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus
 
-Money columns use decimal64(-2) (the spec's DECIMAL(12,2)). Each plan
-composes the nodes of the reference's fusion plan directly, in its
-order: the general q1 is the filter/derive work table, the sort-based
-groupby with the plan's group budget, and the ORDER BY; the planned q1
-lowers the groupby through ``plan_groupby`` with the DDL flag domains.
-The fused single-kernel q1 is ``ops/kernels/q1.py::tpch_q1_pallas``.
+Money columns use decimal64(-2) (the spec's DECIMAL(12,2)). q1, q3 and
+q6 are the reference's plans (``runtime/fusion.py``) and run through
+``fusion.execute``, as there: the general q1 is the filter/derive work
+table, the sort-based groupby with the plan's group budget, and the
+ORDER BY; the planned q1 lowers the groupby through ``plan_groupby``
+with the DDL flag domains. The other TPC-H plans compose their
+operators directly, as the reference's do. The fused single-kernel q1
+is ``ops/kernels/q1.py::tpch_q1_pallas``.
 The general q1 also takes STRING flags (``lineitem_table_strings``).
 TPC-H q3, q6, q5, q12, q14, q4, q19, q17, q10 and q13 are further down.
 """
@@ -59,6 +61,7 @@ from spark_rapids_jni_tpu_torch.ops.strings import (
     static_strings,
 )
 from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+from spark_rapids_jni_tpu_torch.runtime import fusion
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 # lineitem columns used by q1 (positions in the table below)
@@ -193,6 +196,18 @@ def _q1_work_table(lineitem: Table) -> Table:
     )
 
 
+def _q1_planned_plan() -> fusion.Plan:
+    """q1 with PLANNER-DECLARED key domains, the reference's plan: the
+    work table, then the groupby lowered by ``plan_groupby`` onto the
+    sort-free bounded plan (the accumulate kernel on the card)."""
+    return fusion.Plan("tpch_q1_planned", fusion.GroupBy(
+        fusion.Project(fusion.Scan("lineitem"), _q1_work_table),
+        (0, 1), tuple(_Q1_AGGS),
+        domains=(scalar_domain(_Q1_RF_DOMAIN),
+                 scalar_domain(_Q1_LS_DOMAIN)),
+        label="plan"))
+
+
 def tpch_q1_planned_result(lineitem: Table) -> PlannedGroupBy:
     """q1 with PLANNER-DECLARED key domains: the flag domains come from
     the TPC-H DDL, so grouping needs no sort — one streaming pass
@@ -200,10 +215,11 @@ def tpch_q1_planned_result(lineitem: Table) -> PlannedGroupBy:
     the output order is static (real groups lexicographic, null groups
     last). Returns the planner result so callers can observe
     ``domain_miss``."""
-    work = _q1_work_table(lineitem)
-    res = plan_groupby(
-        work, (0, 1), _Q1_AGGS,
-        domains=(scalar_domain(_Q1_RF_DOMAIN), scalar_domain(_Q1_LS_DOMAIN)))
+    out = fusion.execute(_q1_planned_plan(), {"lineitem": lineitem})
+    res = PlannedGroupBy(out.table, out.meta["plan.present"],
+                         out.meta["plan.domain_miss"],
+                         out.meta["plan.lowered"],
+                         out.meta["plan.overflowed"])
     if res.lowered != "bounded":
         raise AssertionError("q1's declared domains must lower to the "
                              "bounded plan")
@@ -262,15 +278,17 @@ def tpch_q1_numpy(lineitem: Table) -> dict:
     return out
 
 
-def _q1_general(lineitem: Table) -> GroupByResult:
+def _q1_plan() -> fusion.Plan:
     """q1's general plan (the reference's ``_q1_plan``): work table ->
     sort-based groupby under the group budget -> ORDER BY flag, status
     with nulls last, so the filtered-out null-key group follows the real
     ones."""
-    g = groupby_aggregate(_q1_work_table(lineitem), (0, 1), _Q1_AGGS,
-                          max_groups=_Q1_GROUP_BUDGET)
-    order = sort_order(g.table, (0, 1), nulls_first=(False, False))
-    return GroupByResult(gather(g.table, order), g.num_groups, g.overflowed)
+    return fusion.Plan("tpch_q1", fusion.Sort(
+        fusion.GroupBy(
+            fusion.Project(fusion.Scan("lineitem"), _q1_work_table),
+            (0, 1), tuple(_Q1_AGGS), max_groups=_Q1_GROUP_BUDGET,
+            label="groupby"),
+        (0, 1), nulls_first=(False, False)))
 
 
 def tpch_q1(lineitem: Table) -> Table:
@@ -278,18 +296,19 @@ def tpch_q1(lineitem: Table) -> Table:
     the 64-group budget. On data outside the TPC-H flag domains (64 or
     more distinct byte pairs) the excess groups are dropped; use
     ``tpch_q1_checked`` to turn that into an error."""
-    return _q1_general(lineitem).table
+    return fusion.execute(_q1_plan(), {"lineitem": lineitem}).table
 
 
 def tpch_q1_checked(lineitem: Table) -> Table:
     """General q1 that raises instead of silently dropping groups on
     out-of-contract data."""
-    res = _q1_general(lineitem)
-    if bool(res.overflowed):
+    res = fusion.execute(_q1_plan(), {"lineitem": lineitem})
+    if bool(res.meta["groupby.overflowed"]):
         raise ValueError(
             f"q1 key domain exceeded the plan's group budget "
-            f"({int(res.num_groups)} > {_Q1_GROUP_BUDGET}): the "
-            f"returnflag/linestatus bytes are outside the TPC-H contract")
+            f"({int(res.meta['groupby.num_groups'])} > {_Q1_GROUP_BUDGET}): "
+            f"the returnflag/linestatus bytes are outside the TPC-H "
+            f"contract")
     return res.table
 
 
@@ -410,14 +429,6 @@ def _q3_probe_fn(lineitem: Table, cutoff: int) -> Table:
     return Table([lkey, revenue])
 
 
-def _q3_inputs(customer: Table, orders: Table, lineitem: Table,
-               segment: int, cutoff: int):
-    """The filtered inputs both q3 plans share: (cust, ord_t, probe)."""
-    return (_q3_cust_fn(customer, segment),
-            _q3_orders_fn(orders, cutoff),
-            _q3_probe_fn(lineitem, cutoff))
-
-
 def _q3_build_fn(oc: Table) -> Table:
     """orders x customer join output -> the second join's build side:
     [orderkey (null where unmatched), orderdate, shippriority]."""
@@ -442,12 +453,28 @@ def _q3_keyed_fn(j: Table) -> Table:
     ])
 
 
-def _q3_order_by(g: GroupByResult) -> GroupByResult:
-    """ORDER BY revenue DESC, o_orderdate, nulls last; ties keep the
-    groupby's key order."""
-    order = sort_order(g.table, (3, 1), ascending=(False, True),
-                       nulls_first=(False, False))
-    return GroupByResult(gather(g.table, order), g.num_groups)
+def _q3_plan(segment: int, cutoff: int, out_factor: int) -> fusion.Plan:
+    """General q3 (the reference's ``_q3_plan``): filter all three
+    inputs, orders x customer (capacity: orders rows), lineitem x orders
+    (capacity: ``out_factor`` x lineitem rows), the groupby padded to its
+    input rows, ORDER BY revenue DESC, o_orderdate, nulls last (ties keep
+    the groupby's key order)."""
+    cust = fusion.Project(fusion.Scan("customer"), _q3_cust_fn, (segment,))
+    ord_n = fusion.Project(fusion.Scan("orders"), _q3_orders_fn, (cutoff,))
+    probe = fusion.Project(fusion.Scan("lineitem"), _q3_probe_fn, (cutoff,))
+    j1 = fusion.Join(ord_n, cust, (0,), (0,), fusion.rows_of("orders"),
+                     label="join1")
+    build = fusion.Project(j1, _q3_build_fn)
+    j2 = fusion.Join(probe, build, (0,), (0,),
+                     fusion.rows_of("lineitem", out_factor), label="join2")
+    g = fusion.GroupBy(fusion.Project(j2, _q3_keyed_fn), (0, 1, 2),
+                       ((3, "sum"),), label="groupby")
+    return fusion.Plan("tpch_q3", fusion.Sort(
+        g, (3, 1), ascending=(False, True), nulls_first=(False, False)))
+
+
+def _q3_bindings(customer: Table, orders: Table, lineitem: Table) -> dict:
+    return {"customer": customer, "orders": orders, "lineitem": lineitem}
 
 
 class Q3Result(NamedTuple):
@@ -456,50 +483,48 @@ class Q3Result(NamedTuple):
     out_cap: int              # join output bound (check total <= cap)
 
 
-def _q3_joined(customer: Table, orders: Table, lineitem: Table,
-               segment: int, cutoff: int, out_factor: int):
-    """q3 up to the groupby: filter all three inputs, orders x customer
-    (capacity: orders rows), lineitem x orders (capacity: ``out_factor``
-    x lineitem rows). Returns (groupby input, join 2's total, its
-    capacity)."""
-    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
-                                    cutoff)
-    maps1 = join(ord_t, cust, [0], [0], orders.num_rows)
-    build = _q3_build_fn(apply_join_maps(ord_t, cust, maps1))
-    out_cap = lineitem.num_rows * out_factor
-    maps2 = join(probe, build, [0], [0], out_cap)
-    return (_q3_keyed_fn(apply_join_maps(probe, build, maps2)), maps2.total,
-            out_cap)
+def join_probe_inputs(plan, bindings: dict, labels) -> list:
+    """The probe kernel's inputs at the ``fusion.Join`` nodes of ``plan``
+    labelled ``labels``, for timing and checking the kernel alone:
+    ``[(build, n_valid, probe), ...]``, each side a sub-plan run through
+    ``fusion.execute`` and each build sorted and sentinel-padded as
+    ``join`` gives it to the kernel."""
+    joins = {n.label: n for n in fusion._topo(plan.root)
+             if isinstance(n, fusion.Join)}
+    out = []
+    for label in labels:
+        j = joins[label]
+        probe, build = (
+            fusion.execute(fusion.Plan(f"{plan.name}.{label}.{side}", node),
+                           bindings).table.column(key)
+            for side, node, key in (("probe", j.left, j.left_on[0]),
+                                    ("build", j.right, j.right_on[0])))
+        sorted_build, n_valid, _ = _sorted_valid_keys(build.data,
+                                                      build.valid_mask())
+        out.append((sorted_build, n_valid, probe.data))
+    return out
 
 
 def q3_probe_inputs(customer: Table, orders: Table, lineitem: Table,
                     segment: int = 0, cutoff: int = _Q3_CUTOFF_DAYS):
-    """The join probe kernel's inputs at q3's two joins, for timing and
-    checking the kernel alone: ((build, n_valid, probe) of join 1, the
-    same of join 2), each build sorted and sentinel-padded as ``join``
-    gives it to the kernel."""
-    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
-                                    cutoff)
-    key = cust.column(0)
-    build1, n_valid1, _ = _sorted_valid_keys(key.data, key.valid_mask())
-    maps1 = join(ord_t, cust, [0], [0], orders.num_rows)
-    key = _q3_build_fn(apply_join_maps(ord_t, cust, maps1)).column(0)
-    build2, n_valid2, _ = _sorted_valid_keys(key.data, key.valid_mask())
-    return ((build1, n_valid1, ord_t.column(0).data),
-            (build2, n_valid2, probe.column(0).data))
+    """The join probe kernel's inputs at q3's two joins (sub-plans of
+    ``_q3_plan``), for timing and checking the kernel alone: ((build,
+    n_valid, probe) of join 1, the same of join 2)."""
+    return tuple(join_probe_inputs(
+        _q3_plan(segment, cutoff, 2),
+        _q3_bindings(customer, orders, lineitem), ("join1", "join2")))
 
 
 def tpch_q3(customer: Table, orders: Table, lineitem: Table,
             segment: int = 0, cutoff: int = _Q3_CUTOFF_DAYS,
             out_factor: int = 2) -> Q3Result:
-    """General q3, the reference's ``_q3_plan`` node by node: the two
-    joins (``_q3_joined``), the groupby padded to its input rows, the
-    ORDER BY. Callers compact (``num_groups`` rows) and check
-    ``join_total <= out_cap``: past it, matches were dropped."""
-    keyed, total, out_cap = _q3_joined(customer, orders, lineitem, segment,
-                                       cutoff, out_factor)
-    g = groupby_aggregate(keyed, (0, 1, 2), ((3, "sum"),))
-    return Q3Result(_q3_order_by(g), total, out_cap)
+    """General q3 through ``fusion.execute`` (``_q3_plan``). Callers
+    compact (``num_groups`` rows) and check ``join_total <= out_cap``:
+    past it, matches were dropped."""
+    res = fusion.execute(_q3_plan(segment, cutoff, out_factor),
+                         _q3_bindings(customer, orders, lineitem))
+    return Q3Result(GroupByResult(res.table, res.meta["groupby.num_groups"]),
+                    res.meta["join2.total"], lineitem.num_rows * out_factor)
 
 
 class Q3PlannedResult(NamedTuple):
@@ -532,6 +557,30 @@ def _q3_planned_keyed_fn(jt: Table) -> Table:
     ])
 
 
+def _q3_planned_plan(segment: int, cutoff: int) -> fusion.Plan:
+    """q3 with planner-declared dense clustered PKs (the reference's
+    ``_q3_planned_plan``): both joins are ``DensePkJoin``s over the
+    clustered customer and orders scans."""
+    cust = fusion.Project(fusion.Scan("customer", bucket=False),
+                          _q3_cust_fn, (segment,))
+    ord_n = fusion.Project(fusion.Scan("orders", bucket=False),
+                           _q3_orders_fn, (cutoff,))
+    probe = fusion.Project(fusion.Scan("lineitem"), _q3_probe_fn, (cutoff,))
+    # join 1: each order row looks up its customer (custkey 1..|C|)
+    j1 = fusion.DensePkJoin(ord_n, cust, 0, 0, 1,
+                            fusion.rows_of("customer"), clustered=True,
+                            label="pk1")
+    build2 = fusion.Project(j1, _q3_build2_fn)
+    # join 2: each lineitem row looks up its order (orderkey 1..|O|)
+    j2 = fusion.DensePkJoin(probe, build2, 0, 0, 1,
+                            fusion.rows_of("orders"), clustered=True,
+                            label="pk2")
+    g = fusion.GroupBy(fusion.Project(j2, _q3_planned_keyed_fn), (0, 1, 2),
+                       ((3, "sum"),), label="groupby")
+    return fusion.Plan("tpch_q3_planned", fusion.Sort(
+        g, (3, 1), ascending=(False, True), nulls_first=(False, False)))
+
+
 def tpch_q3_planned(customer: Table, orders: Table, lineitem: Table,
                     segment: int = 0,
                     cutoff: int = _Q3_CUTOFF_DAYS) -> Q3PlannedResult:
@@ -540,17 +589,12 @@ def tpch_q3_planned(customer: Table, orders: Table, lineitem: Table,
     load-order facts): both joins are arithmetic plus a gather, with no
     join kernel and no capacity. One output row per lineitem row; the
     groupby stays sort-based."""
-    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
-                                    cutoff)
-    j1 = dense_pk_join(ord_t, cust, 0, 0, 1, customer.num_rows,
-                       clustered=True)
-    build2 = _q3_build2_fn(j1.table)
-    j2 = dense_pk_join(probe, build2, 0, 0, 1, orders.num_rows,
-                       clustered=True)
-    g = groupby_aggregate(_q3_planned_keyed_fn(j2.table), (0, 1, 2),
-                          ((3, "sum"),))
-    return Q3PlannedResult(_q3_order_by(g), j2.total,
-                           j1.pk_violation | j2.pk_violation)
+    res = fusion.execute(_q3_planned_plan(segment, cutoff),
+                         _q3_bindings(customer, orders, lineitem))
+    return Q3PlannedResult(
+        GroupByResult(res.table, res.meta["groupby.num_groups"]),
+        res.meta["pk2.total"],
+        res.meta["pk1.pk_violation"] | res.meta["pk2.pk_violation"])
 
 
 def tpch_q3_oracle(customer: Table, orders: Table, lineitem: Table,
@@ -726,11 +770,11 @@ _Q6_DISC_HI = 7
 _Q6_QTY_HI = 2400
 
 
-def tpch_q6(lineitem: Table) -> Column:
-    """TPC-H q6: SELECT sum(l_extendedprice * l_discount) WHERE shipdate
-    in a year AND discount BETWEEN 0.05 AND 0.07 AND quantity < 24. One
-    masked int64 multiply-accumulate over the q1 lineitem; a 1-row
-    DECIMAL64(scale -4) column, null iff no row matched."""
+def _q6_reduce(lineitem: Table, row_valid) -> Table:
+    """q6's masked multiply-accumulate as a ``Project(rowwise=False)``
+    (the reference's ``_q6_reduce``): its 1-row output is its own row
+    space. ``row_valid`` is the region mask, None in the port."""
+    del row_valid
     qty = lineitem.column(L_QUANTITY)
     price = lineitem.column(L_EXTENDEDPRICE)
     disc = lineitem.column(L_DISCOUNT)
@@ -740,10 +784,20 @@ def tpch_q6(lineitem: Table) -> Column:
            & (ship.data >= _Q6_DATE_LO) & (ship.data < _Q6_DATE_HI)
            & (disc.data >= _Q6_DISC_LO) & (disc.data <= _Q6_DISC_HI)
            & (qty.data < _Q6_QTY_HI))
-    prod = torch.where(sel, lineitem.column(L_EXTENDEDPRICE).data
-                       * lineitem.column(L_DISCOUNT).data, 0)
-    return Column(t.decimal64(-4), prod.sum().reshape(1),
-                  sel.any().reshape(1))
+    prod = torch.where(sel, price.data * disc.data, 0)
+    return Table([Column(t.decimal64(-4), prod.sum().reshape(1),
+                         sel.any().reshape(1))])
+
+
+def tpch_q6(lineitem: Table) -> Column:
+    """TPC-H q6: SELECT sum(l_extendedprice * l_discount) WHERE shipdate
+    in a year AND discount BETWEEN 0.05 AND 0.07 AND quantity < 24. One
+    masked int64 multiply-accumulate over the q1 lineitem, one
+    ``Project(rowwise=False)`` plan; a 1-row DECIMAL64(scale -4) column,
+    null iff no row matched."""
+    plan = fusion.Plan("tpch_q6", fusion.Project(
+        fusion.Scan("lineitem"), _q6_reduce, rowwise=False))
+    return fusion.execute(plan, {"lineitem": lineitem}).table.column(0)
 
 
 def _q6_host_selection(lineitem: Table) -> np.ndarray:

@@ -77,6 +77,7 @@ from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 from spark_rapids_jni_tpu_torch.ops.hash import partition_hash, table_xxhash64
 from spark_rapids_jni_tpu_torch.ops.kernels import _build, q1 as kq1
 from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
+from spark_rapids_jni_tpu_torch.runtime import fusion
 from spark_rapids_jni_tpu_torch.utils.platform import card_line
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -180,15 +181,24 @@ def main(only: list[str]) -> int:
 def profile_q3(run) -> None:
     q3 = (tpch.customer_table(CUSTOMERS), tpch.orders_table(ORDERS, CUSTOMERS),
           tpch.lineitem_q3_table(ROWS, ORDERS))
-    args = (0, tpch._Q3_CUTOFF_DAYS, 2)
     run("q3", lambda: tpch.tpch_q3(*q3), Q3_REPS)
-    run("q3_joins", lambda: tpch._q3_joined(*q3, *args), Q3_REPS)
-    keyed = tpch._q3_joined(*q3, *args)[0]
-    run("q3_groupby", lambda: groupby_aggregate(
-        keyed, (0, 1, 2), ((3, "sum"),)), Q3_REPS)
-    g = groupby_aggregate(keyed, (0, 1, 2), ((3, "sum"),))
+    # the stages are sub-plans of q3's plan: the joins up to the keyed
+    # table, the groupby over it, the ORDER BY over the groups
+    sort = tpch._q3_plan(0, tpch._Q3_CUTOFF_DAYS, 2).root
+    bound = dict(zip(("customer", "orders", "lineitem"), q3))
+
+    def stage(name, node, tables):
+        return fusion.execute(fusion.Plan(name, node), tables).table
+
+    run("q3_joins", lambda: stage("q3_joins", sort.child.child, bound),
+        Q3_REPS)
+    keyed = {"keyed": stage("q3_joins", sort.child.child, bound)}
+    group = sort.child._replace(child=fusion.Scan("keyed"))
+    run("q3_groupby", lambda: stage("q3_groupby", group, keyed), Q3_REPS)
+    g = {"g": stage("q3_groupby", group, keyed)}
     del keyed
-    run("q3_order_by", lambda: tpch._q3_order_by(g), Q3_REPS)
+    order_by = sort._replace(child=fusion.Scan("g"))
+    run("q3_order_by", lambda: stage("q3_order_by", order_by, g), Q3_REPS)
     del g
     run("q3_planned", lambda: tpch.tpch_q3_planned(*q3), Q3_REPS)
     del q3

@@ -116,6 +116,19 @@ def _host_snap_nbytes(snap, finished_rows: Optional[int] = None) -> int:
     return n
 
 
+def _col_nbytes(c) -> int:
+    total = c.data.nbytes
+    for x in (c.validity, c.chars):
+        if x is not None:
+            total += x.nbytes
+    return total + sum(_col_nbytes(ch) for ch in (c.children or ()))
+
+
+def table_nbytes(table) -> int:
+    """A table's device bytes: data, validity, chars and children."""
+    return sum(_col_nbytes(c) for c in table.columns)
+
+
 class ByteBudgetChunks:
     """A file as a sequence of Tables bounded by a byte budget, cuDF's
     chunked-reader contract at the file's own unit (a Parquet row group,

@@ -28,6 +28,18 @@ stable API that the sources call.
 
 A library that cannot be found or built raises ``OSError`` with the whole
 search trail and the build's output: there is no stand-in decoder.
+
+The bridge library (``load_rt_bridge``) is the port's own: the C ABI of
+``native_src/rt_bridge.cpp`` over ``runtime/bridge.py``, built at first
+use into ``build/torch_native/libtpudf_rt.so`` (never ``build/native/``)
+with the same flags and lock, against this interpreter's headers
+(``sysconfig.get_paths()['include']``; a missing ``Python.h`` is a
+build error that names it). The library leaves the Python symbols
+undefined, so a Python process loads it with ctypes as it is. Where the
+interpreter's shared library (``libpython3.12.so``) exists, the same
+build links the embedded-interpreter self test
+``build/torch_native/tpudf_rt_selftest`` against it
+(``rt_selftest_path``).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 import time
@@ -310,3 +323,147 @@ def load_native() -> NativeLib:
             path = _build_native(tried)
         _loaded = NativeLib(ctypes.CDLL(str(path)), path)
         return _loaded
+
+
+# ---------------------------------------------------------------------------
+# the bridge library: the C ABI over runtime/bridge.py
+# ---------------------------------------------------------------------------
+
+RT_SRC_DIR = pathlib.Path(__file__).resolve().parent / "native_src"
+RT_LIB_NAME = "libtpudf_rt.so"
+RT_SELFTEST_NAME = "tpudf_rt_selftest"
+BRIDGE_MODULE = "spark_rapids_jni_tpu_torch.runtime.bridge"
+_rt_loaded: Optional[ctypes.CDLL] = None
+rt_build_seconds: Optional[float] = None  # None: no build in this process
+
+
+def python_embed() -> dict:
+    """This interpreter's build facts the bridge needs: the include
+    directory, whether it holds ``Python.h``, and the shared library
+    (None where the interpreter has none)."""
+    inc = sysconfig.get_paths()["include"]
+    libdir = pathlib.Path(sysconfig.get_config_var("LIBDIR") or "")
+    # the link name, else the soname alone (no -dev symlink installed)
+    libs = [libdir / name for name in (
+        sysconfig.get_config_var("LDLIBRARY"),
+        sysconfig.get_config_var("INSTSONAME")) if name and ".so" in name]
+    found = [lib for lib in libs if lib.exists()]
+    return {"include": inc,
+            "python_h": (pathlib.Path(inc) / "Python.h").exists(),
+            "libpython": str(found[0]) if found else None}
+
+
+def _rt_cmds(cxx: str, py: dict, out_dir: pathlib.Path) -> list:
+    lib = out_dir / RT_LIB_NAME
+    cmds = [[cxx, *_CXX_FLAGS, "-isystem", py["include"],
+             f'-DTPUDF_RT_BRIDGE_MODULE="{BRIDGE_MODULE}"', "-shared",
+             "-Wl,-soname," + RT_LIB_NAME,
+             str(RT_SRC_DIR / "rt_bridge.cpp"), "-o", str(lib)]]
+    if py["libpython"]:
+        libdir = str(pathlib.Path(py["libpython"]).parent)
+        cmds.append([cxx, *_CXX_FLAGS, str(RT_SRC_DIR / "rt_selftest.cpp"),
+                     "-o", str(out_dir / RT_SELFTEST_NAME), str(lib),
+                     "-L", libdir, "-l:" + pathlib.Path(py["libpython"]).name,
+                     "-Wl,-rpath," + str(BUILD_DIR), "-Wl,-rpath," + libdir])
+    return cmds
+
+
+def _rt_digest(cmds: list) -> str:
+    h = hashlib.sha256()
+    for cmd in cmds:
+        h.update("\0".join(cmd).encode() + b"\0")
+    for name in ("rt_bridge.cpp", "rt_selftest.cpp"):
+        h.update(name.encode() + b"\0" + (RT_SRC_DIR / name).read_bytes())
+    return h.hexdigest()
+
+
+def _rt_stamp() -> pathlib.Path:
+    return BUILD_DIR / (RT_LIB_NAME + ".sha256")
+
+
+def _build_rt() -> pathlib.Path:
+    """Build (or find current) ``libtpudf_rt.so`` and, where libpython
+    exists, the self test, under the build directory's lock."""
+    global rt_build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    py = python_embed()
+    if cxx is None:
+        raise OSError(f"building {RT_LIB_NAME} needs a C++ compiler (g++)")
+    if not py["python_h"]:
+        raise OSError(f"building {RT_LIB_NAME} needs Python.h, which is "
+                      f"not in {py['include']} (this interpreter's "
+                      "sysconfig include directory)")
+    digest = _rt_digest(_rt_cmds(cxx, py, BUILD_DIR))
+    lib = BUILD_DIR / RT_LIB_NAME
+    with open(BUILD_DIR / ".lock", "w") as lock_fh:
+        fcntl.flock(lock_fh, fcntl.LOCK_EX)
+        try:
+            if _rt_stamp().read_text().strip() == digest and lib.exists():
+                return lib
+        except OSError:
+            pass
+        t0 = time.perf_counter()
+        log: list = [f"python {py}"]
+        stage = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="stage-"))
+        try:
+            for cmd in _rt_cmds(cxx, py, stage):
+                # the self test links the staged library; its rpath is
+                # the build directory, where the library is renamed to
+                if _run(cmd, log).returncode != 0:
+                    raise OSError(f"building {RT_LIB_NAME} failed:\n"
+                                  + "\n".join(log)[-8000:])
+            for name in (RT_LIB_NAME, RT_SELFTEST_NAME):
+                if (stage / name).exists():
+                    os.replace(stage / name, BUILD_DIR / name)
+            (stage / "stamp").write_text(digest + "\n")
+            os.replace(stage / "stamp", _rt_stamp())
+        finally:
+            shutil.rmtree(stage, ignore_errors=True)
+            (BUILD_DIR / "rt_build.log").write_text("\n".join(log))
+        rt_build_seconds = time.perf_counter() - t0
+        return lib
+
+
+def load_rt_bridge() -> ctypes.CDLL:
+    """The bridge library loaded into this process (memoized), built on
+    first use, with the reference's ``tpudf_rt_*`` signatures pinned.
+    ``tpudf_rt_init`` has not been called."""
+    global _rt_loaded
+    with _lock:
+        if _rt_loaded is not None:
+            return _rt_loaded
+        lib = ctypes.CDLL(str(_build_rt()))
+        i32, i64, vp, cp = (ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
+                            ctypes.c_char_p)
+        p_i32, p_i64 = ctypes.POINTER(i32), ctypes.POINTER(i64)
+        sigs = {
+            "tpudf_rt_last_error": (cp, []),
+            "tpudf_rt_init": (i32, [cp, cp]),
+            "tpudf_rt_column_from_host": (i64, [i32, i32, i64, vp, i64, vp]),
+            "tpudf_rt_table_create": (i64, [p_i64, i32]),
+            "tpudf_rt_table_num_columns": (i32, [i64]),
+            "tpudf_rt_table_num_rows": (i64, [i64]),
+            "tpudf_rt_table_column": (i64, [i64, i32]),
+            "tpudf_rt_column_info": (i32, [i64, p_i32, p_i32, p_i64]),
+            "tpudf_rt_column_to_host": (i32, [i64, vp, i64, vp, i64]),
+            "tpudf_rt_convert_to_rows": (i32, [i64, p_i64, i32, p_i32]),
+            "tpudf_rt_convert_from_rows": (i64, [i64, p_i32, p_i32, i32]),
+            "tpudf_rt_rows_info": (i32, [i64, p_i64, p_i64]),
+            "tpudf_rt_rows_to_host": (i32, [i64, vp, i64]),
+            "tpudf_rt_rows_from_host": (i64, [i64, i64, vp]),
+            "tpudf_rt_free": (i32, [i64]),
+        }
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _rt_loaded = lib
+        return lib
+
+
+def rt_selftest_path() -> Optional[pathlib.Path]:
+    """The embedded-interpreter self test, built beside the bridge
+    library; None where this interpreter has no shared libpython."""
+    _build_rt()
+    exe = BUILD_DIR / RT_SELFTEST_NAME
+    return exe if python_embed()["libpython"] and exe.exists() else None

@@ -1408,3 +1408,76 @@ def test_orc_read_on_the_card_matches_cpu(dev, n):
             assert x is None or x.is_pinned(), dtype
     for a, b in zip(host.stage().columns, want.columns, strict=True):
         _same_bytes(a, b)
+
+
+# ---- the executor and the bridge (runtime/fusion.py, runtime/bridge.py) ----
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_execute_equals_hand_composed_nodes_on_the_card(dev, n):
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        plan_groupby,
+        scalar_domain,
+    )
+
+    li = tpch.lineitem_table(n, seed=n, device=dev)
+    kernels.reset_counts()
+    got = tpch.tpch_q1_planned_result(li)
+    torch.cuda.synchronize()
+    assert kernels.launches() == {kga.NAME: 1} and not kernels.fallbacks()
+    want = plan_groupby(
+        tpch._q1_work_table(li), (0, 1), tpch._Q1_AGGS,
+        (scalar_domain(tpch._Q1_RF_DOMAIN),
+         scalar_domain(tpch._Q1_LS_DOMAIN)))
+    assert got.table.equals(want.table)
+    assert torch.equal(got.present, want.present)
+    assert torch.equal(got.domain_miss, want.domain_miss)
+    assert got.overflowed.device.type == "cuda" and not bool(got.overflowed)
+    q6 = tpch.tpch_q6(li)
+    assert q6.device.type == "cuda"
+    assert Table([q6]).equals(tpch._q6_reduce(li, None))
+
+
+def test_bridge_round_trip_on_the_card(dev):
+    from pathlib import Path
+
+    from spark_rapids_jni_tpu_torch.runtime import native
+    from torch_parity import (
+        RT_TABLE,
+        RT_VALID,
+        rt_check,
+        rt_column,
+        rt_column_host,
+        rt_from_rows,
+        rt_rows_bytes,
+        rt_rows_info,
+        rt_table,
+        rt_to_rows,
+    )
+
+    lib = native.load_rt_bridge()
+    rt_check(lib, lib.tpudf_rt_init(
+        str(Path(__file__).resolve().parents[1]).encode(), b"") == 0,
+        "init")
+    li = tpch.lineitem_table(2049, seed=3, device="cpu")
+    host = [(int(c.dtype.type_id), c.dtype.scale, c.data.numpy(),
+             np.arange(2049) % 7 != 0) for c in li.columns]
+    host += [(tid, s, np.resize(d, 2049), np.resize(RT_VALID, 2049))
+             for tid, s, d in RT_TABLE]
+    cols = [rt_column(lib, *h) for h in host]
+    tbl = rt_table(lib, cols)
+    (rows,) = rt_to_rows(lib, tbl)
+    image = rt_rows_bytes(lib, rows)
+    direct = convert_to_rows(table_from_numpy(
+        [(tid, s, d, v) for tid, s, d, v in host], device=dev))
+    assert np.array_equal(image, direct[0].data.cpu().numpy())
+    n, size = rt_rows_info(lib, rows)
+    again = lib.tpudf_rt_rows_from_host(n, size, image.tobytes())
+    back = rt_from_rows(lib, again, [(tid, s) for tid, s, _, _ in host])
+    for i, (tid, s, d, v) in enumerate(host):
+        info, raw, valid = rt_column_host(lib, back, i, d.itemsize)
+        assert info == (tid, s, 2049)
+        assert np.array_equal(valid.astype(bool), v)
+        assert np.array_equal(raw.view(d.dtype)[v], d[v])
+    for h in cols + [tbl, rows, again, back]:
+        assert lib.tpudf_rt_free(h) == 0

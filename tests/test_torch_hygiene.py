@@ -84,6 +84,9 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.utils.fspath, "
             "spark_rapids_jni_tpu_torch.utils.tracing, "
             "spark_rapids_jni_tpu_torch.ops.planner, "
+            "spark_rapids_jni_tpu_torch.runtime.dispatch, "
+            "spark_rapids_jni_tpu_torch.runtime.fusion, "
+            "spark_rapids_jni_tpu_torch.runtime.bridge, "
             "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spark_rapids_jni_tpu', 'pyarrow')]; "
@@ -96,6 +99,27 @@ def test_import_leaves_jax_unloaded():
 # the modules whose functions may import pyarrow: the Arrow interchange,
 # and the ORC reader's wall-clock -> UTC conversion (the tz database)
 PYARROW_USERS = {"columnar/arrow.py", "orc/reader.py"}
+
+
+NATIVE_SRC = PKG / "runtime" / "native_src"
+
+
+@pytest.mark.parametrize("path", sorted(NATIVE_SRC.glob("*.cpp")),
+                         ids=lambda p: p.name)
+def test_bridge_sources_name_no_jax_module(path):
+    # the bridge's C++ twin names the port's module once, as the default
+    # of TPUDF_RT_BRIDGE_MODULE, and never JAX or the JAX package
+    text = path.read_text()
+    assert "jax" not in text.lower(), path.name
+    assert "spark_rapids_jni_tpu." not in text, path.name
+    port = text.count("spark_rapids_jni_tpu_torch")
+    if path.name == "rt_bridge.cpp":
+        assert port == 1
+        assert '#define TPUDF_RT_BRIDGE_MODULE ' \
+            '"spark_rapids_jni_tpu_torch.runtime.bridge"' in text
+        assert "PyImport_ImportModule(TPUDF_RT_BRIDGE_MODULE)" in text
+    else:
+        assert port == 0
 
 
 def test_pyarrow_is_imported_only_inside_the_arrow_functions():

@@ -704,3 +704,161 @@ def writer_module(name: str):
         sys.modules[key] = mod
         spec.loader.exec_module(mod)
     return sys.modules[f"tests.{name}"]
+
+
+# the reference's fusion.execute runs its fused (bucket-padded, traced)
+# region at these row counts in the executor tests, its force_staged
+# walk at the other edge counts: its contract makes the two bit-identical
+FUSED_ROWS = (256, 2049)
+
+
+def with_null_tails(jtab, cols, seed):
+    """A JAX table with ``null_tail`` validity (random nulls, the last
+    quarter null) in ``cols``, and the same table for the port."""
+    host = host_columns(jtab)
+    for i in cols:
+        tid, scale, data, _ = host[i]
+        host[i] = (tid, scale, data, null_tail(len(data), seed + i))
+    ref = jax_table(host)
+    return to_port(ref), ref
+
+
+def ref_execute(plan, bindings, n):
+    """The reference's ``fusion.execute``: fused at ``FUSED_ROWS``,
+    staged otherwise."""
+    from spark_rapids_jni_tpu.runtime import fusion as jfusion
+
+    return jfusion.execute(plan, bindings, force_staged=n not in FUSED_ROWS)
+
+
+def same_meta(got: dict, want: dict) -> None:
+    """The port's plan meta equals the reference's as values: the same
+    keys, each value a device tensor (a string for ``lowered``)."""
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, str):
+            assert g == w, key
+            continue
+        assert isinstance(g, torch.Tensor), f"{key}: not a device tensor"
+        assert np.asarray(g).tolist() == np.asarray(w).tolist(), key
+
+
+def mapped_fingerprint(fingerprint):
+    """A reference plan fingerprint with the JAX package's module prefix
+    mapped to the port's (callables are keyed by qualified name), and a
+    test file's ``*_ref`` callables to their ``*_port`` twins."""
+    def walk(x):
+        if isinstance(x, tuple):
+            return tuple(walk(v) for v in x)
+        if isinstance(x, str) and x.startswith("spark_rapids_jni_tpu."):
+            return "spark_rapids_jni_tpu_torch." + x[len(
+                "spark_rapids_jni_tpu."):]
+        if isinstance(x, str) and x.endswith("_ref"):
+            return x[:-len("_ref")] + "_port"
+        return x
+    return walk(fingerprint)
+
+
+# ---- the bridge's C ABI, driven through ctypes -----------------------------
+
+# the reference's 8-column table (RowConversionTest.java:30-39; the C self
+# test's): (type_id, scale, values), the last row null in every column
+RT_TABLE = [
+    (4, 0, np.array([3, 9, 4, 2, 20, 0], np.int64)),
+    (10, 0, np.array([5.0, 9.5, 0.9, 7.23, 2.8, 0.0], np.float64)),
+    (3, 0, np.array([5, 1, 0, 2, 7, 0], np.int32)),
+    (11, 0, np.array([1, 0, 0, 1, 0, 0], np.uint8)),
+    (9, 0, np.array([1.0, 3.5, 5.9, 7.1, 9.8, 0.0], np.float32)),
+    (1, 0, np.array([2, 3, 4, 5, 9, 0], np.int8)),
+    (25, -3, np.array([5000, 9500, 900, 7230, 2800, 0], np.int32)),
+    (26, -8, np.array([300000000, 900000000, 400000000, 200000000,
+                       2000000000, 0], np.int64)),
+]
+RT_VALID = np.array([1, 1, 1, 1, 1, 0], bool)
+
+
+def rt_check(lib, ok: bool, what: str) -> None:
+    assert ok, f"{what}: {lib.tpudf_rt_last_error()!r}"
+
+
+def rt_column(lib, type_id: int, scale: int, data: np.ndarray,
+              valid=None) -> int:
+    """``tpudf_rt_column_from_host`` of a host array (DECIMAL128: int64
+    limb pairs); ``valid`` bool[n] or None."""
+    data = np.ascontiguousarray(data)
+    vbytes = None if valid is None else np.asarray(valid, np.uint8).tobytes()
+    h = lib.tpudf_rt_column_from_host(type_id, scale, data.shape[0],
+                                      data.tobytes(), data.nbytes, vbytes)
+    rt_check(lib, h > 0, "column_from_host")
+    return h
+
+
+def rt_table(lib, handles) -> int:
+    import ctypes
+
+    arr = (ctypes.c_int64 * len(handles))(*handles)
+    h = lib.tpudf_rt_table_create(arr, len(handles))
+    rt_check(lib, h > 0, "table_create")
+    return h
+
+
+def rt_to_rows(lib, table: int, cap: int = 8) -> list:
+    import ctypes
+
+    out = (ctypes.c_int64 * cap)()
+    n = ctypes.c_int32(0)
+    rt_check(lib, lib.tpudf_rt_convert_to_rows(table, out, cap,
+                                               ctypes.byref(n)) == 0,
+             "convert_to_rows")
+    return list(out[:n.value])
+
+
+def rt_rows_info(lib, rows: int) -> tuple:
+    import ctypes
+
+    n, size = ctypes.c_int64(0), ctypes.c_int64(0)
+    rt_check(lib, lib.tpudf_rt_rows_info(rows, ctypes.byref(n),
+                                         ctypes.byref(size)) == 0,
+             "rows_info")
+    return n.value, size.value
+
+
+def rt_rows_bytes(lib, rows: int) -> np.ndarray:
+    n, size = rt_rows_info(lib, rows)
+    buf = np.empty(n * size, np.uint8)
+    rt_check(lib, lib.tpudf_rt_rows_to_host(rows, buf.ctypes.data,
+                                            buf.nbytes) == 0, "rows_to_host")
+    return buf
+
+
+def rt_from_rows(lib, rows: int, schema) -> int:
+    """``tpudf_rt_convert_from_rows`` with ``[(type_id, scale), ...]``."""
+    import ctypes
+
+    k = len(schema)
+    tids = (ctypes.c_int32 * k)(*[tid for tid, _ in schema])
+    scales = (ctypes.c_int32 * k)(*[s for _, s in schema])
+    h = lib.tpudf_rt_convert_from_rows(rows, tids, scales, k)
+    rt_check(lib, h > 0, "convert_from_rows")
+    return h
+
+
+def rt_column_host(lib, table: int, i: int, width: int) -> tuple:
+    """Column ``i`` of a table handle: ((type_id, scale, rows), data
+    bytes, one byte of validity a row)."""
+    import ctypes
+
+    col = lib.tpudf_rt_table_column(table, i)
+    rt_check(lib, col > 0, "table_column")
+    tid, scale, n = ctypes.c_int32(0), ctypes.c_int32(0), ctypes.c_int64(0)
+    rt_check(lib, lib.tpudf_rt_column_info(
+        col, ctypes.byref(tid), ctypes.byref(scale), ctypes.byref(n)) == 0,
+        "column_info")
+    data = np.empty(n.value * width, np.uint8)
+    valid = np.empty(n.value, np.uint8)
+    rt_check(lib, lib.tpudf_rt_column_to_host(
+        col, data.ctypes.data, data.nbytes, valid.ctypes.data,
+        valid.nbytes) == 0, "column_to_host")
+    lib.tpudf_rt_free(col)
+    return (tid.value, scale.value, n.value), data, valid

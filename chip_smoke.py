@@ -154,8 +154,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    not probe); each path's host time (median of 3) beside its byte
    bound, and the phase's peak device memory (under 40 GiB);
 15. the readers, after the native library (``src/native``, built into
-   ``build/torch_native/`` beside nvcc's kernel build): SF10 lineitem
-   written as Parquet by ``chip_smoke_writers.py`` (bench.py's
+   ``build/torch_native/`` beside nvcc's kernel build): a quarter of
+   SF10 lineitem (``READER_ROWS``, 14,996,513 rows) written as Parquet
+   by ``chip_smoke_writers.py`` (bench.py's
    parquet_q1 layout: four unscaled INT64 money columns, the flags as
    INT32/INT_8 and l_shipdate as INT32/DATE with dictionaries;
    1,048,576-row row groups, 1 MiB snappy pages), ``read_table`` of it
@@ -192,7 +193,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the process's peak host memory; then the embedded-interpreter
    self test (a C program that owns ``Py_Initialize``) on the card
    where the interpreter has a shared libpython;
-17. one ``{"kernels": [...]}`` line, the card line, and the final
+17. the remaining operators over SF10 lineitem (59,986,052 rows of
+   ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
+   q5's l_orderkey and l_suppkey, a FLOAT64 price with NaN rows, a
+   DECIMAL128 column) and bench.py's log lines, none of which launches
+   a kernel of A-D (the counts read after each part), each against a
+   numpy oracle over every row: coalesce, nullif, greatest/least, abs,
+   ceil/floor (+-inf and +-1e30 planted, saturating), round and
+   pmod(l_orderkey, 200); the window PARTITION BY l_suppkey ORDER BY
+   l_shipdate (100,000 partitions: the rank family, lag/lead, the
+   running sum, ROWS 6 PRECEDING sum/mean/min/max, RANGE 30 PRECEDING
+   sum and max, the DECIMAL128 rolling sum, the FLOAT64 rolling
+   variance, first/last/nth value; the float functions bit-equal to the
+   CPU's over 1,000,000 rows) and PARTITION BY l_orderkey (15,000,000
+   partitions: row_number, running sum); collect_list of l_suppkey by
+   l_orderkey and collect_set of l_shipdate by l_suppkey, the array
+   functions over them, explode (inner, outer, position), the padded
+   layout and back, ``sequence(1, row_number)``, ``split`` + posexplode
+   of the log lines; a STRUCT of four amounts (every 13th null):
+   struct_field, unpack_struct and the groupby over its fields,
+   concatenate and contiguous_split, and a Parquet file of l_orderkey
+   and the STRUCT (definition levels 0/1/2) read back, decode and
+   assembly timed; each part's seconds and the phase's device peak;
+18. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -3248,7 +3271,10 @@ def _check_auto(auto, gtab) -> None:
 # ---- phase 15: the readers (Parquet footer, Parquet and ORC data readers,
 # chunked reads) staged through pinned memory ---------------------------------
 
-PARQUET_RG_ROWS = 1_048_576    # row group (58 of them at SF10)
+# phase 15's lineitem file: a quarter of SF10, 15 row groups (its reads
+# of the whole 2 GB SF10 file took 164 s of the script)
+READER_ROWS = SF10_ROWS // 4
+PARQUET_RG_ROWS = 1_048_576    # row group
 PARQUET_PAGE_ROWS = 131_072    # 1 MiB PLAIN INT64 pages, pyarrow's default
 CHUNK_READ_LIMIT = 256 * 2**20  # the chunked reads' byte budget
 ORC_ROWS = 6_000_000           # lineitem rows written as ORC
@@ -3368,8 +3394,9 @@ def _host_json_docs(n: int) -> tuple:
 
 
 def readers_phase(dev) -> tuple:
-    """Phase 15: the port's readers over SF10 lineitem written as Parquet
-    by ``chip_smoke_writers`` (the whole-file read, planned and fused q1
+    """Phase 15: the port's readers over a quarter of SF10 lineitem
+    (``READER_ROWS``) written as Parquet by ``chip_smoke_writers`` (the
+    whole-file read, planned and fused q1
     over it, the chunked reads, the footer), TPC-DS q72 over its
     catalog_sales read in chunks, lineitem as ORC, and the native JSON
     engine; each result held to the generator or the in-memory run."""
@@ -3411,9 +3438,9 @@ def readers_phase(dev) -> tuple:
         native.load_native()
         out["native_build"] = {"s": native.build_seconds}
 
-        # ---- (a) SF10 lineitem as Parquet, bench.py's parquet_q1 layout
+        # ---- (a) lineitem as Parquet, bench.py's parquet_q1 layout
         t0 = time.perf_counter()
-        gen = tpch.lineitem_table(ROWS, seed=0, device="cpu")
+        gen = tpch.lineitem_table(READER_ROWS, seed=0, device="cpu")
         host = [c.data.numpy() for c in gen.columns]
         cols = [w.ParquetColumn(name, host[i], w.INT64)
                 for i, name in enumerate(Q1_FILE_COLUMNS[:4])]
@@ -3422,14 +3449,15 @@ def readers_phase(dev) -> tuple:
                  for i in (4, 5)]
         cols.append(w.ParquetColumn("l_shipdate", host[6], w.INT32,
                                     w.CONV_DATE, dictionary=True))
-        path = DATA_DIR / "lineitem_sf10.parquet"
+        path = DATA_DIR / "lineitem.parquet"
         size = w.write_parquet(path, cols, PARQUET_RG_ROWS,
                                PARQUET_PAGE_ROWS)
         del cols
         write_s = time.perf_counter() - t0
         infos = row_group_info(path)
-        log(f"parquet lineitem: {ROWS} rows, {len(infos)} row groups, "
-            f"{size} bytes written in {write_s:.1f} s (numpy writer)")
+        log(f"parquet lineitem: {READER_ROWS} rows, {len(infos)} row "
+            f"groups, {size} bytes written in {write_s:.1f} s (numpy "
+            f"writer)")
         out["parquet_file"] = {"bytes": size, "row_groups": len(infos),
                                "write_s": write_s}
 
@@ -3454,7 +3482,7 @@ def readers_phase(dev) -> tuple:
             "staged_bytes": staged, "stage_gb_s": staged / med["stage_s"]
             / 1e9, "pinned_copy_ms": plain_ms,
             "pinned_copy_gb_s": staged / plain_ms / 1e6,
-            "rows_per_s": ROWS / med["total_s"]}
+            "rows_per_s": READER_ROWS / med["total_s"]}
         log(f"read_table(path) to the card: median of 3 {med['total_s']:.3f}"
             f" s = native decode {med['decode_s']:.3f} + copy-out into "
             f"pinned memory {med['copy_out_s']:.3f} + staging and casts "
@@ -3508,13 +3536,13 @@ def readers_phase(dev) -> tuple:
         s = host_median_s(parquet_q1)
         q1_s = host_median_s(lambda: tpch.tpch_q1_planned(li), warm=False)
         share, busy_ms, wall_ms = _busy_share(parquet_q1)
-        out["parquet_q1"] = {"s": s, "rows_per_s": ROWS / s,
+        out["parquet_q1"] = {"s": s, "rows_per_s": READER_ROWS / s,
                              "q1_planned_in_memory_s": q1_s,
                              "device_busy_share": share,
                              "device_busy_ms": busy_ms,
                              "profiled_wall_ms": wall_ms}
         log(f"parquet_q1 (read_table + planned q1, median of 3): "
-            f"{s:.3f} s, {ROWS / s:.4g} rows/s (planned q1 alone "
+            f"{s:.3f} s, {READER_ROWS / s:.4g} rows/s (planned q1 alone "
             f"{q1_s * 1e3:.3f} ms); device busy {busy_ms:.1f} ms of "
             f"{wall_ms:.1f} ms profiled, share {share:.4f}")
 
@@ -4018,6 +4046,840 @@ def executor_bridge_phase(dev) -> tuple:
     return launches, out
 
 
+SEQ_MAX = 1024  # sequence's per-row bound (the reference's default)
+WINDOW_CPU_SLICE = 1_000_000  # rows whose float window results the CPU
+# computes again, bit for bit
+
+
+def _h(x):
+    """A device tensor on the host (numpy)."""
+    return x.cpu().numpy()
+
+
+def _hv(col):
+    """A column's validity on the host (all True where it has none)."""
+    import numpy as np
+
+    if col.validity is None:
+        return np.ones(col.size, bool)
+    return _h(col.validity)
+
+
+def _np_segments(key_sorted):
+    """Segments of equal ``key_sorted`` values: (starts, sizes, each
+    row's start and end)."""
+    import numpy as np
+
+    n = key_sorted.shape[0]
+    new = np.empty(n, bool)
+    new[:1] = True
+    np.not_equal(key_sorted[1:], key_sorted[:-1], out=new[1:])
+    starts = np.flatnonzero(new).astype(np.int32)  # int32: half the bytes
+    sizes = np.diff(np.append(starts, np.int32(n)))
+    return (starts, sizes, np.repeat(starts, sizes),
+            np.repeat(starts + sizes - 1, sizes))
+
+
+def _np_prefix(x):
+    import numpy as np
+
+    out = np.zeros(x.shape[0] + 1, np.int64)
+    np.cumsum(x, out=out[1:])
+    return out
+
+
+def _np_range_reduce(ufunc, a, lo, hi, fill):
+    """``ufunc`` over a[lo_i .. hi_i] inclusive for every i (non-empty
+    ranges): one ``reduceat`` over the interleaved bounds."""
+    import numpy as np
+
+    ext = np.append(a, np.array([fill], a.dtype))
+    idx = np.empty(2 * lo.shape[0], np.int64)
+    idx[0::2], idx[1::2] = lo, hi + 1
+    return ufunc.reduceat(ext, idx)[0::2]
+
+
+def _np_times_1e20(s):
+    """(lo, hi) int64 limbs of the 128-bit s * 10^20 for |s| < 2^32: the
+    magnitude times the three 32-bit limbs of 10^20 (each product below
+    2^64), recombined with the one carry, then negated where s < 0. The
+    oracle of the DECIMAL128 rolling sums, whose inputs are
+    l_extendedprice x 10^20."""
+    import numpy as np
+
+    mag = np.abs(s).astype(np.uint64)
+    require(bool((mag >> np.uint64(32) == 0).all()), "|s| past 2^32")
+    m32 = np.uint64(0xFFFFFFFF)
+    c0, c1, c2 = ((10**20 >> (32 * k)) & 0xFFFFFFFF for k in range(3))
+    p0, p1 = mag * np.uint64(c0), mag * np.uint64(c1)
+    lo = p0 + ((p1 & m32) << np.uint64(32))
+    hi = mag * np.uint64(c2) + (p1 >> np.uint64(32)) + (lo < p0).astype(
+        np.uint64)
+    neg = s < 0
+    return (np.where(neg, ~lo + np.uint64(1), lo).view(np.int64),
+            np.where(neg, ~hi + (lo == 0).astype(np.uint64), hi).view(
+                np.int64))
+
+
+class _Part:
+    """One part of the operators phase: launches of A-D read at its end
+    (none allowed), its seconds logged."""
+
+    def __init__(self, name: str, parts: dict):
+        from spark_rapids_jni_tpu_torch.ops import kernels
+
+        self.name, self.parts = name, parts
+        kernels.reset_counts()
+        self.t0 = time.perf_counter()
+
+    def done(self) -> None:
+        from spark_rapids_jni_tpu_torch.ops import kernels
+
+        torch.cuda.synchronize()
+        s = time.perf_counter() - self.t0
+        require(kernels.launches() == {} and not kernels.fallbacks(),
+                f"{self.name}: launches {kernels.launches()}, fallbacks "
+                f"{kernels.fallbacks()}")
+        self.parts[self.name] = s
+        log(f"operators part {self.name}: {s:.1f} s, no launch of A-D")
+
+
+def _sync_s(fn):
+    """(result, seconds) of one run of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _equal_under(name, got, want_data, want_valid) -> None:
+    """A result column equal to a numpy oracle: validity everywhere, data
+    (bits, NaN positions) where valid."""
+    import numpy as np
+
+    gv = _hv(got)
+    require(np.array_equal(gv, want_valid), f"{name}: validity differs")
+    g, w = _h(got.data), np.asarray(want_data)
+    if not gv.all():
+        g, w = g[gv], w[gv]
+    if g.dtype.kind == "f":
+        nan = np.isnan(w)
+        require(np.array_equal(np.isnan(g), nan)
+                and np.array_equal(g[~nan], w[~nan]),
+                f"{name}: values differ")
+    else:
+        require(np.array_equal(g, w), f"{name}: values differ")
+
+
+def _near_under(name, got, want, want_valid, bound) -> float:
+    """A float result within ``bound`` (per row) of a numpy oracle where
+    valid, NaN where the oracle is; returns the largest difference."""
+    import numpy as np
+
+    gv = _hv(got)
+    require(np.array_equal(gv, want_valid), f"{name}: validity differs")
+    g, w = _h(got.data)[gv], want[gv]
+    nan = np.isnan(w)
+    require(np.array_equal(np.isnan(g), nan), f"{name}: NaN rows differ")
+    err = np.abs(g[~nan] - w[~nan])
+    require(bool((err <= bound[gv][~nan]).all()),
+            f"{name}: past 1e-12 of its scale")
+    return float(err.max(initial=0.0))
+
+
+def _elementwise_part(tab, neg, host, dev, out) -> None:
+    """coalesce, nullif, greatest/least, abs, ceil/floor, round and pmod
+    over every row against numpy."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import elementwise as ew
+    from spark_rapids_jni_tpu_torch.types import FLOAT64, INT64
+
+    QTY, PRICE, DISC, TAX, F64, OKEY = 0, 1, 2, 3, 9, 7
+    q, qv = host["qty"], host["qty_v"]
+    d, t = host["disc"], host["tax"]
+    col = tab.column
+    got, s = _sync_s(lambda: ew.coalesce([col(QTY), col(TAX)]))
+    _equal_under("coalesce", got, np.where(qv, q, t), np.ones_like(qv))
+    out["coalesce_s"] = s
+    got = ew.nullif(col(TAX), col(DISC))
+    _equal_under("nullif", got, t, t != d)
+    trio = [col(QTY), col(DISC), col(TAX)]
+    big = np.where(qv, q, np.iinfo(np.int64).min)
+    _equal_under("greatest", ew.greatest(trio),
+                 np.maximum(np.maximum(big, d), t), np.ones_like(qv))
+    small = np.where(qv, q, np.iinfo(np.int64).max)
+    _equal_under("least", ew.least(trio),
+                 np.minimum(np.minimum(small, d), t), np.ones_like(qv))
+    # abs of the price negated on the generator's neg rows
+    f = host["f64"]
+    neg_f = torch.where(neg, -col(F64).data, col(F64).data)
+    _equal_under("abs", ew.abs_(Column(FLOAT64, neg_f)), np.abs(f),
+                 np.ones_like(qv))
+    # ceil/floor with +-inf and +-1e30 planted beside the NaN rows
+    plant = np.array([1, 977, 20_011, 5_000_003]) % host["n"]
+    specials = np.array([np.inf, -np.inf, 1e30, -1e30])
+    fp = f.copy()
+    fp[plant] = specials
+    dev_fp = col(F64).data.clone()
+    dev_fp[torch.from_numpy(plant).to(dev)] = torch.tensor(
+        specials, device=dev)
+    src = Column(FLOAT64, dev_fp)
+    imax, imin = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    for name, fn, npf in (("ceil", ew.ceil, np.ceil),
+                          ("floor", ew.floor, np.floor)):
+        v = npf(fp)
+        safe = np.where(np.isfinite(v) & (np.abs(v) < 2.0 ** 63), v, 0.0)
+        want = np.where(np.isnan(v), 0, np.where(
+            v >= 2.0 ** 63, imax, np.where(v <= -2.0 ** 63, imin,
+                                           safe.astype(np.int64))))
+        got = fn(src)
+        require(got.dtype == INT64, f"{name}: not BIGINT")
+        _equal_under(name, got, want, np.ones_like(qv))
+    out["ceil_nan_rows"] = int(np.isnan(fp).sum())
+    # round(l_extendedprice, 0): HALF_UP, sign times the magnitude rounded
+    p = host["price"]
+    want = np.sign(p) * ((np.abs(p) + 50) // 100)
+    _equal_under("round_decimal", ew.round_decimal(col(PRICE), 0), want,
+                 np.ones_like(qv))
+    # pmod(l_orderkey, 200): Spark's default shuffle partition count
+    div = Column(col(OKEY).dtype, torch.full_like(col(OKEY).data, 200))
+    got, s = _sync_s(lambda: ew.pmod(col(OKEY), div))
+    _equal_under("pmod", got, host["okey"] % 200, np.ones_like(qv))
+    out["pmod_s"] = s
+
+
+def _window_oracle(host, part_key, bits):
+    """The sort by (part_key, l_shipdate), its segments and peer
+    groups, as numpy arrays."""
+    import numpy as np
+
+    key = (part_key.astype(np.int64) << 14) | host["ship"]
+    order = _radix_order(key, bits + 14)
+    ks = key[order]
+    pstarts, psize, p_start, p_end = _np_segments(part_key[order])
+    _, _, peer_start, peer_end = _np_segments(ks)
+    return order, ks, pstarts, psize, p_start, p_end, peer_start, peer_end
+
+
+def _window_part(tab, host, dev, out) -> dict:
+    """The supplier window (100,000 partitions of ~600 rows) and the
+    order window (15,000,000 partitions of 1-18 rows) against numpy; the
+    float functions bit-equal to the CPU's over a 1,000,000-row slice.
+    The oracles live in sort order: each result is gathered into it on
+    the card (a host scatter of 60M rows costs ~2 s)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.column import take
+    from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+    from spark_rapids_jni_tpu_torch.ops.window import Window
+
+    QTY, PRICE, SHIP, OKEY, SKEY, F64, D128 = 0, 1, 6, 7, 8, 9, 11
+    n = host["n"]
+    idx = np.arange(n, dtype=np.int32)
+    laps, t_lap = [], [time.perf_counter()]
+
+    def lap(step):
+        t = time.perf_counter()
+        laps.append(f"{step} {t - t_lap[0]:.1f}")
+        t_lap[0] = t
+
+    w, s = _sync_s(lambda: Window(tab, [SKEY], [SHIP]))
+    out["supplier_window_s"] = s
+    o, ks, pstarts, psize, p_start, p_end, peer_start, peer_end = \
+        host["sorts"]["supplier"].result()
+    host["supp_ship_sorted"] = ks
+    o_dev = torch.from_numpy(o).to(dev)
+    log(f"window by l_suppkey: {psize.size} partitions, sorted in "
+        f"{s:.3f} s on the card")
+    lap("oracle sort")
+
+    def S(col):
+        """A result column in the oracle's sort order."""
+        return Column(col.dtype, take(col.data, o_dev),
+                      None if col.validity is None else col.validity[o_dev])
+
+    every = np.ones(n, bool)
+    size = p_end - p_start + 1
+    rank = peer_start - p_start + 1
+    peer_new = np.empty(n, bool)
+    peer_new[0] = True
+    np.not_equal(ks[1:], ks[:-1], out=peer_new[1:])
+    dcum = np.cumsum(peer_new, dtype=np.int32)
+    pos = idx - p_start
+    q4, r4 = size // 4, size % 4
+    big4 = r4 * (q4 + 1)
+    tile = np.where(pos < big4, pos // np.maximum(q4 + 1, 1),
+                    r4 + (pos - big4) // np.maximum(q4, 1)) + 1
+    ints = {
+        "row_number": (w.row_number, pos + 1),
+        "rank": (w.rank, rank),
+        "dense_rank": (w.dense_rank, dcum - dcum[p_start] + 1),
+        "ntile_4": (lambda: w.ntile(4), tile),
+    }
+    for name, (fn, want) in ints.items():
+        _equal_under(name, S(fn()), want, every)
+    _equal_under("percent_rank", S(w.percent_rank()),
+                 (rank - 1).astype(np.float64)
+                 / np.maximum(size - 1, 1).astype(np.float64), every)
+    _equal_under("cume_dist", S(w.cume_dist()),
+                 (peer_end - p_start + 1).astype(np.float64)
+                 / size.astype(np.float64), every)
+    lap("rank family")
+    price = host["price"][o]
+    _equal_under("lag", S(w.lag(PRICE)), np.roll(price, 1),
+                 idx - 1 >= p_start)
+    _equal_under("lead", S(w.lead(PRICE)), np.roll(price, -1),
+                 idx + 1 <= p_end)
+    qv = host["qty_v"][o]
+    qsrc = host["qty"][o]
+    qpre, cpre = _np_prefix(np.where(qv, qsrc, 0)), _np_prefix(qv)
+    got, s = _sync_s(lambda: w.running_sum(QTY))
+    _equal_under("running_sum", S(got), qpre[idx + 1] - qpre[p_start],
+                 cpre[idx + 1] - cpre[p_start] > 0)
+    out["running_sum_s"] = s
+    lap("lag, lead, running sum")
+    # ROWS BETWEEN 6 PRECEDING AND CURRENT ROW
+    lo = np.maximum(idx - 6, p_start)
+    ppre = _np_prefix(price)
+    psum = ppre[idx + 1] - ppre[lo]
+    got, s = _sync_s(lambda: w.rolling_sum(PRICE, 6))
+    _equal_under("rolling_sum", S(got), psum, every)
+    out["rolling_sum_s"] = s
+    absp = _np_prefix(np.abs(price))
+    scale = (absp[idx + 1] - absp[p_start]).astype(np.float64) * 0.01
+    want = psum.astype(np.float64) / (idx - lo + 1).astype(np.float64) * 0.01
+    out["rolling_mean_max_err"] = _near_under(
+        "rolling_mean", S(w.rolling_mean(PRICE, 6)), want, every,
+        1e-12 * scale)
+    qcnt = cpre[idx + 1] - cpre[lo]
+    _equal_under("rolling_min", S(w.rolling_min(QTY, 6)), _np_range_reduce(
+        np.minimum, np.where(qv, qsrc, 1 << 62), lo, idx, 1 << 62),
+        qcnt > 0)
+    _equal_under("rolling_max", S(w.rolling_max(QTY, 6)), _np_range_reduce(
+        np.maximum, np.where(qv, qsrc, -(1 << 62)), lo, idx, -(1 << 62)),
+        qcnt > 0)
+    lap("ROWS frames")
+    # RANGE BETWEEN 30 PRECEDING AND CURRENT ROW on l_shipdate (peers in)
+    rlo = np.searchsorted(ks, ks - 30, side="left")
+    rhi = peer_end  # the frame's end is the last row of the same day
+    got, s = _sync_s(lambda: w.rolling_sum(QTY, 30, 0, "range"))
+    _equal_under("range_sum", S(got), qpre[rhi + 1] - qpre[rlo],
+                 cpre[rhi + 1] - cpre[rlo] > 0)
+    out["range_sum_s"] = s
+    got, s = _sync_s(lambda: w.rolling_max(PRICE, 30, 0, "range"))
+    _equal_under("range_max", S(got), _np_range_reduce(
+        np.maximum, price, rlo, rhi, 0), every)
+    out["range_max_s"] = s
+    out["range_widest"] = int((rhi - rlo + 1).max())
+    del rlo
+    lap("RANGE frames")
+    # DECIMAL128 rolling sum (l_extendedprice x 10^20, negated rows)
+    spre = _np_prefix(np.where(host["neg"][o], -price, price))
+    lo_l, hi_l = _np_times_1e20(spre[idx + 1] - spre[lo])
+    got = S(w.rolling_sum(D128, 6))
+    require(bool(got.valid_mask().all()), "rolling_sum128: a null frame")
+    g = _h(got.data)
+    require(np.array_equal(g[:, 0], lo_l) and np.array_equal(g[:, 1], hi_l),
+            "rolling_sum128 differs from the exact sums")
+    del spre, lo_l, hi_l, g
+    lap("DECIMAL128 sum")
+    # rolling var of the FLOAT64 price over the same frames: a two-pass
+    # numpy variance per frame; like the reference, a NaN row makes its
+    # whole partition's variances NaN (they centre on the partition mean)
+    f = host["f64"][o]
+    fz = np.where(np.isnan(f), 0.0, f)
+    fpre = np.concatenate([[0.0], np.cumsum(fz)])
+    cnt = (idx - lo + 1).astype(np.float64)
+    mean = (fpre[idx + 1] - fpre[lo]) / cnt
+    ss = (fz - mean) ** 2
+    for k in range(1, 7):  # the row k back, where the frame holds it
+        d = np.zeros(n)
+        d[k:] = (fz[:-k] - mean[k:]) ** 2
+        ss += np.where(idx - k >= lo, d, 0.0)
+    want = ss / np.maximum(cnt - 1, 1)
+    pnan = np.add.reduceat(np.isnan(f).astype(np.int64), pstarts)
+    want[np.repeat(pnan > 0, psize)] = np.nan
+    sq = np.concatenate([[0.0], np.cumsum(fz * fz)])
+    out["rolling_var_max_err"] = _near_under(
+        "rolling_var", S(w.rolling_var(F64, 6)), want, cnt > 1,
+        1e-12 * (sq[p_end + 1] - sq[p_start]))
+    out["rolling_var_nan_partitions"] = int((pnan > 0).sum())
+    del ss, d, mean, fz, fpre, sq
+    lap("rolling var")
+    _equal_under("first_value", S(w.first_value(PRICE)), price[p_start],
+                 every)
+    _equal_under("last_value", S(w.last_value(PRICE)), price[peer_end],
+                 every)
+    _equal_under("nth_value", S(w.nth_value(PRICE, 2)),
+                 price[np.minimum(p_start + 1, n - 1)],
+                 p_start + 1 <= peer_end)
+    del w, o_dev
+    torch.cuda.empty_cache()
+
+    lap("first/last/nth")
+    # the float functions on the card bit-equal to the CPU's, 1M rows
+    k = min(WINDOW_CPU_SLICE, n)
+    head = trim_table(tab, k)
+    head_cpu = Table([Column(c.dtype, c.data.cpu(), None if c.validity is
+                             None else c.validity.cpu())
+                      for c in head.columns])
+    wg, wc = Window(head, [SKEY], [SHIP]), Window(head_cpu, [SKEY], [SHIP])
+    for name, call in (("percent_rank", lambda x: x.percent_rank()),
+                       ("cume_dist", lambda x: x.cume_dist()),
+                       ("rolling_mean", lambda x: x.rolling_mean(PRICE, 6)),
+                       ("rolling_var", lambda x: x.rolling_var(F64, 6)),
+                       ("running_sum_f64", lambda x: x.running_sum(F64)),
+                       ("rolling_sum_f64", lambda x: x.rolling_sum(F64, 6))):
+        a, b = call(wg), call(wc)
+        require(torch.equal(_bits(a.data.cpu()), _bits(b.data))
+                and torch.equal(a.valid_mask().cpu(), b.valid_mask()),
+                f"{name}: the card's bits differ from the CPU's")
+    del wg, wc, head, head_cpu
+    lap("CPU slice")
+    log(f"window by l_suppkey: 22 functions equal to numpy over {n} rows "
+        f"(rolling mean within {out['rolling_mean_max_err']:.3g}, var "
+        f"within {out['rolling_var_max_err']:.3g}; {int((pnan > 0).sum())}"
+        f" partitions with a NaN price); 6 float functions bit-equal to "
+        f"the CPU over {k} rows")
+
+    # PARTITION BY l_orderkey ORDER BY l_shipdate: many tiny partitions
+    w2, s = _sync_s(lambda: Window(tab, [OKEY], [SHIP]))
+    out["order_window_s"] = s
+    o2, _, _, psize2, p_start2, _, _, _ = host["sorts"]["order"].result()
+    o_dev = torch.from_numpy(o2).to(dev)
+    r, s = _sync_s(w2.row_number)
+    _equal_under("row_number (orders)", S(r), idx - p_start2 + 1, every)
+    out["order_row_number_s"] = s
+    pre2 = _np_prefix(host["price"][o2])
+    got, s = _sync_s(lambda: w2.running_sum(PRICE))
+    _equal_under("running_sum (orders)", S(got),
+                 pre2[idx + 1] - pre2[p_start2], every)
+    out["order_running_sum_s"] = s
+    log(f"window by l_orderkey: {psize2.size} partitions of "
+        f"{int(psize2.min())}-{int(psize2.max())} rows, row_number and "
+        f"running_sum equal to numpy")
+    del w2, o_dev
+    lap("order window")
+    log("window part steps (s): " + ", ".join(laps))
+    # row_number, held equal to numpy just above, feeds sequence(1, r)
+    return {"row_number": r, "rn_host": _h(r.data)}
+
+
+def _pair_order(host, okey_order):
+    """The orders' (group, l_suppkey) pairs in l_orderkey order and the
+    stable permutation sorting them (the sort_array and array_distinct
+    oracles)."""
+    import numpy as np
+
+    o1 = okey_order.result()
+    starts, counts, _, _ = _np_segments(host["okey"][o1])
+    gid = np.repeat(np.arange(starts.size, dtype=np.int64), counts)
+    pair = (gid << 17) | host["skey"][o1]
+    return pair, _radix_order(pair, 41)
+
+
+def _bits(x):
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+def _list_part(tab, host, dev, rn, out) -> None:
+    """collect_list / collect_set, the array functions over them,
+    explode and posexplode, the padded layout, sequence(1, r) and split
+    + posexplode of the log lines, against numpy."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import bench_strings as bs
+    from spark_rapids_jni_tpu_torch.ops import lists as ls
+    from spark_rapids_jni_tpu_torch.ops import strings_fns as sf
+    from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+    from spark_rapids_jni_tpu_torch.types import INT64
+
+    SHIP, OKEY, SKEY = 6, 7, 8
+    n = host["n"]
+    okey, skey = host["okey"], host["skey"]
+    laps, t_lap = [], [time.perf_counter()]
+
+    def lap(step):
+        t = time.perf_counter()
+        laps.append(f"{step} {t - t_lap[0]:.1f}")
+        t_lap[0] = t
+    res, s = _sync_s(lambda: ls.groupby_collect(
+        Table([tab.column(OKEY), tab.column(SKEY)]), [0], 1))
+    out["collect_list_s"] = s
+    g = int(res.num_groups)
+    o1 = host["sorts"]["okey"].result()
+    starts, counts, _, _ = _np_segments(okey[o1])
+    child = skey[o1]
+    require(g == starts.size, "collect_list: group count")
+    coll = trim_table(res.table, g)
+    L1 = coll.column(1)
+    offs = _np_prefix(counts)
+    require(np.array_equal(_h(coll.column(0).data), okey[o1][starts])
+            and np.array_equal(_h(L1.data), offs)
+            and np.array_equal(_h(L1.children[0].data)[:n], child),
+            "collect_list differs from the key-sorted rows")
+    log(f"collect_list(l_suppkey) by l_orderkey: {g} lists of "
+        f"{int(counts.min())}-{int(counts.max())} in {s:.3f} s, equal to "
+        f"numpy")
+    lap("collect_list")
+    every = np.ones(g, bool)
+    gid = np.repeat(np.arange(g), counts)
+    pos_in = np.arange(n) - np.repeat(starts, counts)
+    _equal_under("array_size", ls.array_size(L1), counts, every)
+    v = int(skey[12345 % n])
+    hits = child == v
+    _equal_under("array_contains", ls.array_contains(L1, v),
+                 np.add.reduceat(hits.astype(np.int64), starts) > 0, every)
+    _equal_under("element_at 1", ls.element_at(L1, 1), child[starts], every)
+    _equal_under("element_at -1", ls.element_at(L1, -1),
+                 child[starts + counts - 1], every)
+    _equal_under("array_position", ls.array_position(L1, v), np.where(
+        np.add.reduceat(hits.astype(np.int64), starts) > 0,
+        np.minimum.reduceat(np.where(hits, pos_in, n), starts) + 1, 0),
+        every)
+    _equal_under("array_sum", ls.array_sum(L1),
+                 np.add.reduceat(child, starts), every)
+    _equal_under("array_min", ls.array_min(L1),
+                 np.minimum.reduceat(child, starts), every)
+    _equal_under("array_max", ls.array_max(L1),
+                 np.maximum.reduceat(child, starts), every)
+    lap("size, contains, element_at, position, sum, min, max")
+    pair, sp = host["sorts"]["pair"].result()
+    srt = ls.sort_array(L1)
+    require(np.array_equal(_h(srt.children[0].data)[:n], child[sp]),
+            "sort_array differs from numpy")
+    first = np.ones(n, bool)
+    first[1:] = pair[sp][1:] != pair[sp][:-1]
+    keep = np.zeros(n, bool)
+    keep[sp[first]] = True
+    dist = ls.array_distinct(L1)
+    require(np.array_equal(_h(dist.data), _np_prefix(
+        np.add.reduceat(keep.astype(np.int64), starts)))
+        and np.array_equal(_h(dist.children[0].data)[:int(keep.sum())],
+                           child[keep]), "array_distinct differs from numpy")
+    sl = ls.array_slice(L1, 2, 3)
+    take = (pos_in >= 1) & (pos_in < 4)
+    require(np.array_equal(_h(sl.data), _np_prefix(
+        np.clip(counts - 1, 0, 3)))
+        and np.array_equal(_h(sl.children[0].data)[:int(take.sum())],
+                           child[take]), "array_slice differs from numpy")
+    lap("sort_array, array_distinct, array_slice")
+    # arrays_overlap with the lists of l_suppkey + 1: a row overlaps when
+    # some s + 1 of the order is also in it
+    plus = ls.groupby_collect(Table([tab.column(OKEY), Column(
+        INT64, tab.column(SKEY).data + 1)]), [0], 1)
+    L2 = trim_table(plus.table, g).column(1)
+    uniq = pair[sp][first]
+    probe = (gid.astype(np.int64) << 17) | (child + 1)
+    at = np.minimum(np.searchsorted(uniq, probe), uniq.size - 1)
+    _equal_under("arrays_overlap", ls.arrays_overlap(L1, L2),
+                 np.add.reduceat((uniq[at] == probe).astype(np.int64),
+                                 starts) > 0, every)
+    del plus, L2, srt, dist
+    lap("arrays_overlap")
+    # explode: the (l_orderkey, l_suppkey) pairs in key-sorted stable order
+    keys_col = coll.column(0)
+    ex, s = _sync_s(lambda: ls.explode(coll, 1))
+    out["explode_s"] = s
+    require(int(ex.num_rows) == n and bool(ex.row_valid.all())
+            and np.array_equal(_h(ex.table.column(0).data), okey[o1])
+            and np.array_equal(_h(ex.table.column(1).data), child),
+            "explode differs from the key-sorted pairs")
+    pe = ls.explode(coll, 1, position=True)
+    require(np.array_equal(_h(pe.table.column(1).data), pos_in),
+            "posexplode positions differ")
+    del ex, pe
+    # explode_outer of the lists from the 5th element: empty lists give
+    # one row with a null element
+    tail = ls.array_slice(L1, 5, 3)
+    eo = ls.explode(Table([keys_col, tail]), 1, outer=True)
+    tl = np.clip(counts - 4, 0, 3)
+    rows = np.maximum(tl, 1)
+    total = int(rows.sum())
+    ev = _hv(eo.table.column(1))[:total]
+    want_v = np.repeat(tl > 0, rows)
+    sel = (pos_in >= 4) & (pos_in < 7)
+    require(int(eo.num_rows) == total and np.array_equal(ev, want_v)
+            and np.array_equal(_h(eo.table.column(1).data)[:total][ev],
+                               child[sel])
+            and np.array_equal(_h(eo.table.column(0).data)[:total],
+                               np.repeat(okey[o1][starts], rows)),
+            "explode_outer differs from numpy")
+    del eo, tail
+    lap("explode, posexplode, explode_outer")
+    # the padded wire layout and back, at the longest list's length
+    width = ls.max_list_length(L1)
+    require(width == int(counts.max()), "max_list_length")
+    padded, s = _sync_s(lambda: ls.pad_lists(L1, width))
+    back = ls.unpad_lists(padded)
+    require(padded.is_padded_list and np.array_equal(_h(back.data), offs)
+            and np.array_equal(_h(back.children[0].data)[:n], child),
+            "pad_lists / unpad_lists round trip differs")
+    out["pad_lists_s"] = s
+    del padded, back, coll, res, L1
+    torch.cuda.empty_cache()
+    log(f"array functions over the {g} lists equal to numpy; explode "
+        f"{n} rows in {out['explode_s']:.3f} s, posexplode, explode_outer "
+        f"({total} rows), pad/unpad at L = {width}")
+
+    lap("pad/unpad")
+    # collect_set of l_shipdate by l_suppkey
+    res, s = _sync_s(lambda: ls.groupby_collect(
+        Table([tab.column(SKEY), tab.column(SHIP)]), [0], 1, distinct=True))
+    out["collect_set_s"] = s
+    ks = host["supp_ship_sorted"]  # the window oracle's sorted keys
+    u = ks[np.append(True, ks[1:] != ks[:-1])]
+    g2 = int(res.num_groups)
+    sets = trim_table(res.table, g2).column(1)
+    require(g2 == np.unique(skey).size
+            and np.array_equal(_h(sets.data), _np_prefix(
+                np.bincount(u >> 14)[np.unique(skey)]))
+            and np.array_equal(_h(sets.children[0].data)[:u.size],
+                               u & 0x3FFF),
+            "collect_set differs from numpy's unique pairs")
+    log(f"collect_set(l_shipdate) by l_suppkey: {g2} sets, {u.size} "
+        f"values in {s:.3f} s, equal to numpy")
+    del res, sets
+
+    lap("collect_set")
+    # sequence(1, r), r the order window's row_number
+    r = rn["row_number"]
+    ones = Column(INT64, torch.ones_like(r.data))
+    seq, s = _sync_s(lambda: ls.sequence(ones, r, max_length=SEQ_MAX))
+    out["sequence_s"] = s
+    rh = rn["rn_host"]
+    soff = _np_prefix(rh)
+    total = int(soff[-1])
+    require(np.array_equal(_h(seq.data), soff)
+            and seq.children[0].size == total
+            and np.array_equal(_h(seq.children[0].data),
+                               np.arange(total) - np.repeat(soff[:-1], rh)
+                               + 1), "sequence differs from numpy")
+    out["sequence_elements"] = total
+    log(f"sequence(1, row_number): {total} elements in {s:.3f} s, equal "
+        f"to numpy")
+    del seq, ones
+
+    lap("sequence")
+    # split on ' ' into at most 5 pieces, then posexplode
+    lines, words = bs.log_lines(n, seed=12)
+    sp_res = sf.split(lines, " ", max_pieces=5)
+    ex, s = _sync_s(lambda: ls.explode(Table([sp_res.column]), 0,
+                                       position=True))
+    out["split_posexplode_s"] = s
+    del sp_res
+    torch.cuda.empty_cache()
+    wt = np.ascontiguousarray(_h(words).T)  # (n, MAX_WORDS), -1 past
+    live = wt >= 0                           # the words
+    nwords = live.sum(1)
+    pieces = int(nwords.sum())
+    wstart = _np_prefix(nwords)
+    rowid = np.arange(n, dtype=np.int32)
+    ndig = np.ones(n, np.int16)
+    for p in range(1, len(str(max(n - 1, 0)))):
+        ndig += rowid >= 10 ** p
+    wlen = np.array([len(x) for x in bs.LOG_WORDS], np.int16)
+    slen = wlen[np.maximum(wt, 0)] + (wt == bs.ID_WORD) * ndig[:, None]
+    require(int(ex.num_rows) == pieces and bool(ex.row_valid.all())
+            and np.array_equal(_h(ex.table.column(0).data), np.arange(
+                pieces, dtype=np.int32) - np.repeat(
+                    wstart[:-1].astype(np.int32), nwords))
+            and np.array_equal(_h(ex.table.column(1).data), slen[live]),
+            "posexplode(split) differs from the word indices")
+    del wt, live, slen, rowid
+    rows = _sample_rows(n, SPLIT_SAMPLE, 21)
+    wstart = _np_prefix(nwords)
+    flat = np.concatenate([np.arange(wstart[i], wstart[i + 1])
+                           for i in rows])
+    got = _sampled_bytes(ex.table.column(1), flat)
+    want = [x.encode() for v in _sampled_bytes(lines, rows)
+            for x in v.decode().split(" ")]
+    require(got == want, "posexplode(split) differs from str.split")
+    log(f"split + posexplode: {pieces} rows in {s:.3f} s, positions and "
+        f"lengths equal to the word indices, {len(rows)} sampled rows' "
+        f"pieces equal to str.split")
+    out["split_pieces"] = pieces
+    del ex, lines, words
+    lap("split + posexplode")
+    log("list part steps (s): " + ", ".join(laps))
+
+
+def _struct_part(tab, host, dev, out) -> None:
+    """make_struct_column, struct_field, unpack_struct and the general
+    groupby over the fields, concatenate and contiguous_split with the
+    STRUCT, and a Parquet STRUCT file read back."""
+    import numpy as np
+
+    import chip_smoke_writers as w
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.ops import structs as st
+    from spark_rapids_jni_tpu_torch.ops import table_ops
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.parquet.reader import read_table
+
+    QTY, PRICE, DISC, TAX, RFLAG, LSTAT, OKEY = 0, 1, 2, 3, 4, 5, 7
+    n = host["n"]
+    sv = np.arange(n) % 13 != 0
+    sv_dev = torch.from_numpy(sv).to(dev)
+    fields = [tab.column(i) for i in (QTY, PRICE, DISC, TAX)]
+    s_col = st.make_struct_column(fields, sv_dev)
+    fh = [(host["qty"], host["qty_v"]), (host["price"], np.ones(n, bool)),
+          (host["disc"], np.ones(n, bool)), (host["tax"], np.ones(n, bool))]
+    for i, (d, v) in enumerate(fh):
+        _equal_under(f"struct_field {i}", st.struct_field(s_col, i), d,
+                     v & sv)
+    un = st.unpack_struct(Table([tab.column(RFLAG), tab.column(LSTAT),
+                                 s_col]), 2)
+    aggs = [(2, "sum"), (3, "sum"), (4, "sum"), (5, "sum"), (2, "count"),
+            (3, "count")]
+    res, s = _sync_s(lambda: groupby_aggregate(un, [0, 1], aggs,
+                                               max_groups=16))
+    out["struct_groupby_s"] = s
+    tb = res.compact()
+    # each row's group: its (flag, status) code, nulls first, through a
+    # lookup table of the present codes (no sort)
+    rk = np.where(host["rflag_v"], host["rflag"].astype(np.int64) + 129, 0)
+    lk = np.where(host["lstat_v"], host["lstat"].astype(np.int64) + 129, 0)
+    code = rk * 512 + lk
+    codes = np.flatnonzero(np.bincount(code, minlength=512 * 512))
+    remap = np.zeros(512 * 512, np.int64)
+    remap[codes] = np.arange(codes.size)
+    inv = remap[code]
+    require(tb.num_rows == codes.size, "struct groupby: group count")
+    for j, (ci, op) in enumerate(aggs):
+        d, v = fh[ci - 2]
+        vv = v & sv
+        if op == "sum":
+            want = np.bincount(inv, np.where(vv, d, 0),
+                               codes.size).astype(np.int64)
+        else:
+            want = np.bincount(inv, vv, codes.size).astype(np.int64)
+        require(np.array_equal(_h(tb.column(2 + j).data), want),
+                f"struct groupby {op} of field {ci - 2} differs")
+    log(f"STRUCT of 4 fields (every 13th null): struct_field, unpack_struct "
+        f"and the groupby by (l_returnflag, l_linestatus), {codes.size} "
+        f"groups, equal to numpy")
+    # concatenate and contiguous_split of a table holding the STRUCT
+    t2 = Table([tab.column(OKEY), s_col])
+    cat, s = _sync_s(lambda: table_ops.concatenate([t2, t2]))
+    out["struct_concatenate_s"] = s
+    cs = cat.column(1)
+    require(cs.size == 2 * n and torch.equal(cs.validity,
+                                             torch.cat([sv_dev, sv_dev]))
+            and all(torch.equal(cs.children[i].data[n:], fields[i].data)
+                    and torch.equal(cs.children[i].valid_mask()[:n],
+                                    fields[i].valid_mask())
+                    for i in range(4)), "concatenate of the STRUCT differs")
+    del cat, cs
+    cuts = [n // 3, 2 * n // 3]
+    pieces = table_ops.contiguous_split(t2, cuts)
+    bounds = [0] + cuts + [n]
+    require(all(p.column(1).size == b - a and torch.equal(
+        p.column(1).children[1].data, fields[1].data[a:b])
+        and torch.equal(p.column(1).validity, sv_dev[a:b])
+        for p, a, b in zip(pieces, bounds, bounds[1:])),
+        "contiguous_split of the STRUCT differs")
+    del pieces
+    # Parquet: l_orderkey and the STRUCT (an OPTIONAL group of OPTIONAL
+    # leaves, definition levels 0/1/2)
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    path = DATA_DIR / "lineitem_struct.parquet"
+    t0 = time.perf_counter()
+    size = w.write_parquet(path, [
+        w.ParquetColumn("l_orderkey", host["okey"], w.INT64),
+        w.ParquetGroup("amounts", [
+            w.ParquetColumn(name, d, w.INT64, w.CONV_DECIMAL, scale=2,
+                            precision=18, valid=v)
+            for name, (d, v) in zip(("l_quantity", "l_extendedprice",
+                                     "l_discount", "l_tax"), fh)], sv)],
+        PARQUET_RG_ROWS, PARQUET_PAGE_ROWS)
+    out["struct_parquet_write_s"] = time.perf_counter() - t0
+    tm = {}
+    got, s = _sync_s(lambda: read_table(str(path), device=dev, timings=tm))
+    path.unlink()
+    gs = got.column(1)
+    require(torch.equal(got.column(0).data, tab.column(OKEY).data)
+            and torch.equal(gs.validity, sv_dev)
+            and all(torch.equal(gs.children[i].valid_mask(),
+                                s_col.children[i].valid_mask() & sv_dev)
+                    and torch.equal(torch.where(
+                        gs.children[i].valid_mask(), gs.children[i].data, 0),
+                        torch.where(gs.children[i].valid_mask(),
+                                    fields[i].data, 0))
+                    and gs.children[i].dtype == fields[i].dtype
+                    for i in range(4)),
+            "the Parquet STRUCT read differs from the columns")
+    out["struct_parquet"] = {"bytes": size, "read_s": s, **tm}
+    log(f"Parquet STRUCT file ({size / 1e9:.2f} GB, written in "
+        f"{out['struct_parquet_write_s']:.1f} s): read_table {s:.3f} s = "
+        f"native decode {tm['decode_s']:.3f} + nested copy-out "
+        f"{tm['copy_out_s']:.3f} + assembly and staging "
+        f"{tm['assemble_s']:.3f}; equal to the columns under validity")
+
+
+def operators_phase(dev) -> dict:
+    """Phase 17: the remaining operators at SF10 width (59,986,052 rows of
+    ``tpch.lineitem_groupby_table``): elementwise, window, lists and
+    STRUCT, each against numpy, none launching a kernel of A-D."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    tab, neg = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
+    col = tab.column
+    host = {"n": ROWS, "qty": _h(col(0).data), "qty_v": _hv(col(0)),
+            "price": _h(col(1).data), "disc": _h(col(2).data),
+            "tax": _h(col(3).data), "rflag": _h(col(4).data),
+            "rflag_v": _hv(col(4)), "lstat": _h(col(5).data),
+            "lstat_v": _hv(col(5)), "ship": _h(col(6).data).astype(np.int64),
+            "okey": _h(col(7).data), "skey": _h(col(8).data),
+            "f64": _h(col(9).data), "neg": _h(neg)}
+    log(f"phase 17 table: {ROWS} rows on the card and the host in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # the oracles' three radix sorts run on host threads (numpy's sorts
+    # and gathers let go of the GIL) while the parts before them work
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+    okey_order = pool.submit(_radix_order, host["okey"], 24)
+    host["sorts"] = {
+        "supplier": pool.submit(_window_oracle, host, host["skey"], 17),
+        "order": pool.submit(_window_oracle, host, host["okey"], 24),
+        "okey": okey_order,
+        "pair": pool.submit(_pair_order, host, okey_order)}
+    parts, out = {}, {}
+    p = _Part("elementwise", parts)
+    _elementwise_part(tab, neg, host, dev, out)
+    p.done()
+    p = _Part("window", parts)
+    rn = _window_part(tab, host, dev, out)
+    p.done()
+    p = _Part("lists", parts)
+    _list_part(tab, host, dev, rn, out)
+    p.done()
+    del rn
+    torch.cuda.empty_cache()
+    p = _Part("struct", parts)
+    _struct_part(tab, host, dev, out)
+    p.done()
+    pool.shutdown()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = time.perf_counter() - t_phase
+    log(f"phase 17 (remaining operators): {total:.1f} s, device peak "
+        f"{peak:.2f} GiB; parts " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in parts.items()))
+    del tab
+    torch.cuda.empty_cache()
+    return {"s": total, "peak_gib": peak, "parts_s": parts, **out}
+
+
 def _start_native_build():
     """Build the readers' native library on a thread while nvcc builds
     the kernels; the returned call waits for it and raises its error."""
@@ -4128,6 +4990,8 @@ def main() -> int:
     rd_launches, path_times["readers"] = readers_phase(dev)
     ex_launches, path_times["executor_and_bridge"] = \
         executor_bridge_phase(dev)
+    # launches none of A-D (checked after each of its parts)
+    path_times["remaining_operators"] = operators_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,

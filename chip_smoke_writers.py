@@ -8,7 +8,10 @@ and ``tests/thrift_util.py``, one page or stream at a time instead of one
 value at a time:
 
 - Parquet: flat OPTIONAL columns (one RLE run of definition levels a
-  page, no nulls), v1 data pages of ``page_rows`` rows, SNAPPY pages
+  page, no nulls) and OPTIONAL groups of OPTIONAL leaves (a STRUCT:
+  definition levels 0 / 1 / 2, one bit-packed run a page, only the
+  present values in the page), v1 data pages of ``page_rows`` rows,
+  SNAPPY pages
   made of literal elements of at most 64 KiB (a valid snappy stream, the
   tests' encoder), PLAIN or RLE_DICTIONARY (a dictionary page a column
   chunk, then one bit-packed run of indices a page) encodings, and the
@@ -83,7 +86,7 @@ def thrift_struct(fields: dict) -> bytes:
 # ---- Parquet ---------------------------------------------------------------
 
 INT32, INT64 = 1, 2
-CONV_DATE, CONV_INT_8 = 6, 15
+CONV_DECIMAL, CONV_DATE, CONV_INT_8 = 5, 6, 15
 SNAPPY = 1
 PLAIN, RLE, RLE_DICT = 0, 3, 8
 PAGE_DATA, PAGE_DICT = 0, 2
@@ -142,26 +145,66 @@ def _page(page_type: int, uncompressed: bytes, header_fields: dict) -> bytes:
 
 class ParquetColumn:
     """One flat column: ``values`` (int32 or int64), its physical and
-    converted type, and ``dictionary`` (True: RLE_DICTIONARY over the
-    column's distinct values, PLAIN otherwise)."""
+    converted type (``scale``/``precision`` for DECIMAL), and
+    ``dictionary`` (True: RLE_DICTIONARY over the column's distinct
+    values, PLAIN otherwise). ``valid`` (bool per row) makes it a leaf of
+    a ``ParquetGroup`` with nulls of its own (PLAIN only)."""
 
     def __init__(self, name: str, values: np.ndarray, physical: int,
-                 converted=None, dictionary: bool = False):
+                 converted=None, dictionary: bool = False, scale=None,
+                 precision=None, valid=None):
         self.name, self.physical, self.converted = name, physical, converted
+        self.scale, self.precision = scale, precision
         self.values = np.ascontiguousarray(values, dtype=(
             np.int32 if physical == INT32 else np.int64))
+        self.valid = None if valid is None else np.asarray(valid, bool)
         self.dictionary = dictionary
         if dictionary:
             self.uniq, inv = np.unique(self.values, return_inverse=True)
             self.index = inv.astype(np.uint32).reshape(-1)
             self.bit_width = max(1, int(self.uniq.size - 1).bit_length())
 
+    def schema_element(self) -> dict:
+        se = {1: (T_I32, self.physical), 3: (T_I32, 1),
+              4: (T_BINARY, self.name)}
+        if self.converted is not None:
+            se[6] = (T_I32, self.converted)
+        if self.scale is not None:
+            se[7], se[8] = (T_I32, self.scale), (T_I32, self.precision)
+        return se
+
+
+class ParquetGroup:
+    """An OPTIONAL group (a STRUCT) of OPTIONAL leaves: ``valid`` marks
+    the present structs, each field's ``valid`` its present values."""
+
+    def __init__(self, name: str, fields: list, valid: np.ndarray):
+        self.name, self.fields = name, fields
+        self.valid = np.asarray(valid, bool)
+        self.values = fields[0].values  # the row count
+
+    def leaves(self) -> list:
+        """(path, column, definition levels) of each leaf: 0 where the
+        struct is null, 1 where the field is, 2 where the value is."""
+        return [([self.name, f.name], f,
+                 self.valid.astype(np.uint8) + (self.valid & f.valid))
+                for f in self.fields]
+
+
+def _leaves(columns: list) -> list:
+    out = []
+    for c in columns:
+        out += c.leaves() if isinstance(c, ParquetGroup) \
+            else [([c.name], c, None)]
+    return out
+
 
 def write_parquet(path, columns: list, row_group_rows: int,
                   page_rows: int) -> int:
-    """Write ``columns`` (``ParquetColumn``s of one length) to ``path``;
-    returns the file's size."""
+    """Write ``columns`` (``ParquetColumn``s and ``ParquetGroup``s of one
+    length) to ``path``; returns the file's size."""
     n = columns[0].values.size
+    leaves = _leaves(columns)
     row_groups = []
     with open(path, "wb") as fh:
         fh.write(b"PAR1")
@@ -169,7 +212,7 @@ def write_parquet(path, columns: list, row_group_rows: int,
         for rg_start in range(0, n, row_group_rows):
             rg_rows = min(row_group_rows, n - rg_start)
             chunks, rg_bytes = [], 0
-            for c in columns:
+            for path_names, c, defs_all in leaves:
                 chunk_start = pos
                 dict_off = None
                 if c.dictionary:
@@ -182,7 +225,11 @@ def write_parquet(path, columns: list, row_group_rows: int,
                 for p in range(rg_start, rg_start + rg_rows, page_rows):
                     k = min(page_rows, rg_start + rg_rows - p)
                     defs = rle_run(k, 1, 1)
-                    if c.dictionary:
+                    if defs_all is not None:  # a group's leaf
+                        lv = defs_all[p:p + k]
+                        defs = bitpacked_run(lv, 2)
+                        payload = c.values[p:p + k][lv == 2].tobytes()
+                    elif c.dictionary:
                         payload = bytes([c.bit_width]) + bitpacked_run(
                             c.index[p:p + k], c.bit_width)
                     else:
@@ -199,7 +246,7 @@ def write_parquet(path, columns: list, row_group_rows: int,
                 md = {1: (T_I32, c.physical),
                       2: (T_LIST, (T_I32, [RLE_DICT, RLE] if c.dictionary
                                    else [PLAIN, RLE])),
-                      3: (T_LIST, (T_BINARY, [c.name])),
+                      3: (T_LIST, (T_BINARY, path_names)),
                       4: (T_I32, SNAPPY), 5: (T_I64, rg_rows),
                       6: (T_I64, size), 7: (T_I64, size),
                       9: (T_I64, data_off)}
@@ -211,11 +258,12 @@ def write_parquet(path, columns: list, row_group_rows: int,
                                6: (T_I64, rg_bytes)})
         schema = [{4: (T_BINARY, "schema"), 5: (T_I32, len(columns))}]
         for c in columns:
-            se = {1: (T_I32, c.physical), 3: (T_I32, 1),
-                  4: (T_BINARY, c.name)}
-            if c.converted is not None:
-                se[6] = (T_I32, c.converted)
-            schema.append(se)
+            if isinstance(c, ParquetGroup):
+                schema.append({3: (T_I32, 1), 4: (T_BINARY, c.name),
+                               5: (T_I32, len(c.fields))})
+                schema += [f.schema_element() for f in c.fields]
+            else:
+                schema.append(c.schema_element())
         footer = thrift_struct({
             1: (T_I32, 1), 2: (T_LIST, (T_STRUCT, schema)),
             3: (T_I64, n), 4: (T_LIST, (T_STRUCT, row_groups)),

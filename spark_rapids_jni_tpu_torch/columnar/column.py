@@ -10,11 +10,13 @@ column has one of two layouts, as in the reference:
   matrix whose bytes past a row's length are zero
   (``ops/strings.py`` converts between them).
 
-A LIST column (``strings_fns.split``'s result) holds int32 offsets[n+1]
-into its one child in ``data`` and the child in ``children``, as in the
-reference; only its size, validity, host view and equality are ported
-(list operators wait for ``ops/lists.py``). Struct columns are not
-ported yet.
+A LIST column holds int32 offsets[n+1] into its one child in ``data``
+and the child in ``children``, as in the reference; in the padded wire
+layout (``ops/lists.py::pad_lists``) ``data`` holds int32 lengths[n]
+and the child is an (n, L) element matrix whose (n, L) validity is
+mandatory: that 2-D validity marks the layout. A STRUCT column holds a
+uint8[n] placeholder in ``data`` and its fields, of equal row counts,
+in ``children``.
 
 ``validity is None`` means "no null mask allocated — all rows valid",
 the tri-state cuDF uses (null_mask() == nullptr). Null slots in ``data``
@@ -69,7 +71,8 @@ class Column:
     validity: Optional[torch.Tensor] = None  # bool[n], True = valid
     # STRING columns only: the uint8 bytes (Arrow) or (n, W) matrix (padded)
     chars: Optional[torch.Tensor] = None
-    # LIST columns only: [element column]; data holds int32 offsets[n+1]
+    # LIST: [element column], data = int32 offsets[n+1] (or lengths[n]
+    # in the padded layout); STRUCT: the fields, data = uint8[n]
     children: Optional[list] = None
 
     def __post_init__(self) -> None:
@@ -86,8 +89,17 @@ class Column:
             if self.chars is not None:
                 raise ValueError("only STRING columns carry chars")
             return
+        if self.dtype.type_id == TypeId.STRUCT:
+            if not self.children:
+                raise ValueError("STRUCT column requires children")
+            if self.chars is not None:
+                raise ValueError("only STRING columns carry chars")
+            n = int(self.data.shape[0])
+            if any(f.size != n for f in self.children):
+                raise ValueError("STRUCT fields must have equal row counts")
+            return
         if self.children is not None:
-            raise ValueError("only LIST columns carry children")
+            raise ValueError("only LIST and STRUCT columns carry children")
         if self.dtype.is_string:
             if self.chars is None:
                 raise ValueError("string column requires chars buffer")
@@ -115,8 +127,8 @@ class Column:
                 )
         else:
             raise NotImplementedError(
-                f"{self.dtype} columns are not ported yet (fixed-width, "
-                "DECIMAL128 and STRING only)")
+                f"{self.dtype} columns are not ported (fixed-width, "
+                "DECIMAL128, STRING, LIST and STRUCT only)")
 
     @property
     def is_padded_string(self) -> bool:
@@ -125,9 +137,22 @@ class Column:
         return self.dtype.is_string and self.chars.ndim == 2
 
     @property
+    def is_padded_list(self) -> bool:
+        """LIST column in the padded wire layout: data = int32 lengths,
+        children[0] an (n, L) element matrix with mandatory (n, L)
+        element validity, the layout's marker."""
+        return (self.dtype.is_list
+                and self.children[0].validity is not None
+                and self.children[0].validity.ndim == 2)
+
+    @property
+    def is_struct(self) -> bool:
+        return self.dtype.type_id == TypeId.STRUCT
+
+    @property
     def size(self) -> int:
-        if self.dtype.is_list or (self.dtype.is_string
-                                  and not self.is_padded_string):
+        if (self.dtype.is_list and not self.is_padded_list) or (
+                self.dtype.is_string and not self.is_padded_string):
             return int(self.data.shape[0]) - 1
         return int(self.data.shape[0])
 
@@ -229,26 +254,29 @@ class Column:
 
     def to_pylist(self) -> list:
         data, mask = self.to_numpy()
+        if self.is_padded_list:
+            elem = self.children[0]
+            mat, ev = elem.data.cpu().numpy(), elem.validity.cpu().numpy()
+            return [None if mask is not None and not mask[i]
+                    else [_host_value(elem.dtype, mat[i, j]) if ev[i, j]
+                          else None for j in range(data[i])]
+                    for i in range(self.size)]
         if self.dtype.is_list:
             child = self.children[0].to_pylist()
             return [None if mask is not None and not mask[i]
                     else child[data[i]:data[i + 1]]
                     for i in range(self.size)]
+        if self.is_struct:
+            fields = [f.to_pylist() for f in self.children]
+            return [None if mask is not None and not mask[i]
+                    else tuple(f[i] for f in fields)
+                    for i in range(self.size)]
         if self.dtype.is_string:
             return [None if mask is not None and not mask[i] else b.decode()
                     for i, b in enumerate(self.row_bytes())]
-        out = []
-        for i in range(self.size):
-            if mask is not None and not mask[i]:
-                out.append(None)
-            elif self.dtype.type_id == TypeId.BOOL8:
-                out.append(bool(data[i]))
-            elif self.dtype.is_decimal128:
-                lo = int(np.uint64(data[i, 0]))
-                out.append((int(data[i, 1]) << 64) | lo)
-            else:
-                out.append(data[i].item())
-        return out
+        return [None if mask is not None and not mask[i]
+                else _host_value(self.dtype, data[i])
+                for i in range(self.size)]
 
     # ---- comparison (test oracle) -------------------------------------
 
@@ -261,8 +289,18 @@ class Column:
         b_valid = other.valid_mask().to(a_valid.device)
         if not torch.equal(a_valid, b_valid):
             return False
+        if self.is_padded_list or other.is_padded_list:
+            from spark_rapids_jni_tpu_torch.ops.lists import unpad_lists
+
+            return unpad_lists(self).equals(unpad_lists(other))
         if self.dtype.is_list:
             return self._list_rows_equal(other, a_valid)
+        if self.is_struct:
+            # the fields must agree on the rows where the struct is valid
+            rows = torch.nonzero(a_valid).flatten()
+            return len(self.children) == len(other.children) and all(
+                _take_rows(a, rows).equals(_take_rows(b, rows.to(b.device)))
+                for a, b in zip(self.children, other.children))
         if self.dtype.is_string:
             from spark_rapids_jni_tpu_torch.ops.strings import (
                 pad_to_common_width,
@@ -310,13 +348,25 @@ class Column:
                 f"device={self.device})")
 
 
+def _host_value(dtype: DType, v):
+    """One fixed-width or DECIMAL128 host value as a Python object."""
+    if dtype.type_id == TypeId.BOOL8:
+        return bool(v)
+    if dtype.is_decimal128:
+        return (int(v[1]) << 64) | int(np.uint64(v[0]))
+    return v.item()
+
+
 def _take_rows(col: Column, idx: torch.Tensor) -> Column:
-    """The rows ``idx`` of a fixed-width or STRING column."""
+    """The rows ``idx`` of a fixed-width, STRING or STRUCT column."""
     if col.dtype.is_string:
         from spark_rapids_jni_tpu_torch.ops.strings import gather_strings
 
         return gather_strings(col, idx)
     validity = None if col.validity is None else col.validity[idx]
+    if col.is_struct:
+        return Column(col.dtype, col.data[idx], validity,
+                      children=[_take_rows(f, idx) for f in col.children])
     return Column(col.dtype, take(col.data, idx), validity)
 
 

@@ -480,6 +480,61 @@ def _segmented_extremum(vv: torch.Tensor, first_row: torch.Tensor,
     return run
 
 
+def _assoc_scan(combine, elems: list) -> list:
+    """``jax.lax.associative_scan`` along dim 0 with its pairing: combine
+    adjacent pairs, scan the half recursively, then fill the even
+    positions, ~2·log2(n) passes. Each element of the result is the same
+    tree of ``combine`` calls as the reference's, so float adds round
+    alike (each add is one IEEE operation on either device)."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _assoc_scan(combine, combine([e[0:-1:2] for e in elems],
+                                       [e[1::2] for e in elems]))
+    tail = [e[2::2] for e in elems]
+    even = combine([o[:-1] for o in odd] if n % 2 == 0 else odd, tail)
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(e)
+        r[0] = e[0]
+        r[2::2] = ev
+        r[1::2] = od
+        out.append(r)
+    return out
+
+
+def _segmented_sum_scan(stack: torch.Tensor,
+                        seg_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum of each lane of ``stack`` (n, k) within the
+    segments that start where ``seg_start`` is True. Integer lanes are a
+    cumsum less its value before the segment's first row: exact, wrapping
+    included. Float lanes never difference global prefixes (small
+    segments after large ones would cancel away): they take the
+    reference's segmented-sum scan, (value, flag) pairs combined as
+    ``where(flag_b, v_b, v_a + v_b)`` in ``associative_scan``'s order, so
+    each sum is bit-identical to the reference's."""
+    n = stack.shape[0]
+    if n == 0:
+        return stack
+    if not stack.is_floating_point():
+        first = _starts(seg_start)
+        cs = torch.cumsum(stack, 0)
+        return cs - (cs[first] - stack[first])
+
+    def combine(a, b):
+        (av, af), (bv, bf) = a, b
+        return [torch.where(bf[:, None], bv, av + bv), af | bf]
+
+    return _assoc_scan(combine, [stack, seg_start])[0]
+
+
+def _starts(seg_start: torch.Tensor) -> torch.Tensor:
+    """Each row's segment start (int64): a binary search of the
+    non-decreasing segment ids, as ``_Groups.first_row``."""
+    sid = torch.cumsum(seg_start.to(torch.int64), 0)
+    return torch.searchsorted(sid, sid)
+
+
 def _to_f64(x: torch.Tensor) -> torch.Tensor:
     """Values as float64, uint64 by its unsigned value (two exact 32-bit
     halves, one rounding)."""

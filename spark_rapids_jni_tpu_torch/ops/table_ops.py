@@ -27,10 +27,13 @@ from spark_rapids_jni_tpu_torch.types import DType, TypeId
 
 def _slice_column(c: Column, lo: int, hi: int) -> Column:
     """Rows [lo, hi) of one column, every layout: fixed-width, limb pair,
-    padded string, Arrow string and LIST (whose offsets are re-based to
-    the slice's first byte or element, one host read of the two
-    bounds)."""
+    padded string, Arrow string, STRUCT (its fields sliced alike) and
+    LIST (whose offsets are re-based to the slice's first byte or
+    element, one host read of the two bounds)."""
     validity = None if c.validity is None else c.validity[lo:hi]
+    if c.is_struct:
+        return Column(c.dtype, c.data[lo:hi], validity, children=[
+            _slice_column(f, lo, hi) for f in c.children])
     if c.dtype.is_list or (c.dtype.is_string and not c.is_padded_string):
         base_lo, base_hi = (int(v) for v in c.data[[lo, hi]].tolist())
         offsets = c.data[lo:hi + 1] - base_lo
@@ -72,6 +75,10 @@ def _concat_columns(cols: Sequence[Column]) -> Column:
         validity = None  # keep the no-null-mask form
     else:
         validity = torch.cat([c.valid_mask() for c in cols])
+    if cols[0].is_struct:
+        return Column(dtype, torch.cat([c.data for c in cols]), validity,
+                      children=[_concat_columns([c.children[i] for c in cols])
+                                for i in range(len(cols[0].children))])
     if dtype.is_list:
         # host-level: trim each child to its live element range, shift
         # the offsets by the running child total, concat the children
@@ -112,7 +119,8 @@ def concatenate(tables: Sequence[Table]) -> Table:
     """Row-wise concatenation (cuDF ``concatenate``): schemas must match;
     string columns concatenate in either layout (Arrow offsets re-based
     on the device; padded layouts widened to the widest), LIST columns
-    with their children trimmed to the live elements."""
+    with their children trimmed to the live elements, STRUCT columns
+    field by field."""
     tables = list(tables)
     if not tables:
         raise ValueError("concatenate needs at least one table")

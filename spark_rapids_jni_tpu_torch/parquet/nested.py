@@ -3,16 +3,19 @@
 
 The native reader decodes nested leaves into compact present values plus
 raw definition and repetition levels, and dumps the schema tree as text.
-This module rebuilds the tree and assembles a top-level LIST of a
-primitive or string element (the standard 3-level ``optional group
-(LIST) { repeated group list { element } }``) as the port's LIST column:
-int32 offsets, validity and one child. The level arithmetic runs in numpy
-on the host, where the levels are by construction; the assembled buffers
-are then staged to the target device.
+This module rebuilds the tree and assembles the shapes the reference
+assembles, as the port's columns:
 
-STRUCT columns are not ported (``columnar/column.py`` has no STRUCT
-column yet): ``assemble_struct`` raises, and waits for ROADMAP.md Queue 1
-entry 9.
+- STRUCTs of primitives and strings, nested to any depth (no lists
+  inside): a STRUCT column whose fields share its row count;
+- a top-level LIST of a primitive or string element (the standard
+  3-level ``optional group (LIST) { repeated group list { element } }``):
+  int32 offsets, validity and one child.
+
+Other shapes (a LIST of STRUCTs, a STRUCT holding a LIST) raise
+``NotImplementedError`` as the reference does. The level arithmetic runs
+in numpy on the host, where the levels are by construction; the
+assembled buffers are then staged to the target device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from spark_rapids_jni_tpu_torch import types as t
 from spark_rapids_jni_tpu_torch.columnar import Column
-from spark_rapids_jni_tpu_torch.types import DType
+from spark_rapids_jni_tpu_torch.types import DType, TypeId
 
 _CONV_LIST = 3  # parquet ConvertedType.LIST
 
@@ -148,12 +151,29 @@ def _expand_leaf(leaf: LeafData, positions_valid: np.ndarray,
     return Column(leaf.dtype, torch.from_numpy(out).to(device), validity)
 
 
-def assemble_struct(node: SchemaNode, leaf_data: dict) -> Column:
-    """STRUCT columns are not ported: the port's Column has no STRUCT
-    layout yet (ROADMAP.md Queue 1 entry 9)."""
-    raise NotImplementedError(
-        f"STRUCT column {node.name!r}: STRUCT columns are not ported yet "
-        "(ROADMAP.md Queue 1 entry 9)")
+def assemble_struct(node: SchemaNode, leaf_data: dict,
+                    device: torch.device) -> Column:
+    """STRUCT with no repeated field beneath: the fields share the row
+    count, and each level's presence comes straight off the def levels
+    (a node is present where def >= its own def level)."""
+    for lf in leaves_of(node):
+        if lf.rep_level > 0:
+            raise NotImplementedError(
+                f"lists inside structs are not supported yet ({lf.name})")
+
+    def build(nd: SchemaNode) -> Column:
+        if nd.is_leaf:
+            ld = leaf_data[nd.leaf_index]
+            return _expand_leaf(ld, ld.defs == nd.def_level, device)
+        kids = [build(c) for c in nd.children]
+        defs = leaf_data[leaves_of(nd)[0].leaf_index].defs
+        return Column(DType(TypeId.STRUCT),
+                      torch.zeros((defs.shape[0],), dtype=torch.uint8,
+                                  device=device),
+                      torch.from_numpy(defs >= nd.def_level).to(device),
+                      children=kids)
+
+    return build(node)
 
 
 def assemble_list(node: SchemaNode, leaf_data: dict,

@@ -383,8 +383,13 @@ def _read_leaf_data(lib, handle: int, leaf_index: int) -> nst.LeafData:
     return nst.LeafData(values, offsets, chars, defs, reps, dtype)
 
 
-def _read_nested(lib, handle: int, tree, device: torch.device) -> Table:
-    """A table whose schema holds LIST (or STRUCT) columns."""
+def _read_nested(lib, handle: int, tree, device: torch.device,
+                 timings: Optional[dict]) -> Table:
+    """A table whose schema holds LIST or STRUCT columns. ``timings``,
+    when given, receives the seconds of the nested leaves' copy-out
+    (``copy_out_s``) and of the assembly and staging of every column
+    (``assemble_s``)."""
+    t0 = time.perf_counter()
     leaf_data = {}
     for nd in tree:
         if nd.is_leaf:
@@ -392,6 +397,7 @@ def _read_nested(lib, handle: int, tree, device: torch.device) -> Table:
         for lf in nst.leaves_of(nd):
             leaf_data[lf.leaf_index] = _read_leaf_data(lib, handle,
                                                        lf.leaf_index)
+    t1 = time.perf_counter()
     out = []
     for nd in tree:
         if nd.is_leaf:
@@ -402,7 +408,12 @@ def _read_nested(lib, handle: int, tree, device: torch.device) -> Table:
                 len(nd.children) == 1 and nd.children[0].repetition == 2):
             out.append(nst.assemble_list(nd, leaf_data, device))
         else:
-            out.append(nst.assemble_struct(nd, leaf_data))
+            out.append(nst.assemble_struct(nd, leaf_data, device))
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings.update(copy_out_s=t1 - t0,
+                       assemble_s=time.perf_counter() - t1)
     return Table(out)
 
 
@@ -427,7 +438,9 @@ def read_table(
     native decode (``decode_s``), the copy-out into host buffers
     (``copy_out_s``) and, for ``stage="device"``, the staging and casts
     on the device up to a synchronize (``stage_s``), with the staged
-    bytes (``staged_bytes``)."""
+    bytes (``staged_bytes``); for a nested schema, the decode, the
+    nested leaves' copy-out and the assembly with its staging
+    (``assemble_s``)."""
     if stage not in ("device", "host"):
         raise ValueError(f"unknown stage {stage!r}")
     device = resolve_device(device)
@@ -468,7 +481,9 @@ def read_table(
                 raise NotImplementedError(
                     "column selection over nested schemas is not supported "
                     "yet; read all columns")
-            return _read_nested(lib, handle, tree, device)
+            if timings is not None:
+                timings["decode_s"] = t1 - t0
+            return _read_nested(lib, handle, tree, device, timings)
         snaps, finish, rows_seen = [], [], None
         for i in range(n_columns):
             snap, fin, rows = _copy_flat_column(lib, handle, i, device)

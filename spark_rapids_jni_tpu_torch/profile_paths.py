@@ -15,7 +15,9 @@ With no arguments every path below is profiled; names (``q1_planned``,
 ``regexp_extract``, ``regexp_replace``, ``split``, ``monthly_rollup``,
 ``groupby_suppkey``, ``percentile``, ``plan_groupby_auto``,
 ``groupby_orderkey``, ``apply_boolean_mask``, ``distinct``,
-``intersect_rows``) select some of them.
+``intersect_rows``, ``window_suppkey``, ``window_range``,
+``window_orderkey``, ``collect_list``, ``explode``,
+``split_posexplode``) select some of them.
 
 For planned q1, fused q1, convert_to_rows and the general q1 over TPC-H
 lineitem at scale factor 10 (59,986,052 rows), then for q3 at scale
@@ -44,7 +46,13 @@ lineitem (``tpch.lineitem_groupby_table``): the planned monthly rollup,
 the general groupby by l_suppkey with its 16 aggregates, its
 percentiles, ``plan_groupby_auto`` from 4,096, the groupby by l_orderkey,
 ``apply_boolean_mask`` with q6's predicate, ``distinct`` of the flags and
-``intersect_rows`` of two l_orderkey slices, after a warm-up:
+``intersect_rows`` of two l_orderkey slices, and, over the same
+lineitem, the window PARTITION BY l_suppkey ORDER BY l_shipdate (its
+sort with row_number, rank and ROWS 6 PRECEDING sums; RANGE 30
+PRECEDING sum and max), PARTITION BY l_orderkey (row_number and the
+running sum), collect_list of l_suppkey by l_orderkey and the explode
+of its lists, and split on ' ' then posexplode of the log lines,
+after a warm-up:
 the wall time per run (host clock around
 work that ends in a synchronize), then one ``torch.profiler`` window of
 runs with the device time of each kernel and copy, and the device's busy
@@ -98,6 +106,8 @@ CAPTURE_PATHS = ("regexp_extract", "regexp_replace", "split")
 GROUPBY_PATHS = ("monthly_rollup", "groupby_suppkey", "percentile",
                  "plan_groupby_auto", "groupby_orderkey",
                  "apply_boolean_mask", "distinct", "intersect_rows")
+OPERATOR_PATHS = ("window_suppkey", "window_range", "window_orderkey",
+                  "collect_list", "explode", "split_posexplode")
 
 
 def device_us(evt) -> float:
@@ -175,6 +185,8 @@ def main(only: list[str]) -> int:
         profile_capture(run)
     if not only or set(only) & set(GROUPBY_PATHS):
         profile_groupby(run)
+    if not only or set(only) & set(OPERATOR_PATHS):
+        profile_operators(run)
     return 0
 
 
@@ -382,6 +394,45 @@ def profile_groupby(run) -> None:
         Q3_REPS)
 
 
+
+def profile_operators(run) -> None:
+    from spark_rapids_jni_tpu_torch.ops import lists, strings_fns
+    from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+    from spark_rapids_jni_tpu_torch.ops.window import Window
+
+    tab, _ = tpch.lineitem_groupby_table(ROWS, ORDERS, SUPPLIERS)
+    QTY, PRICE, SHIP, OKEY, SKEY = 0, 1, 6, 7, 8
+
+    def window_suppkey():
+        w = Window(tab, [SKEY], [SHIP])
+        return w.row_number(), w.rank(), w.rolling_sum(PRICE, 6)
+
+    run("window_suppkey", window_suppkey, Q3_REPS)
+
+    def window_range():
+        w = Window(tab, [SKEY], [SHIP])
+        return (w.rolling_sum(QTY, 30, 0, "range"),
+                w.rolling_max(PRICE, 30, 0, "range"))
+
+    run("window_range", window_range, Q3_REPS)
+
+    def window_orderkey():
+        w = Window(tab, [OKEY], [SHIP])
+        return w.row_number(), w.running_sum(PRICE)
+
+    run("window_orderkey", window_orderkey, Q3_REPS)
+    pairs = Table([tab.column(OKEY), tab.column(SKEY)])
+    run("collect_list", lambda: lists.groupby_collect(pairs, [0], 1),
+        Q3_REPS)
+    res = lists.groupby_collect(pairs, [0], 1)
+    coll = trim_table(res.table, int(res.num_groups))
+    run("explode", lambda: lists.explode(coll, 1), Q3_REPS)
+    del tab, pairs, res, coll
+    torch.cuda.empty_cache()
+    lines, _ = bench_strings.log_lines(ROWS, seed=12)
+    run("split_posexplode", lambda: lists.explode(Table([strings_fns.split(
+        lines, " ", max_pieces=5).column]), 0, position=True), Q3_REPS)
+
+
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))
-

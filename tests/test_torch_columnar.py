@@ -97,8 +97,15 @@ def test_column_validation_and_equality():
                torch.ones(3, dtype=torch.uint8))
     with pytest.raises(TypeError):
         Column(tt.decimal128(0), torch.zeros(3, dtype=torch.int64))
-    with pytest.raises(NotImplementedError):
-        Column(tt.DType(tt.TypeId.STRUCT), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):  # a STRUCT column needs its fields
+        Column(tt.DType(tt.TypeId.STRUCT), torch.zeros(3, dtype=torch.uint8))
+    with pytest.raises(ValueError):  # of the struct's row count
+        Column(tt.DType(tt.TypeId.STRUCT), torch.zeros(3, dtype=torch.uint8),
+               children=[Column.from_numpy(np.zeros(2, np.int32),
+                                           device="cpu")])
+    with pytest.raises(NotImplementedError):  # no column layout
+        Column(tt.DType(tt.TypeId.DICTIONARY32),
+               torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):  # a LIST column needs its one child
         Column(tt.DType(tt.TypeId.LIST), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):  # a STRING column needs its chars

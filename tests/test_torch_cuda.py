@@ -1481,3 +1481,208 @@ def test_bridge_round_trip_on_the_card(dev):
         assert np.array_equal(raw.view(d.dtype)[v], d[v])
     for h in cols + [tbl, rows, again, back]:
         assert lib.tpudf_rt_free(h) == 0
+
+
+# ---- the remaining operators: elementwise, lists, structs, window ---------
+
+
+def _on_both(spec, dev):
+    from torch_parity import spec_to_port
+
+    return spec_to_port(spec, "cpu"), spec_to_port(spec, dev)
+
+
+def _same_rows(got, want, what=""):
+    from torch_parity import canon
+
+    assert canon(got) == canon(want), what
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_elementwise_on_the_card_match_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops import elementwise as pe
+
+    rng = np.random.default_rng(n)
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 25, n)
+    f[rng.random(n) < 0.1] = np.nan
+    f[rng.random(n) < 0.05] = np.inf
+    specs = {
+        "a": (4, 0, rng.integers(-2**62, 2**62, n), null_tail(n, n)),
+        "b": (4, 0, rng.integers(-9, 9, n), null_tail(n, n + 1)),
+        "f": (10, 0, f, null_tail(n, n + 2)),
+        "g": (10, 0, rng.standard_normal(n) * 3, None),
+        "d": (26, -4, rng.integers(-10**12, 10**12, n), null_tail(n, n + 3)),
+        "u": (8, 0, rng.integers(0, 2**63, n, dtype=np.uint64) * 2 + 1,
+              None),
+        "v": (8, 0, rng.integers(0, 50, n, dtype=np.uint64), None),
+        "s": (23, 0, arrow_strings([f"w{i % 7}" for i in range(n)])[:2],
+              null_tail(n, n + 4)),
+    }
+    cols = {k: _on_both(s, dev) for k, s in specs.items()}
+    calls = {
+        "coalesce": lambda c: pe.coalesce([c["a"], c["b"]]),
+        "coalesce_s": lambda c: pe.coalesce([c["s"], c["s"]]),
+        "nullif": lambda c: pe.nullif(c["a"], c["b"]),
+        "nullif_s": lambda c: pe.nullif(c["s"], c["s"]),
+        "greatest": lambda c: pe.greatest([c["f"], c["g"]]),
+        "least_u": lambda c: pe.least([c["u"], c["v"]]),
+        "abs": lambda c: pe.abs_(c["f"]),
+        "ceil": lambda c: pe.ceil(c["f"]),
+        "floor": lambda c: pe.floor(c["f"]),
+        "ceil_d": lambda c: pe.ceil(c["d"]),
+        "round": lambda c: pe.round_decimal(c["d"], 1),
+        "pmod": lambda c: pe.pmod(c["a"], c["b"]),
+        "pmod_f": lambda c: pe.pmod(c["f"], c["g"]),
+        "pmod_u": lambda c: pe.pmod(c["u"], c["v"]),
+    }
+    cpu = {k: v[0] for k, v in cols.items()}
+    card = {k: v[1] for k, v in cols.items()}
+    for name, fn in calls.items():
+        got = fn(card)
+        assert got.data.device.type == "cuda", name
+        _same_rows(got, fn(cpu), name)
+
+
+def test_float_to_bigint_and_pmod_edges_on_the_card(dev):
+    from spark_rapids_jni_tpu_torch.ops import elementwise as pe
+
+    f = Column.from_numpy(np.array([np.nan, np.inf, -np.inf, 1e30, -1e30,
+                                    2.5, -2.5, 2.0 ** 63]), device=dev)
+    mx, mn = (1 << 63) - 1, -(1 << 63)
+    assert pe.ceil(f).data.tolist() == [0, mx, mn, mx, mn, 3, -2, mx]
+    assert pe.floor(f).data.tolist() == [0, mx, mn, mx, mn, 2, -3, mx]
+    a = Column.from_numpy(np.array([mn, mn, mx, -7, 7], np.int64), device=dev)
+    b = Column.from_numpy(np.array([-1, 1, -1, 3, -3], np.int64), device=dev)
+    assert pe.pmod(a, b).data.tolist() == [0, 0, 0, 2, 1]
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(1_000_000) * 10.0 ** rng.integers(-5, 5, 1_000_000)
+    y = rng.standard_normal(1_000_000) * 10.0 ** rng.integers(-5, 5, 1_000_000)
+    fx, fy = (Column.from_numpy(v, device=dev) for v in (x, y))
+    cx, cy = (Column.from_numpy(v, device="cpu") for v in (x, y))
+    _same_rows(pe.pmod(fx, fy), pe.pmod(cx, cy), "float pmod")
+
+
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_lists_on_the_card_match_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops import lists as pl
+    from torch_parity import LIST_SCALAR, child_spec, list_spec
+
+    for elem in ("i64", "f64", "str", "d128"):
+        (lc, lg), (oc, og) = (_on_both(list_spec(n, n + k, elem), dev)
+                              for k in (0, 7))
+        calls = {
+            "size": lambda c, o: pl.array_size(c),
+            "contains": lambda c, o: pl.array_contains(c, LIST_SCALAR[elem]),
+            "element_at": lambda c, o: pl.element_at(c, -2),
+            "sort": lambda c, o: pl.sort_array(c, ascending=False),
+            "position": lambda c, o: pl.array_position(c, LIST_SCALAR[elem]),
+            "distinct": lambda c, o: pl.array_distinct(c),
+            "slice": lambda c, o: pl.array_slice(c, -3, 2),
+            "overlap": lambda c, o: pl.arrays_overlap(c, o),
+        }
+        if elem in ("i64", "f64"):
+            calls.update(
+                sum=lambda c, o: pl.array_sum(c),
+                min=lambda c, o: pl.array_min(c),
+                max=lambda c, o: pl.array_max(c),
+                pad=lambda c, o: pl.pad_lists(c, 7),
+                unpad=lambda c, o: pl.unpad_lists(pl.pad_lists(c, 7)))
+        if elem == "str":
+            calls.update(join=lambda c, o: pl.array_join(c, "|", "?"))
+        for name, fn in calls.items():
+            _same_rows(fn(lg, og), fn(lc, oc), f"{elem} {name}")
+        ic, ig = _on_both((3, 0, np.arange(n, dtype=np.int32),
+                           null_tail(n, n)), dev)
+        for outer in (False, True):
+            got = pl.explode(Table([ig, lg]), 1, outer=outer, position=True)
+            want = pl.explode(Table([ic, lc]), 1, outer=outer, position=True)
+            assert int(got.num_rows) == int(want.num_rows)
+            for g, w in zip(got.table.columns, want.table.columns):
+                _same_rows(g, w, f"explode {elem}")
+        key = (3, 0, np.random.default_rng(n).integers(
+            0, max(2, n // 8), n).astype(np.int32), null_tail(n, n + 5))
+        (kc, kg), (vc, vg) = _on_both(key, dev), _on_both(
+            child_spec(n, n + 6, elem), dev)
+        for distinct in (False, True):
+            got = pl.groupby_collect(Table([kg, vg]), [0], 1,
+                                     distinct=distinct)
+            want = pl.groupby_collect(Table([kc, vc]), [0], 1,
+                                      distinct=distinct)
+            assert int(got.num_groups) == int(want.num_groups)
+            for g, w in zip(got.table.columns, want.table.columns):
+                _same_rows(g, w, f"collect {elem} {distinct}")
+    r = np.random.default_rng(n).integers(1, 8, n)
+    (oc, og), (rc, rg) = (_on_both((4, 0, v, None), dev)
+                          for v in (np.ones(n, np.int64), r))
+    got = pl.sequence(og, rg)
+    assert got.data.device.type == "cuda"
+    _same_rows(got, pl.sequence(oc, rc), "sequence")
+
+
+@pytest.mark.parametrize("n", [1, 256, 257, 2049])
+def test_window_on_the_card_matches_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops.window import Window
+    from torch_parity import (
+        WINDOW_CALLS,
+        WINDOW_ORDER,
+        WINDOW_PART,
+        window_columns,
+    )
+
+    cols = window_columns(n, n)
+    wc = Window(table_from_numpy(cols, device="cpu"), [WINDOW_PART],
+                [WINDOW_ORDER])
+    wg = Window(table_from_numpy(cols, device=dev), [WINDOW_PART],
+                [WINDOW_ORDER])
+    for name, (fn, args) in WINDOW_CALLS.items():
+        got = getattr(wg, fn)(*args)
+        assert got.data.device.type == "cuda", name
+        # float running and rolling sums bit-equal to the CPU's
+        _same_rows(got, getattr(wc, fn)(*args), name)
+
+
+@pytest.mark.parametrize("n", [1, 257, 2049])
+def test_structs_on_the_card_match_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.ops import structs as ps
+    from spark_rapids_jni_tpu_torch.ops import table_ops as pops
+
+    rng = np.random.default_rng(n)
+    spec = ("struct", n, np.arange(n) % 13 != 0, [
+        (26, -2, rng.integers(0, 10**6, n), null_tail(n, n)),
+        (23, 0, arrow_strings([f"s{i % 5}" for i in range(n)])[:2], None)])
+    sc, sg = _on_both(spec, dev)
+    _same_rows(ps.struct_field(sg, 0), ps.struct_field(sc, 0), "field")
+    tc, tg = Table([sc]), Table([sg])
+    for g, w in zip(ps.unpack_struct(tg, 0).columns,
+                    ps.unpack_struct(tc, 0).columns):
+        _same_rows(g, w, "unpack")
+    _same_rows(pops.concatenate([tg, tg]).column(0),
+               pops.concatenate([tc, tc]).column(0), "concatenate")
+    for g, w in zip(pops.contiguous_split(tg, [n // 3]),
+                    pops.contiguous_split(tc, [n // 3])):
+        _same_rows(g.column(0), w.column(0), "split")
+
+
+def test_struct_parquet_read_on_the_card(dev, tmp_path):
+    import chip_smoke_writers as w
+
+    from spark_rapids_jni_tpu_torch.parquet import reader as preader
+
+    n = 5000
+    rng = np.random.default_rng(2)
+    fields = [w.ParquetColumn(f"f{i}", rng.integers(0, 10**6, n), w.INT64,
+                              w.CONV_DECIMAL, scale=2, precision=18,
+                              valid=rng.random(n) > 0.05) for i in range(4)]
+    path = tmp_path / "s.parquet"
+    w.write_parquet(path, [w.ParquetColumn("k", np.arange(n), w.INT64),
+                           w.ParquetGroup("s", fields,
+                                          np.arange(n) % 13 != 0)],
+                    2048, 512)
+    got = preader.read_table(str(path), device=dev)
+    want = preader.read_table(str(path), device="cpu")
+    assert got.column(1).children[0].data.device.type == "cuda"
+    for g, c in zip(got.columns, want.columns):
+        _same_rows(g, c, "struct read")
+    assert want.column(1).to_pylist()[:2] == [
+        None, tuple(int(f.values[1]) if f.valid[1] else None
+                    for f in fields)]

@@ -87,6 +87,10 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.runtime.dispatch, "
             "spark_rapids_jni_tpu_torch.runtime.fusion, "
             "spark_rapids_jni_tpu_torch.runtime.bridge, "
+            "spark_rapids_jni_tpu_torch.ops.elementwise, "
+            "spark_rapids_jni_tpu_torch.ops.lists, "
+            "spark_rapids_jni_tpu_torch.ops.structs, "
+            "spark_rapids_jni_tpu_torch.ops.window, "
             "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spark_rapids_jni_tpu', 'pyarrow')]; "
@@ -155,6 +159,10 @@ def test_entry_point_refuses_quiet_cpu_fallback():
     from spark_rapids_jni_tpu_torch.ops.bloom_filter import BloomFilter
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BloomFilter.empty(64)
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.ops.lists import make_list_column
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_list_column([[1], None], t.INT64)
 
 
 def test_registered_kernels_declare_oracle_and_source():

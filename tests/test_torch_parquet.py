@@ -470,12 +470,37 @@ def test_list_columns(pa, case):
 
 
 def test_struct_columns_wait_for_their_column(pa):
-    arr = pa.array([{"a": 1, "b": "x"}, None],
-                   type=pa.struct([("a", pa.int64()), ("b", pa.string())]))
-    data = _arrow_bytes(pa.table({"s": arr}))
-    assert jreader.read_table(data).column(0).to_pylist() == [(1, "x"), None]
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 9"):
-        preader.read_table(data, device="cpu")
+    """STRUCT files read alike in both packages: the reference's nested
+    STRUCT cases (``tests/test_parquet_breadth.py``), written by pyarrow
+    as that file writes them."""
+    rng = np.random.default_rng(7)
+    n = 500
+    a = [int(v) if i % 6 else None
+         for i, v in enumerate(rng.integers(0, 1000, n))]
+    structs = [None if i % 11 == 0 else {"a": a[i], "b": f"s{i}"}
+               for i in range(n)]
+    flat = _arrow_bytes(pa.table({
+        "s": pa.array(structs, type=pa.struct([("a", pa.int64()),
+                                               ("b", pa.string())])),
+        "flat": pa.array(range(n))}))
+    table = check_same(flat)
+    assert table.column(0).to_pylist() == [
+        None if s is None else (s["a"], s["b"]) for s in structs]
+    assert table.column(1).to_pylist() == list(range(n))
+    vals = [{"inner": {"x": 1}, "y": 10}, {"inner": None, "y": 20}, None,
+            {"inner": {"x": None}, "y": None}]
+    typ = pa.struct([("inner", pa.struct([("x", pa.int32())])),
+                     ("y", pa.int64())])
+    nested = _arrow_bytes(pa.table({"s": pa.array(vals, type=typ)}))
+    table = check_same(nested)
+    assert table.column(0).to_pylist() == [((1,), 10), (None, 20), None,
+                                           ((None,), None)]
+    # a STRUCT holding a LIST raises in both
+    with_list = _arrow_bytes(pa.table({"s": pa.array(
+        [{"l": [1, 2]}, None], type=pa.struct([("l", pa.list_(
+            pa.int64()))]))}))
+    got, want = both(with_list)
+    assert got == want and got[1] == "NotImplementedError"
 
 
 def test_unsupported_nested_shapes_raise_alike(pa):

@@ -668,7 +668,8 @@ def assert_same_list_column(got, want) -> None:
 
 def assert_same_read(got, want) -> None:
     """Reader results across the packages: the same outcome; tables
-    byte for byte (LIST columns by ``assert_same_list_column``)."""
+    byte for byte (LIST columns by ``assert_same_list_column``, STRUCT
+    columns field by field)."""
     assert got[0] == want[0], f"outcome {got} vs {want}"
     if got[0] == "error":
         assert got == want
@@ -676,10 +677,20 @@ def assert_same_read(got, want) -> None:
     pt, jt = got[1], want[1]
     assert pt.num_columns == jt.num_columns
     for pc, jc in zip(pt.columns, jt.columns):
-        if pc.dtype.is_list:
-            assert_same_list_column(pc, jc)
-        else:
-            assert_same_column(pc, jc)
+        _assert_same_read_column(pc, jc)
+
+
+def _assert_same_read_column(pc, jc) -> None:
+    if pc.dtype.is_list:
+        assert_same_list_column(pc, jc)
+    elif int(pc.dtype.type_id) == 28:  # STRUCT
+        assert int(jc.dtype.type_id) == 28, "type"
+        assert_same_column(pc, jc)  # placeholder bytes and validity
+        assert len(pc.children) == len(jc.children), "field count"
+        for pf, jf in zip(pc.children, jc.children):
+            _assert_same_read_column(pf, jf)
+    else:
+        assert_same_column(pc, jc)
 
 
 def writer_module(name: str):
@@ -862,3 +873,268 @@ def rt_column_host(lib, table: int, i: int, width: int) -> tuple:
         valid.nbytes) == 0, "column_to_host")
     lib.tpudf_rt_free(col)
     return (tid.value, scale.value, n.value), data, valid
+
+
+# ---- nested columns (LIST, STRUCT) across the two packages ----------------
+#
+# A host spec of one column: a leaf ``(type_id, scale, data, validity)``
+# (a STRING's data the pair (offsets or lengths, chars)), a LIST
+# ``("list", offsets, validity, child_spec)`` or a STRUCT ``("struct",
+# n, validity, [field_spec, ...])``.
+
+
+def spec_to_port(spec, device="cpu"):
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    def dev(x):
+        return None if x is None else torch.from_numpy(x).to(device)
+
+    if spec[0] == "list":
+        _, offsets, valid, child = spec
+        return Column(t.LIST, dev(offsets.astype(np.int32)), dev(valid),
+                      children=[spec_to_port(child, device)])
+    if spec[0] == "struct":
+        _, n, valid, fields = spec
+        return Column(t.DType(t.TypeId.STRUCT),
+                      torch.zeros(n, dtype=torch.uint8, device=device),
+                      dev(valid),
+                      children=[spec_to_port(f, device) for f in fields])
+    return table_from_numpy([spec], device=device).column(0)
+
+
+def spec_to_jax(spec):
+    import jax.numpy as jnp
+
+    from spark_rapids_jni_tpu import types as jt
+    from spark_rapids_jni_tpu.columnar import Column as JColumn
+
+    if spec[0] == "list":
+        _, offsets, valid, child = spec
+        return JColumn(jt.DType(jt.TypeId.LIST),
+                       jnp.asarray(offsets.astype(np.int32)),
+                       None if valid is None else jnp.asarray(valid),
+                       children=[spec_to_jax(child)])
+    if spec[0] == "struct":
+        _, n, valid, fields = spec
+        return JColumn(jt.DType(jt.TypeId.STRUCT), jnp.zeros(n, jnp.uint8),
+                       None if valid is None else jnp.asarray(valid),
+                       children=[spec_to_jax(f) for f in fields])
+    return jax_table([spec]).column(0)
+
+
+def both_spec(spec):
+    """The same column in the port (CPU) and the reference."""
+    return spec_to_port(spec), spec_to_jax(spec)
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def canon(col) -> list:
+    """One column of either package as a list of rows: None for a null
+    row, else the value's bytes (a fixed-width value's storage bytes, a
+    string's bytes), a LIST row's tuple of its elements, a STRUCT row's
+    tuple of its fields. Data under nulls and layouts (padded or Arrow,
+    padded child tails) do not show; every valid bit does, except a NaN's
+    sign and payload (IEEE and Spark leave them open): every float NaN
+    reads as ``"NaN"``."""
+    tid = int(col.dtype.type_id)
+    n = col.size
+    valid = np.ones(n, bool) if col.validity is None else _host(col.validity)
+    if tid == 24:  # LIST
+        child = col.children[0]
+        if child.validity is not None and child.validity.ndim == 2:
+            lens = _host(col.data)
+            mat, ev = _host(child.data), _host(child.validity)
+            rows = [tuple(_value(mat[i, j]) if ev[i, j] else None
+                          for j in range(lens[i])) for i in range(n)]
+        else:
+            off = _host(col.data)
+            kids = canon(child)
+            rows = [tuple(kids[off[i]:off[i + 1]]) for i in range(n)]
+    elif tid == 28:  # STRUCT
+        fields = [canon(f) for f in col.children]
+        rows = [tuple(f[i] for f in fields) for i in range(n)]
+    elif tid == 23:  # STRING
+        rows = _string_rows((_host(col.data), _host(col.chars)))
+    else:
+        data = _host(col.data)
+        rows = [_value(data[i]) for i in range(n)]
+    return [r if v else None for r, v in zip(rows, valid)]
+
+
+def _value(x) -> object:
+    """One fixed-width value's bytes; every float NaN reads as "NaN"."""
+    if x.dtype.kind == "f" and np.isnan(x):
+        return "NaN"
+    return x.tobytes()
+
+
+def _type_tree(col):
+    return (int(col.dtype.type_id), int(col.dtype.scale),
+            tuple(_type_tree(c) for c in (col.children or [])))
+
+
+def assert_same_rows(got, want, what="") -> None:
+    """A port column equals a reference column row for row under
+    validity (``canon``), with the same type tree."""
+    assert _type_tree(got) == _type_tree(want), \
+        f"{what}: type {_type_tree(got)} != {_type_tree(want)}"
+    g, w = canon(got), canon(want)
+    assert len(g) == len(w), f"{what}: {len(g)} rows != {len(w)}"
+    bad = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+    assert not bad, f"{what}: first of {len(bad)} differing rows {bad[0]}: " \
+        f"{g[bad[0]]!r} != {w[bad[0]]!r}"
+
+
+def assert_same_table_rows(got, want, what="") -> None:
+    assert got.num_columns == want.num_columns, f"{what}: column count"
+    for i, (g, w) in enumerate(zip(got.columns, want.columns)):
+        assert_same_rows(g, w, f"{what} column {i}")
+
+
+def error_of(fn):
+    """The class name of the error ``fn()`` raises (None if none)."""
+    try:
+        fn()
+    except Exception as exc:  # compared across the two packages
+        return type(exc).__name__
+    return None
+
+
+# ---- LIST inputs, and the reference traced -------------------------------
+
+LIST_WORDS = ["", "a", "bb", "a", "ccc", "dd", "é"]
+
+
+def child_spec(m: int, seed: int, elem: str):
+    """m list elements of one type ("i64", "f64" with NaN, "str",
+    "d128"), ~15 % null, small domains so lists
+    hold duplicates."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random(m) > 0.15
+    if elem == "i64":
+        return (4, 0, rng.integers(-6, 7, m).astype(np.int64), valid)
+    if elem == "f64":
+        v = rng.integers(-4, 5, m) * 0.5
+        v[rng.random(m) < 0.1] = np.nan
+        return (10, 0, v.astype(np.float64), valid)
+    if elem == "str":
+        off, chars, _ = arrow_strings([LIST_WORDS[i] for i in
+                                       rng.integers(0, len(LIST_WORDS), m)])
+        return (23, 0, (off, chars), valid)
+    lo = rng.integers(-3, 4, m)
+    return (27, -2, np.stack([lo, lo >> 63], axis=1).astype(np.int64),
+            valid)
+
+
+def list_spec(n: int, seed: int, elem: str, max_len: int = 6):
+    """n lists of 0..max_len elements, every 9th row null."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, n)
+    valid = np.arange(n) % 9 != 4
+    lens[~valid] = 0
+    off = np.zeros(n + 1, np.int32)
+    off[1:] = np.cumsum(lens)
+    return ("list", off, valid, child_spec(int(off[-1]), seed + 1, elem))
+
+
+LIST_SCALAR = {"i64": 3, "f64": 1.5, "str": "bb", "d128": 2}
+
+
+def _padded(x):
+    """A reference column or table with every STRING, nested ones too,
+    in the padded layout (jit needs static widths)."""
+    from spark_rapids_jni_tpu.columnar import Column as JColumn
+    from spark_rapids_jni_tpu.columnar import Table as JTable
+    from spark_rapids_jni_tpu.ops.strings import pad_strings
+
+    if isinstance(x, JTable):
+        return JTable([_padded(c) for c in x.columns])
+    if not isinstance(x, JColumn):
+        return x
+    if x.dtype.is_string:
+        return pad_strings(x)
+    if x.children:
+        return JColumn(x.dtype, x.data, x.validity,
+                       children=[_padded(c) for c in x.children])
+    return x
+
+
+def jref(fn, *args):
+    """``fn(*args)`` of the JAX package traced into one program (compiled
+    once, not op by op), strings padded first. Exact: these functions'
+    results are integers, bytes and selected floats, no float
+    arithmetic."""
+    import jax
+
+    return jax.jit(fn)(*[_padded(a) for a in args])
+
+
+# ---- the window tests' table -----------------------------------------------
+
+WINDOW_PART, WINDOW_ORDER, _F64, _I64, _D128, _PRICE = range(6)
+
+# the window functions the CPU and card tests run: name -> (method, args)
+WINDOW_CALLS = {
+    "row_number": ("row_number", ()),
+    "rank": ("rank", ()),
+    "dense_rank": ("dense_rank", ()),
+    "percent_rank": ("percent_rank", ()),
+    "cume_dist": ("cume_dist", ()),
+    "ntile_4": ("ntile", (4,)),
+    "ntile_7": ("ntile", (7,)),
+    "lag_f64": ("lag", (_F64,)),
+    "lag_2_d128": ("lag", (_D128, 2)),
+    "lead_3_i64": ("lead", (_I64, 3)),
+    "lead_0": ("lead", (_F64, 0)),
+    "running_sum_f64": ("running_sum", (_F64,)),
+    "running_sum_i64": ("running_sum", (_I64,)),
+    "running_sum_dec": ("running_sum", (_PRICE,)),
+    "running_min_f64": ("running_min", (_F64,)),
+    "running_max_i64": ("running_max", (_I64,)),
+    "rolling_sum_f64": ("rolling_sum", (_F64, 6)),
+    "rolling_sum_i64": ("rolling_sum", (_I64, 2, 1)),
+    "rolling_sum_dec": ("rolling_sum", (_PRICE, 3, 3)),
+    "rolling_sum_d128": ("rolling_sum", (_D128, 6)),
+    "rolling_count": ("rolling_count", (_D128, 4, 2)),
+    "rolling_mean_f64": ("rolling_mean", (_F64, 6)),
+    "rolling_mean_dec": ("rolling_mean", (_PRICE, 2, 2)),
+    "rolling_min_f64": ("rolling_min", (_F64, 6)),
+    "rolling_max_i64": ("rolling_max", (_I64, 2, 3)),
+    "rolling_var_f64": ("rolling_var", (_F64, 6)),
+    "rolling_var_pop": ("rolling_var", (_I64, 3, 1, 0)),
+    "rolling_std_i64": ("rolling_std", (_I64, 3, 1, 0)),
+    "rolling_std_dec": ("rolling_std", (_PRICE, 5)),
+    "range_sum_i64": ("rolling_sum", (_I64, 5, 0, "range")),
+    "range_max_f64": ("rolling_max", (_F64, 5, 0, "range")),
+    "range_min_i64": ("rolling_min", (_I64, 10, 3, "range")),
+    "range_mean_f64": ("rolling_mean", (_F64, 3, 3, "range")),
+    "range_sum_d128": ("rolling_sum", (_D128, 4, 0, "range")),
+    "range_count": ("rolling_count", (_F64, 8, 8, "range")),
+    "first_value": ("first_value", (_F64,)),
+    "last_value": ("last_value", (_D128,)),
+    "nth_value_2": ("nth_value", (_I64, 2)),
+    "nth_value_5": ("nth_value", (_PRICE, 5)),
+}
+
+
+def window_columns(n: int, seed: int) -> list:
+    """[partition INT32 (~20 rows each), order INT64 (ties, ~10 % null),
+    FLOAT64 (NaN, null tail), INT64 (null tail), DECIMAL128 (null tail),
+    DECIMAL64 price]."""
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-2, 6, n)
+    f[rng.random(n) < 0.05] = np.nan
+    order_valid = rng.random(n) > 0.1
+    return [
+        (3, 0, rng.integers(0, max(1, n // 20), n).astype(np.int32), None),
+        (4, 0, rng.integers(0, 50, n), order_valid),
+        (10, 0, f, null_tail(n, seed)),
+        (4, 0, rng.integers(-10**12, 10**12, n), null_tail(n, seed + 1)),
+        (27, -2, rng.integers(-2**62, 2**62, (n, 2), dtype=np.int64),
+         null_tail(n, seed + 2)),
+        (26, -2, rng.integers(-10**9, 10**9, n), None),
+    ]

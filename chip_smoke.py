@@ -193,8 +193,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the process's peak host memory; then the embedded-interpreter
    self test (a C program that owns ``Py_Initialize``) on the card
    where the interpreter has a shared libpython;
-17. the remaining operators over SF10 lineitem (59,986,052 rows of
-   ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
+17. the remaining operators over half of SF10 lineitem (29,993,026 rows
+   of ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
    q5's l_orderkey and l_suppkey, a FLOAT64 price with NaN rows, a
    DECIMAL128 column) and bench.py's log lines, none of which launches
    a kernel of A-D (the counts read after each part), each against a
@@ -215,7 +215,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    concatenate and contiguous_split, and a Parquet file of l_orderkey
    and the STRUCT (definition levels 0/1/2) read back, decode and
    assembly timed; each part's seconds and the phase's device peak;
-18. one ``{"kernels": [...]}`` line, the card line, and the final
+18. memory and out-of-core at SF10: SF10 lineitem (59,986,052 rows)
+   written as Parquet in phase 15's layout (about 58 row groups, 2.03
+   GB) and ``tpch_q1_outofcore`` over it under a 1 GiB device budget in
+   256 MiB chunks: serially, pipelined on 2 and on 8 decode threads,
+   with a flipped checkpoint (replayed) and a transient decode fault
+   (resumed), each equal to the in-memory general q1 and the numpy
+   oracle, none launching A-D, each with its seconds and rows/s on the
+   host clock, the pipeline's counters and the limiter's peak (within
+   the budget, nothing left reserved), and the card's busy share from a
+   profiled run just before each fault-free one; q3's SF10 lineitem written the
+   same way and ``tpch_q3_outofcore`` with customer and orders resident
+   and the partials under a 16 MiB spill budget, once on the pinned host
+   tier, once through the codec (and zstd where installed), once on a
+   disk tier in a directory deleted after, each equal to ``tpch_q3`` in
+   memory and its numpy oracle, with spills; one spill's drop of
+   ``torch.cuda.memory_allocated``; and the degradation ladder over
+   planned q1 in memory: the fused tier (kernel A once), then a real
+   ``torch.OutOfMemoryError`` at the ``fusion.region`` seam classified
+   ``ResourceExhausted`` and stepped to the out-of-core tier (8 chunks,
+   no launch), with the same rows; the phase's seconds and device peak;
+19. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -237,6 +257,8 @@ ROWS = SF10_ROWS
 # phase 14 runs over half of SF10 lineitem (its host oracles are most of
 # its time), which keeps the whole script near 700 s
 GROUPBY_ROWS = SF10_ROWS // 2
+# phase 17 runs over half of SF10 lineitem too, for the same reason
+OPERATORS_ROWS = SF10_ROWS // 2
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
 DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
@@ -3286,6 +3308,27 @@ Q1_FILE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
                    "l_returnflag", "l_linestatus", "l_shipdate")
 
 
+def _write_q1_parquet(path, rows: int) -> tuple:
+    """``rows`` of SF10 lineitem (seed 0, on the host) written to
+    ``path`` in bench.py's parquet_q1 layout: four unscaled INT64 money
+    columns, the flags as INT32/INT_8 and l_shipdate as INT32/DATE with
+    dictionaries, ``PARQUET_RG_ROWS``-row groups of ``PARQUET_PAGE_ROWS``
+    snappy pages. Returns the generated table and the file's size."""
+    import chip_smoke_writers as w
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    gen = tpch.lineitem_table(rows, seed=0, device="cpu")
+    host = [c.data.numpy() for c in gen.columns]
+    cols = [w.ParquetColumn(name, host[i], w.INT64)
+            for i, name in enumerate(Q1_FILE_COLUMNS[:4])]
+    cols += [w.ParquetColumn(Q1_FILE_COLUMNS[i], host[i], w.INT32,
+                             w.CONV_INT_8, dictionary=True) for i in (4, 5)]
+    cols.append(w.ParquetColumn("l_shipdate", host[6], w.INT32,
+                                w.CONV_DATE, dictionary=True))
+    return gen, w.write_parquet(path, cols, PARQUET_RG_ROWS,
+                                PARQUET_PAGE_ROWS)
+
+
 def _chunk_rule(infos, limit: int) -> list:
     """The reference's chunk plan (``ParquetChunkedReader._chunk_end``),
     written out again: each chunk is the longest run of row groups whose
@@ -3440,19 +3483,8 @@ def readers_phase(dev) -> tuple:
 
         # ---- (a) lineitem as Parquet, bench.py's parquet_q1 layout
         t0 = time.perf_counter()
-        gen = tpch.lineitem_table(READER_ROWS, seed=0, device="cpu")
-        host = [c.data.numpy() for c in gen.columns]
-        cols = [w.ParquetColumn(name, host[i], w.INT64)
-                for i, name in enumerate(Q1_FILE_COLUMNS[:4])]
-        cols += [w.ParquetColumn(Q1_FILE_COLUMNS[i], host[i], w.INT32,
-                                 w.CONV_INT_8, dictionary=True)
-                 for i in (4, 5)]
-        cols.append(w.ParquetColumn("l_shipdate", host[6], w.INT32,
-                                    w.CONV_DATE, dictionary=True))
         path = DATA_DIR / "lineitem.parquet"
-        size = w.write_parquet(path, cols, PARQUET_RG_ROWS,
-                               PARQUET_PAGE_ROWS)
-        del cols
+        gen, size = _write_q1_parquet(path, READER_ROWS)
         write_s = time.perf_counter() - t0
         infos = row_group_info(path)
         log(f"parquet lineitem: {READER_ROWS} rows, {len(infos)} row "
@@ -3503,7 +3535,7 @@ def readers_phase(dev) -> tuple:
 
         li = Table([Column(c.dtype, c.data.to(dev), None)
                     for c in gen.columns])
-        del gen, host
+        del gen
         read_li = retyped(tbl)
         _same_tables("parquet lineitem", read_li, li)
         log("parquet lineitem: all 7 columns equal the generator's, no "
@@ -4823,9 +4855,11 @@ def _struct_part(tab, host, dev, out) -> None:
 
 
 def operators_phase(dev) -> dict:
-    """Phase 17: the remaining operators at SF10 width (59,986,052 rows of
-    ``tpch.lineitem_groupby_table``): elementwise, window, lists and
-    STRUCT, each against numpy, none launching a kernel of A-D."""
+    """Phase 17: the remaining operators over half of SF10 lineitem
+    (``OPERATORS_ROWS``, 29,993,026 rows of
+    ``tpch.lineitem_groupby_table``, the SF10 widths): elementwise,
+    window, lists and STRUCT, each against numpy, none launching a
+    kernel of A-D."""
     import concurrent.futures
 
     import numpy as np
@@ -4834,17 +4868,19 @@ def operators_phase(dev) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    tab, neg = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
+    tab, neg = tpch.lineitem_groupby_table(OPERATORS_ROWS, Q3_ORDERS,
+                                           SUPPLIERS)
     col = tab.column
-    host = {"n": ROWS, "qty": _h(col(0).data), "qty_v": _hv(col(0)),
+    host = {"n": OPERATORS_ROWS, "qty": _h(col(0).data),
+            "qty_v": _hv(col(0)),
             "price": _h(col(1).data), "disc": _h(col(2).data),
             "tax": _h(col(3).data), "rflag": _h(col(4).data),
             "rflag_v": _hv(col(4)), "lstat": _h(col(5).data),
             "lstat_v": _hv(col(5)), "ship": _h(col(6).data).astype(np.int64),
             "okey": _h(col(7).data), "skey": _h(col(8).data),
             "f64": _h(col(9).data), "neg": _h(neg)}
-    log(f"phase 17 table: {ROWS} rows on the card and the host in "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 17 table: {OPERATORS_ROWS} rows on the card and the host "
+        f"in {time.perf_counter() - t_phase:.1f} s")
     # the oracles' three radix sorts run on host threads (numpy's sorts
     # and gathers let go of the GIL) while the parts before them work
     pool = concurrent.futures.ThreadPoolExecutor(4)
@@ -4878,6 +4914,409 @@ def operators_phase(dev) -> dict:
     del tab
     torch.cuda.empty_cache()
     return {"s": total, "peak_gib": peak, "parts_s": parts, **out}
+
+
+OOC_BUDGET = 1 << 30             # the out-of-core runs' device budget
+OOC_SPILL_BUDGET = 16 * 2**20    # q3: ~10 MB partials (~358,000 groups)
+OOC_RECOVERY_SPILL = 1024        # q1's partials spill, so one can corrupt
+LADDER_CHUNK_ROWS = 8_388_608    # degrade.chunk_rows: 8 chunks of SF10
+
+
+def _q1_rows(what: str, got, want) -> None:
+    """``got``'s first six rows (the real q1 groups) equal ``want``'s bit
+    for bit: types, data and validity."""
+    require(got.num_columns == want.num_columns, f"{what}: column count")
+    for i, (a, b) in enumerate(zip(got.columns, want.columns)):
+        require(a.dtype == b.dtype and torch.equal(a.data[:6], b.data[:6])
+                and torch.equal(a.valid_mask()[:6], b.valid_mask()[:6]),
+                f"{what} column {i} differs from the in-memory q1")
+
+
+def _q3_arrays(table) -> list:
+    """The valid q3 groups of a result as host arrays (orderkey,
+    orderdate, shippriority, revenue), in the table's order."""
+    keep = table.column(0).valid_mask()
+    return [c.data[keep].cpu().numpy() for c in table.columns]
+
+
+def _ooc_run(what: str, fn, limiter, profiled: bool = True) -> tuple:
+    """One out-of-core run timed on the host clock with the counts reset
+    just before it: no kernel of A-D launched, the limiter's peak within
+    its budget and nothing left reserved. Its result, seconds, the device
+    peak beside what was allocated before the run, and the pipeline's
+    counters; with ``profiled``, a run under ``torch.profiler`` first
+    gives the card's busy share and is the timed run's warm-up (the
+    profiler's host overhead stays out of the seconds)."""
+    from spark_rapids_jni_tpu_torch import telemetry
+
+    busy = {"busy_share": None, "busy_ms": None, "profiled_s": None}
+    if profiled:
+        share, busy_ms, wall_ms = _busy_share(
+            lambda: _launched_only(f"{what}, profiled", fn, {}))
+        require(limiter.used == 0,
+                f"{what}, profiled: {limiter.used} bytes left reserved")
+        busy = {"busy_share": share, "busy_ms": busy_ms,
+                "profiled_s": wall_ms / 1e3}
+    telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = _launched_only(what, fn, {})
+    s = time.perf_counter() - t0
+    require(limiter.peak <= limiter.budget,
+            f"{what}: limiter peak {limiter.peak} over {limiter.budget}")
+    require(limiter.used == 0, f"{what}: {limiter.used} bytes left reserved")
+    counters = {k: telemetry.counter(f"pipeline.{k}") for k in (
+        "chunks", "decode_us", "transfer_us", "producer_stall_us",
+        "consumer_stall_us")}
+    return res, {"s": s, "chunks": res.chunks, "limiter_peak": limiter.peak,
+                 "device_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "resident_before_gib": resident / 2**30,
+                 "spill": res.spill_stats, "pipeline": counters, **busy}
+
+
+def _busy_text(row) -> str:
+    """The profiled run's part of a log line."""
+    if row["busy_share"] is None:
+        return "not profiled"
+    return (f"profiled run {row['profiled_s']:.3f} s, busy "
+            f"{row['busy_share']:.4f}")
+
+
+def _ooc_q1_part(path, q1_oracle, q1_general) -> dict:
+    """Out-of-core q1 over the SF10 Parquet file: serial, pipelined on 2
+    and on 8 decode threads, then a corrupt checkpoint and a transient
+    decode fault, each equal to the in-memory q1 and the numpy oracle."""
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.runtime import faults, resilience
+    from spark_rapids_jni_tpu_torch.runtime.memory import MemoryLimiter
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    def check(what, res):
+        _q1_rows(what, res.table, q1_general)
+        host = [c.data[:6].cpu().numpy() for c in res.table.columns]
+        names = ["sum_qty", "sum_base_price", "sum_disc_price",
+                 "sum_charge", "avg_qty", "avg_price", "avg_disc", "count"]
+        for g in range(6):
+            key = (int(host[0][g]), int(host[1][g]))
+            for j, name in enumerate(names):
+                got, want = host[2 + j][g], q1_oracle[key][name]
+                require(abs(got - want) <= 1e-12 * abs(want)
+                        if name.startswith("avg") else int(got) == want,
+                        f"{what} {key} {name}: {got} vs {want}")
+
+    out = {}
+    # (name, decode threads, queue depth (0: serial), injection); the
+    # queue bounds the chunks decoding at once, so 8 threads get depth 8
+    runs = (("serial", 2, 0, {}),
+            ("pipelined, 2 decode threads", 2, 2, {}),
+            ("pipelined, 8 decode threads", 8, 8, {}),
+            ("corrupt checkpoint replayed", 8, 8, {
+                "corrupt": faults.CorruptionSpec(
+                    "integrity.checkpoint", "flip", seq=3, seed=1)}),
+            ("transient decode fault resumed", 8, 8, {
+                "fault": faults.FaultSpec(
+                    "pipeline.decode", resilience.TransientDeviceError(
+                        "injected transient decode fault"), seq=4)}))
+    try:
+        for what, threads, depth, inject in runs:
+            config.set_option("pipeline.decode_threads", threads)
+            limiter = MemoryLimiter(OOC_BUDGET)
+            script = faults.FaultScript(
+                [inject["fault"]] if "fault" in inject else [],
+                corruptions=[inject["corrupt"]] if "corrupt" in inject
+                else [])
+            recovery = bool(inject)
+
+            def run():
+                with faults.inject(script):
+                    return tpch.tpch_q1_outofcore(
+                        path, budget_bytes=OOC_BUDGET,
+                        chunk_read_limit=CHUNK_READ_LIMIT,
+                        spill_budget_bytes=OOC_RECOVERY_SPILL if recovery
+                        else None, prefetch_depth=depth,
+                        pipeline=depth > 0, limiter=limiter)
+
+            res, row = _ooc_run(f"out-of-core q1 ({what})", run, limiter,
+                                profiled=not recovery)
+            check(f"out-of-core q1 ({what})", res)
+            if recovery:
+                kind = "integrity" if "corrupt" in inject else "resilience"
+                events = [e["event"] for e in telemetry.events(kind)]
+                require(len(script.fired) == 1 and "recovered" in events,
+                        f"out-of-core q1 ({what}): fired {script.fired}, "
+                        f"{kind} events {events}")
+                row["events"] = events
+            row["rows_per_s"] = ROWS / row["s"]
+            out[what] = row
+            p = row["pipeline"]
+            log(f"out-of-core q1 ({what}): {row['s']:.3f} s, "
+                f"{row['rows_per_s']:.4g} rows/s, {res.chunks} chunks, "
+                f"limiter peak {limiter.peak} of {OOC_BUDGET}, device peak "
+                f"{row['device_peak_gib']:.2f} GiB "
+                f"({row['resident_before_gib']:.2f} before), "
+                f"{_busy_text(row)}; "
+                f"decode {p['decode_us'] / 1e6:.3f} "
+                f"s, transfer {p['transfer_us'] / 1e6:.3f} s, stalls "
+                f"producer {p['producer_stall_us'] / 1e6:.3f} / consumer "
+                f"{p['consumer_stall_us'] / 1e6:.3f} s; spills "
+                f"{res.spill_stats['spills']}; equal to the in-memory q1 and "
+                f"the oracle; no launch" + (f"; {row['events']}"
+                                            if recovery else ""))
+    finally:
+        config.reset_option("pipeline.decode_threads")
+    return out
+
+
+def _ooc_q3_part(dev, path) -> dict:
+    """Out-of-core q3 over the SF10 q3 lineitem file, customer and orders
+    resident, partials under a 16 MiB spill budget: the host tier, the
+    codec (and zstd where installed) and a disk tier, each equal to
+    ``tpch_q3`` in memory and the numpy oracle; and one spill's drop of
+    ``torch.cuda.memory_allocated``."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.runtime import compress
+    from spark_rapids_jni_tpu_torch.runtime.memory import (
+        MemoryLimiter,
+        SpillStore,
+        table_nbytes,
+    )
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    customer, orders, li3 = q3_tables()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    oracle = pool.submit(tpch.tpch_q3_oracle, customer, orders, li3)
+    want = _q3_arrays(tpch.tpch_q3(customer, orders, li3).result.compact())
+    del li3
+    torch.cuda.empty_cache()
+
+    # one spill, measured: the allocator gets the table's blocks back
+    big = Table([Column.from_numpy(np.arange(2**25, dtype=np.int64),
+                                   device=dev)])
+    nb = table_nbytes(big)
+    store = SpillStore(nb)
+    h = store.put(big)
+    del big
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    store.spill(h)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    require(after <= before - nb, f"a spill of {nb} bytes lowered "
+            f"memory_allocated by {before - after} only")
+    require(store.get(h).column(0).data[-1].item() == 2**25 - 1,
+            "the unspilled table differs")
+    store.close()
+    out = {"spill_drop": {"bytes": nb, "allocated_before": before,
+                          "allocated_after": after}}
+    log(f"one spill of {nb} bytes: memory_allocated {before} -> {after}")
+
+    zstd = compress.zstd_available()
+    if not zstd:
+        try:
+            SpillStore(1, compress_spill=True)
+        except ModuleNotFoundError:
+            pass
+        else:
+            require(False, "compress_spill without zstandard did not raise")
+    # the oracle's thread holds li3 on the card and competes for the host
+    # until it ends: join it before the timed runs
+    o = oracle.result()
+    pool.shutdown()
+    wanted = [o["orderkey"], o["orderdate"], o["shippriority"], o["revenue"]]
+    torch.cuda.empty_cache()
+    spill_dir = DATA_DIR / "spill"
+    runs = (("host tier", {}, {"compress.spill": False}),
+            ("codec" + (" + zstd" if zstd else " (no zstandard here)"),
+             {"compress_spill": zstd}, {}),
+            ("disk tier", {"spill_dir": str(spill_dir)}, {}))
+    try:
+        config.set_option("pipeline.decode_threads", 8)
+        for what, kw, options in runs:
+            for k, v in options.items():
+                config.set_option(k, v)
+            limiter = MemoryLimiter(OOC_BUDGET)
+            try:
+                res, row = _ooc_run(
+                    f"out-of-core q3 ({what})",
+                    lambda: tpch.tpch_q3_outofcore(
+                        path, customer, orders, budget_bytes=OOC_BUDGET,
+                        chunk_read_limit=CHUNK_READ_LIMIT, pipeline=True,
+                        prefetch_depth=8, spill_budget_bytes=OOC_SPILL_BUDGET,
+                        limiter=limiter, **kw), limiter)
+            finally:
+                for k in options:
+                    config.reset_option(k)
+            got = _q3_arrays(res.table)
+            for i, name in enumerate(("orderkey", "orderdate",
+                                      "shippriority", "revenue")):
+                require(np.array_equal(got[i], want[i]),
+                        f"out-of-core q3 ({what}) {name} differs from "
+                        f"tpch_q3")
+                require(np.array_equal(got[i], wanted[i]),
+                        f"out-of-core q3 ({what}) {name} differs from the "
+                        f"oracle")
+            st = res.spill_stats
+            require(st["spills"] > 0, f"out-of-core q3 ({what}) never spilled")
+            row["rows_per_s"] = ROWS / row["s"]
+            out[what] = row
+            log(f"out-of-core q3 ({what}): {row['s']:.3f} s, {res.chunks} "
+                f"chunks, {len(got[0])} groups, limiter peak {limiter.peak} "
+                f"of {OOC_BUDGET}, device peak {row['device_peak_gib']:.2f} "
+                f"GiB ({row['resident_before_gib']:.2f} before), "
+                f"{_busy_text(row)}; spills {st['spills']}, "
+                f"unspills {st['unspills']}, {st['spilled_bytes']} bytes out; "
+                f"equal to tpch_q3 and the oracle; no launch")
+        require(not any(spill_dir.iterdir()), "spill files left behind")
+    finally:
+        config.reset_option("pipeline.decode_threads")
+        pool.shutdown()
+    return out
+
+
+def _ladder_part(dev, q1_general) -> tuple:
+    """The degradation ladder over planned q1 of SF10 lineitem in memory:
+    without a fault the "fused" tier (kernel A once); then a real
+    ``torch.OutOfMemoryError`` at ``fusion.region`` steps it to
+    "outofcore" (8 chunks, no launch), with the same rows."""
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
+    from spark_rapids_jni_tpu_torch.runtime import degrade, faults, resilience
+    from spark_rapids_jni_tpu_torch.runtime.memory import MemoryLimiter
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    li = tpch.lineitem_table(ROWS, seed=0)
+    limiter = MemoryLimiter(OOC_BUDGET)
+    partial_fn, merge_fn = tpch.q1_row_chunked_fns()
+    chunk_rows = []
+
+    def counted(chunk):
+        chunk_rows.append(chunk.num_rows)
+        return partial_fn(chunk)
+
+    query = degrade.DegradableQuery(
+        tpch._q1_planned_plan(), {"lineitem": li},
+        outofcore=degrade.row_chunked_tier({"lineitem": li}, "lineitem",
+                                           counted, merge_fn,
+                                           limiter=limiter))
+    ctrl = degrade.DegradationController(limiter)
+    config.set_option("degrade.chunk_rows", LADDER_CHUNK_ROWS)
+    out = {}
+    try:
+        telemetry.reset()
+        t0 = time.perf_counter()
+        fused = _launched_only("ladder, no fault", lambda: ctrl.execute(query),
+                               {kga.NAME: 1})
+        out["fused_s"] = time.perf_counter() - t0
+        _q1_rows("ladder fused tier", fused.table, q1_general)
+        require(not telemetry.events("degrade"), "the ladder stepped "
+                "without a fault")
+        ooms = []
+
+        def oom():
+            total = torch.cuda.get_device_properties(dev).total_memory
+            try:
+                torch.empty(2 * total, dtype=torch.uint8, device=dev)
+            except torch.OutOfMemoryError as exc:
+                ooms.append(exc)
+                raise
+            raise AssertionError("allocated twice the card's memory")
+
+        script = faults.FaultScript([faults.FaultSpec("fusion.region", oom)])
+        t0 = time.perf_counter()
+        with faults.inject(script):
+            stepped = _launched_only("ladder after an out-of-memory error",
+                                     lambda: ctrl.execute(query), {})
+        out["outofcore_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        require(len(ooms) == 1 and resilience.classify(ooms[0])
+                is resilience.ResourceExhausted,
+                f"the card's out-of-memory error classified as "
+                f"{[resilience.classify(e).__name__ for e in ooms]}")
+        steps = [(e["event"], e["tier"], e["trigger"], e["rung"])
+                 for e in telemetry.events("degrade")]
+        require(steps == [("step", "outofcore", "ResourceExhausted", 2),
+                          ("completed", "outofcore", "ResourceExhausted", 2)]
+                and telemetry.counter("degrade.step") == 1,
+                f"ladder events {steps}")
+        n_chunks = -(-ROWS // LADDER_CHUNK_ROWS)
+        require(len(chunk_rows) == n_chunks and stepped.meta == {
+            "degrade.chunk_rows": LADDER_CHUNK_ROWS},
+            f"out-of-core tier ran {len(chunk_rows)} chunks, {stepped.meta}")
+        _q1_rows("ladder out-of-core tier", stepped.table, q1_general)
+        require(limiter.used == 0, f"ladder left {limiter.used} reserved")
+        out.update(steps=steps, chunks=len(chunk_rows),
+                   oom=str(ooms[0]).split("\n")[0][:160])
+        log(f"degradation ladder over planned q1: fused tier "
+            f"{out['fused_s']:.3f} s (A once); torch.OutOfMemoryError -> "
+            f"ResourceExhausted -> outofcore ({n_chunks} chunks of "
+            f"{LADDER_CHUNK_ROWS} rows, no launch) {out['outofcore_s']:.3f} "
+            f"s; events {steps}; same rows")
+    finally:
+        config.reset_option("degrade.chunk_rows")
+        del li, query
+        torch.cuda.empty_cache()
+    return {"degradation ladder, fused tier": {"A": 1, "D": 0}}, out
+
+
+def memory_outofcore_phase(dev, q1_oracle, q1_general) -> tuple:
+    """Phase 18: memory and out-of-core at SF10: out-of-core q1 and q3
+    over Parquet under a 1 GiB device budget, and the degradation ladder
+    over planned q1; every result against the in-memory plan and its
+    numpy oracle."""
+    import shutil
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    import chip_smoke_writers as w
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {}
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    DATA_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        q1_path = DATA_DIR / "lineitem.parquet"
+        _, size = _write_q1_parquet(q1_path, ROWS)
+        out["q1_file"] = {"bytes": size, "write_s": time.perf_counter() - t0}
+        log(f"phase 18 q1 file: {ROWS} rows, {size} bytes written in "
+            f"{out['q1_file']['write_s']:.1f} s")
+        out["q1"] = _ooc_q1_part(q1_path, q1_oracle, q1_general)
+        q1_path.unlink()
+
+        t0 = time.perf_counter()
+        gen = tpch.lineitem_q3_table(ROWS, Q3_ORDERS, device="cpu")
+        host = [c.data.numpy() for c in gen.columns]
+        q3_path = DATA_DIR / "lineitem_q3.parquet"
+        size = w.write_parquet(q3_path, [
+            w.ParquetColumn("l_orderkey", host[0], w.INT64),
+            w.ParquetColumn("l_extendedprice", host[1], w.INT64),
+            w.ParquetColumn("l_discount", host[2], w.INT64),
+            w.ParquetColumn("l_shipdate", host[3], w.INT32, w.CONV_DATE,
+                            dictionary=True)], PARQUET_RG_ROWS,
+            PARQUET_PAGE_ROWS)
+        del gen, host
+        out["q3_file"] = {"bytes": size, "write_s": time.perf_counter() - t0}
+        log(f"phase 18 q3 file: {ROWS} rows, {size} bytes written in "
+            f"{out['q3_file']['write_s']:.1f} s")
+        out["q3"] = _ooc_q3_part(dev, q3_path)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    launches, out["ladder"] = _ladder_part(dev, q1_general)
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 18 (memory and out-of-core): {out['s']:.1f} s, device peak "
+        f"{out['peak_gib']:.2f} GiB")
+    return launches, out
 
 
 def _start_native_build():
@@ -4992,12 +5431,14 @@ def main() -> int:
         executor_bridge_phase(dev)
     # launches none of A-D (checked after each of its parts)
     path_times["remaining_operators"] = operators_phase(dev)
+    oc_launches, path_times["memory_outofcore"] = memory_outofcore_phase(
+        dev, q1_oracle, q1_general)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
                **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
                                  for p, n in rd_launches.items()},
-               **ex_launches}
+               **ex_launches, **oc_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}
@@ -5018,6 +5459,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {**report, "card": card, "rows": ROWS, **path_times,
          "peak_gib": peak, "torch": torch.__version__}, indent=1))
+    log(f"chip_smoke: {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -321,6 +321,153 @@ def tpch_q1_planned_checked(lineitem: Table) -> Table:
     return res.table
 
 
+# ---- out-of-core q1: per-chunk partials, merged -----------------------------
+
+# Partial aggregates: sums and counts only, which merge associatively
+# across chunks; the averages are finalized from the merged sums and
+# counts. Indices refer to _q1_work_table's layout.
+_Q1_PARTIAL_AGGS = [
+    (2, "sum"),    # sum_qty
+    (3, "sum"),    # sum_base_price
+    (5, "sum"),    # sum_disc_price
+    (6, "sum"),    # sum_charge
+    (2, "count"),  # count_qty (also count_order)
+    (3, "count"),  # count_price
+    (4, "sum"),    # sum_disc
+    (4, "count"),  # count_disc
+]
+
+# Merge-side aggregates over the partial layout: every lane sums.
+_Q1_MERGE_AGGS = tuple((i, "sum") for i in range(2, 10))
+
+
+def _q1_finalize(merged: Table) -> Table:
+    """Merged sums and counts -> the q1 output schema (avg = sum/count,
+    the groupby mean's arithmetic, so the bits equal ``tpch_q1``'s)."""
+    rf, ls, sq, sp, sdp, sch, cq, cp, sd, cd = merged.columns
+
+    def avg(total: Column, count: Column) -> Column:
+        denom = count.data.clamp(min=1).to(torch.float64)
+        return Column(
+            t.FLOAT64,
+            total.data.to(torch.float64) / denom
+            * (10.0 ** total.dtype.scale),
+            count.valid_mask() & (count.data > 0))
+
+    return Table([rf, ls, sq, sp, sdp, sch, avg(sq, cq), avg(sp, cp),
+                  avg(sd, cd), cq])
+
+
+def _q1_partial_plan() -> fusion.Plan:
+    """One chunk's q1 partial (the reference's ``_q1_partial_plan``): the
+    work table and the partial groupby under
+    ``min(_Q1_GROUP_BUDGET, chunk rows)`` groups (the sort-based
+    groupby: no domains, so no kernel)."""
+    return fusion.Plan("tpch_q1_partial", fusion.GroupBy(
+        fusion.Project(fusion.Scan("chunk"), _q1_work_table),
+        (0, 1), tuple(_Q1_PARTIAL_AGGS),
+        max_groups=fusion.min_rows_of("chunk", _Q1_GROUP_BUDGET),
+        label="partial"))
+
+
+def _q1_merge_plan() -> fusion.Plan:
+    """The stacked partials merged: sum-merge groupby, finalize, ORDER
+    BY flag, status with nulls last."""
+    return fusion.Plan("tpch_q1_merge", fusion.Sort(
+        fusion.Project(
+            fusion.GroupBy(fusion.Scan("partials"), (0, 1), _Q1_MERGE_AGGS,
+                           label="merge"),
+            _q1_finalize),
+        (0, 1), nulls_first=(False, False)))
+
+
+def _q1_partial(chunk: Table) -> Table:
+    """A chunk's partial, trimmed to its real groups on the host (the
+    chunk boundary, where a dynamic shape costs nothing)."""
+    res = fusion.execute(_q1_partial_plan(), {"chunk": chunk})
+    if bool(res.meta["partial.overflowed"]):
+        raise ValueError(
+            "q1 chunk exceeded the plan's group budget "
+            f"({_Q1_GROUP_BUDGET}): flag bytes outside the contract")
+    return trim_table(res.table, int(res.meta["partial.num_groups"]))
+
+
+def _q1_merge(partials: Table) -> Table:
+    return fusion.execute(_q1_merge_plan(), {"partials": partials}).table
+
+
+def q1_row_chunked_fns():
+    """``(partial_fn, merge_fn)`` of q1 over in-memory row chunks of a
+    lineitem table: the algebra ``run_chunked_aggregate`` and the
+    degradation ladder's out-of-core rung (``runtime/degrade.py``)
+    take."""
+    return _q1_partial, _q1_merge
+
+
+def _money_retyped(chunk: Table, cols) -> Table:
+    """``chunk`` with the columns ``cols`` (unscaled INT64 money in the
+    file) typed decimal64(-2), the data unchanged."""
+    out = list(chunk.columns)
+    for i in cols:
+        out[i] = Column(t.decimal64(-2), out[i].data, out[i].validity)
+    return Table(out)
+
+
+def tpch_q1_outofcore(path, *, budget_bytes: int, chunk_read_limit: int,
+                      spill_budget_bytes: int | None = None,
+                      compress_spill: bool = False, prefetch_depth: int = 0,
+                      pipeline: bool | None = None, device=None,
+                      spill_dir: str | None = None, cancel_token=None,
+                      limiter=None):
+    """q1 over a Parquet file larger than the device budget: chunked
+    row-group reads, a partial per chunk, the partials through a
+    SpillStore, the merge and the finalize (the reference's
+    ``tpch_q1_outofcore``). The file holds the 7 q1 lineitem columns with
+    the 4 money columns as unscaled int64 (bench.py's parquet_q1
+    layout), typed decimal64(-2) after the read. Returns an
+    ``OutOfCoreResult`` whose ``.table`` equals ``tpch_q1`` of the whole
+    file.
+
+    ``budget_bytes`` must cover one chunk and the merge window serially;
+    with ``prefetch_depth`` > 0, ``prefetch_depth + 2`` chunks. With
+    ``pipeline`` (None follows ``pipeline.enabled``) the reader's decode
+    thunks run in a thread pool and admission blocks instead of raising;
+    the bits stay the serial path's. ``spill_dir`` puts the spilled
+    partials on disk (default: ``memory.spill_dir``). ``limiter`` lends
+    a ``MemoryLimiter`` (its budget instead of ``budget_bytes``), so the
+    caller can read its peak and usage after the run."""
+    from spark_rapids_jni_tpu_torch.parquet.reader import (
+        ParquetChunkedReader,
+    )
+    from spark_rapids_jni_tpu_torch.runtime.memory import (
+        MemoryLimiter,
+        SpillStore,
+    )
+    from spark_rapids_jni_tpu_torch.runtime.outofcore import (
+        run_chunked_aggregate,
+    )
+
+    if limiter is None:
+        limiter = MemoryLimiter(budget_bytes)
+    spill = SpillStore(spill_budget_bytes if spill_budget_bytes is not None
+                       else budget_bytes, compress_spill=compress_spill,
+                       spill_dir=spill_dir)
+
+    def partial_fn(chunk: Table) -> Table:
+        return _q1_partial(_money_retyped(chunk, range(4)))
+
+    reader = ParquetChunkedReader(path, chunk_read_limit=chunk_read_limit,
+                                  device=resolve_device(device))
+    # the reader itself, so the pipeline can take its decode thunks
+    try:
+        return run_chunked_aggregate(
+            reader, partial_fn, _q1_merge, limiter=limiter, spill=spill,
+            prefetch_depth=prefetch_depth, pipeline=pipeline,
+            cancel_token=cancel_token)
+    finally:
+        spill.close()
+
+
 # ---- TPC-H q3 (shipping priority): join + groupby + order-by ---------------
 #
 #   SELECT l_orderkey, sum(l_extendedprice*(1-l_discount)) AS revenue,
@@ -595,6 +742,107 @@ def tpch_q3_planned(customer: Table, orders: Table, lineitem: Table,
         GroupByResult(res.table, res.meta["groupby.num_groups"]),
         res.meta["pk2.total"],
         res.meta["pk1.pk_violation"] | res.meta["pk2.pk_violation"])
+
+
+def _q3_partial_plan(cutoff: int) -> fusion.Plan:
+    """One lineitem chunk's q3 partial (the reference's
+    ``_q3_partial_plan``): the probe projection, the clustered dense-PK
+    lookup into the resident ``build2`` (an exact scan: the clustered
+    layout declares build rows == the key range), and the revenue
+    partial groupby padded to the chunk's rows."""
+    probe = fusion.Project(fusion.Scan("chunk"), _q3_probe_fn, (cutoff,))
+    j2 = fusion.DensePkJoin(probe, fusion.Scan("build2", bucket=False),
+                            0, 0, 1, fusion.rows_of("build2"),
+                            clustered=True, label="pk2")
+    return fusion.Plan("tpch_q3_partial", fusion.GroupBy(
+        fusion.Project(j2, _q3_planned_keyed_fn), (0, 1, 2), ((3, "sum"),),
+        max_groups=fusion.rows_of("chunk"), label="partial"))
+
+
+def _q3_merge_plan() -> fusion.Plan:
+    """The stacked q3 partials merged: sum-merge groupby, ORDER BY
+    revenue DESC, o_orderdate (the null-key rows are trimmed on the
+    host)."""
+    return fusion.Plan("tpch_q3_merge", fusion.Sort(
+        fusion.GroupBy(fusion.Scan("partials"), (0, 1, 2), ((3, "sum"),),
+                       label="merge"),
+        (3, 1), ascending=(False, True), nulls_first=(False, False)))
+
+
+def _q3_merge(partials: Table) -> Table:
+    srt = fusion.execute(_q3_merge_plan(), {"partials": partials}).table
+    return trim_table(srt, int(srt.column(0).valid_mask().sum()))
+
+
+def tpch_q3_outofcore(path, customer: Table, orders: Table, *,
+                      budget_bytes: int, chunk_read_limit: int,
+                      segment: int = 0, cutoff: int = _Q3_CUTOFF_DAYS,
+                      prefetch_depth: int = 0, pipeline: bool | None = None,
+                      spill_budget_bytes: int | None = None,
+                      compress_spill: bool = False,
+                      spill_dir: str | None = None, cancel_token=None,
+                      limiter=None):
+    """q3 over a lineitem Parquet file larger than the device budget (the
+    reference's ``tpch_q3_outofcore``): customer and orders stay
+    resident; the orders x customer lookup runs once into the resident
+    build side; lineitem streams in row-group chunks, each joined by the
+    clustered dense-PK lookup and partial-aggregated by orderkey; the
+    trimmed partials merge at the end. File schema: [l_orderkey int64,
+    l_extendedprice int64, l_discount int64, l_shipdate date32], the
+    money typed decimal64(-2) after the read. Returns an
+    ``OutOfCoreResult`` whose ``.table`` holds the valid q3 groups in the
+    query's order.
+
+    The reference prunes each chunk with a runtime bloom filter only when
+    ``rtfilter.enabled``, which is off by default; this takes that
+    default path (the filter comes with ``rtfilter.py``, ROADMAP.md
+    Queue 1 entry 12). ``spill_budget_bytes`` (default
+    ``budget_bytes``), ``compress_spill`` and ``spill_dir`` shape the
+    partials' SpillStore; ``limiter`` lends a ``MemoryLimiter``, as in
+    ``tpch_q1_outofcore``."""
+    from spark_rapids_jni_tpu_torch.parquet.reader import (
+        ParquetChunkedReader,
+    )
+    from spark_rapids_jni_tpu_torch.runtime.memory import (
+        MemoryLimiter,
+        SpillStore,
+    )
+    from spark_rapids_jni_tpu_torch.runtime.outofcore import (
+        run_chunked_aggregate,
+    )
+
+    if limiter is None:
+        limiter = MemoryLimiter(budget_bytes)
+    spill = SpillStore(spill_budget_bytes if spill_budget_bytes is not None
+                       else budget_bytes, compress_spill=compress_spill,
+                       spill_dir=spill_dir)
+    # the resident build side, once: orders x customer by the clustered
+    # custkey lookup, the date and segment predicates pushed in
+    j1 = dense_pk_join(_q3_orders_fn(orders, cutoff),
+                       _q3_cust_fn(customer, segment), 0, 0, 1,
+                       customer.num_rows, clustered=True)
+    if bool(j1.pk_violation):
+        raise ValueError("customer PK declaration violated")
+    build2 = _q3_build2_fn(j1.table)
+
+    def partial_fn(chunk: Table) -> Table:
+        res = fusion.execute(_q3_partial_plan(cutoff),
+                             {"chunk": _money_retyped(chunk, (1, 2)),
+                              "build2": build2})
+        if bool(res.meta["pk2.pk_violation"]):
+            raise ValueError("orders PK declaration violated")
+        return trim_table(res.table, int(res.meta["partial.num_groups"]))
+
+    reader = ParquetChunkedReader(
+        path, chunk_read_limit=chunk_read_limit,
+        device=customer.columns[0].device)
+    try:
+        return run_chunked_aggregate(
+            reader, partial_fn, _q3_merge, limiter=limiter, spill=spill,
+            prefetch_depth=prefetch_depth, pipeline=pipeline,
+            cancel_token=cancel_token)
+    finally:
+        spill.close()
 
 
 def tpch_q3_oracle(customer: Table, orders: Table, lineitem: Table,

@@ -1099,16 +1099,29 @@ def groupby_aggregate_auto(
 ) -> GroupByResult:
     """Grow-and-retry around the cardinality bound: start at
     ``initial_max_groups`` and multiply by ``growth`` until the result
-    fits (capped at n, which always fits) — the capacity schedule
-    min(initial·growth^k, n) of the reference's loop with its resilience
-    ladder off (the port has no resilience module yet)."""
+    fits (capped at n, which always fits). The growth runs through the
+    shared ladder (``resilience.escalate``, rung ``grow_capacity``) with
+    the reference's capacity schedule min(initial·growth^k, n); with
+    ``resilience.enabled=false`` the plain loop runs."""
+    from spark_rapids_jni_tpu_torch.runtime import resilience
+
     n = table.num_rows
     m = max(1, int(initial_max_groups))
-    while True:
-        res = groupby_aggregate(table, keys, aggs, max_groups=min(m, n))
-        if m >= n or not bool(res.overflowed):
-            return res
-        m *= growth
+    if not resilience.enabled() or n < 1:
+        while True:
+            res = groupby_aggregate(table, keys, aggs, max_groups=min(m, n))
+            if m >= n or not bool(res.overflowed):
+                return res
+            m *= growth
+
+    def _attempt(cap):
+        res = groupby_aggregate(table, keys, aggs, max_groups=cap)
+        # cap == n always fits (distinct groups <= rows)
+        return res, cap < n and bool(res.overflowed), None
+
+    return resilience.escalate(
+        "groupby_aggregate_auto", _attempt, seam="dispatch.execute",
+        initial=m, growth=growth, max_capacity=n, rows=n)
 
 
 def groupby_percentile(

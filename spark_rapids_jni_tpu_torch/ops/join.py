@@ -328,12 +328,30 @@ def join_auto(
 ) -> tuple[JoinMaps, Table]:
     """Grow-and-retry around the output capacity: run with a guessed
     ``out_size``; while ``total`` exceeds it, grow to max(total,
-    out_size * growth) and rerun. Returns (maps, materialized table)."""
-    out_size = int(initial_out_size) if initial_out_size \
-        else max(left.num_rows, 1)
-    while True:
-        maps = join(left, right, left_on, right_on, out_size, how=how)
+    out_size * growth) and rerun. The growth runs through the shared
+    ladder (``resilience.escalate``): an overflowed attempt reports its
+    exact need (``total``), so the schedule is the plain loop's; with
+    ``resilience.enabled=false`` the plain loop runs. Returns (maps,
+    materialized table)."""
+    from spark_rapids_jni_tpu_torch.runtime import resilience
+
+    n = max(left.num_rows, 1)
+    out_size = int(initial_out_size) if initial_out_size else n
+    if not resilience.enabled():
+        while True:
+            maps = join(left, right, left_on, right_on, out_size, how=how)
+            total = int(maps.total)
+            if total <= out_size:
+                return maps, apply_join_maps(left, right, maps)
+            out_size = max(total, out_size * growth)
+
+    def _attempt(cap):
+        maps = join(left, right, left_on, right_on, cap, how=how)
         total = int(maps.total)
-        if total <= out_size:
-            return maps, apply_join_maps(left, right, maps)
-        out_size = max(total, out_size * growth)
+        if total <= cap:
+            return (maps, apply_join_maps(left, right, maps)), False, None
+        return None, True, total
+
+    return resilience.escalate(
+        "join_auto", _attempt, seam="dispatch.execute", initial=out_size,
+        growth=growth, rows=n)

@@ -49,6 +49,7 @@ from spark_rapids_jni_tpu_torch.ops.sort import (
     sort_table,
 )
 from spark_rapids_jni_tpu_torch.ops.strings import pad_strings, static_strings
+from spark_rapids_jni_tpu_torch.runtime.resilience import FatalExecutionError
 
 
 class Domain(NamedTuple):
@@ -298,10 +299,10 @@ def plan_groupby(
                           "bounded")
 
 
-class PlanBudgetExceeded(ValueError):
-    """A groupby's distinct-group count exceeded ``max_budget``. The
-    reference also classes it a ``FatalExecutionError`` of its
-    resilience taxonomy, which the port does not have yet; here it is the
+class PlanBudgetExceeded(FatalExecutionError, ValueError):
+    """A groupby's distinct-group count exceeded ``max_budget``: a
+    ``FatalExecutionError`` of the resilience taxonomy (the budget is a
+    caller's contract, not a transient condition) that is still the
     ValueError callers match on."""
 
 
@@ -316,22 +317,38 @@ def plan_groupby_auto(
 ) -> PlannedGroupBy:
     """``plan_groupby`` that grows the budget: when the general plan
     drops groups (``overflowed``), double the budget and retry until the
-    result is complete — the budget schedule min(b·2^k, cap) of the
-    reference's loop with its resilience ladder off. Past ``max_budget``
-    (default: the row count) it raises :class:`PlanBudgetExceeded`."""
+    result is complete. The growth runs through the shared ladder
+    (``resilience.escalate``) with the reference's budget schedule
+    min(b·2^k, cap); with ``resilience.enabled=false`` the plain loop
+    runs. Past ``max_budget`` (default: the row count) it raises
+    :class:`PlanBudgetExceeded`."""
+    from spark_rapids_jni_tpu_torch.runtime import resilience
+
     cap = max_budget if max_budget is not None else max(table.num_rows, 1)
     # clamp both ways: a sub-positive budget would loop forever (0*2 == 0)
     # and a starting budget above the cap would silently ignore it
     b = min(max(budget, 1), cap)
-    while True:
-        res = plan_groupby(table, keys, aggs, domains, budget=b,
+    if not resilience.enabled():
+        while True:
+            res = plan_groupby(table, keys, aggs, domains, budget=b,
+                               row_valid=row_valid)
+            if not bool(res.overflowed) or b >= cap:
+                if bool(res.overflowed):
+                    raise PlanBudgetExceeded(
+                        f"groupby exceeded max_budget={cap} distinct groups")
+                return res
+            b = min(b * 2, cap)
+
+    def _attempt(budget_):
+        res = plan_groupby(table, keys, aggs, domains, budget=budget_,
                            row_valid=row_valid)
-        if not bool(res.overflowed) or b >= cap:
-            if bool(res.overflowed):
-                raise PlanBudgetExceeded(
-                    f"groupby exceeded max_budget={cap} distinct groups")
-            return res
-        b = min(b * 2, cap)
+        return res, bool(res.overflowed), None
+
+    return resilience.escalate(
+        "plan_groupby_auto", _attempt, seam="dispatch.execute",
+        initial=b, growth=2, max_capacity=cap,
+        exhaust=lambda c, steps: PlanBudgetExceeded(
+            f"groupby exceeded max_budget={cap} distinct groups"))
 
 
 _INT64_MAX = (1 << 63) - 1

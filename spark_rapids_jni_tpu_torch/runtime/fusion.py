@@ -6,8 +6,8 @@ join / sort / limit nodes over ``Table`` (plus the dense-PK join, the
 runtime bloom filter's build and probe, and the exchange boundary),
 named by a ``Plan``. The models build their queries as plans and run
 them through ``execute``, as the reference's models do; the out-of-core
-runtime and the serving stack (ROADMAP.md Queue 1 entries 10 and 12)
-consume the same plans.
+runtime (``runtime/outofcore.py``, ``runtime/degrade.py``) and the
+serving stack (ROADMAP.md Queue 1 entry 12) consume the same plans.
 
 The reference traces a plan's region into ONE XLA executable through
 ``dispatch.call``, over bucket-padded inputs with a ``row_valid`` mask
@@ -22,10 +22,14 @@ kernel; joins: the probe kernel). So:
 
 - ``execute`` has no ``force_staged``, ``donate_inputs`` or
   ``surface_pressure``: there is one path and no executable to donate
-  into. The callers of Queue 1 entries 10 and 12 add what they need.
-- The retry and staged-fallback ladder (``resilience.retry_or_none``)
-  arrives with ``runtime/resilience.py`` (entry 10); until then an
-  exception in a node propagates and nothing re-runs a region.
+  into.
+- The walk fires the ``fusion.region`` seam first and runs under
+  ``resilience.retrying`` (a plain call with ``resilience.enabled``
+  off), as the reference's fused region runs under ``retry_or_none``:
+  a transient failure replays the walk. There is no staged rung to fall to: when the retries are spent
+  (or the failure is not transient) the final exception is raised,
+  memory pressure or not, and the degradation ladder
+  (``runtime/degrade.py``) takes a pressure failure from there.
 - An ``Exchange`` (as the root or mid-plan) raises
   ``NotImplementedError`` until entries 11-12 port the exchange; the
   runtime-filter pass (``inject_runtime_filters``) comes with
@@ -47,6 +51,8 @@ import torch
 
 from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
+from spark_rapids_jni_tpu_torch.runtime import faults, resilience
+from spark_rapids_jni_tpu_torch.utils.tracing import trace_range
 
 __all__ = [
     "Scan",
@@ -617,8 +623,8 @@ def execute(plan: Plan, bindings: dict, *,
     """Run one plan over ``bindings`` (Scan name -> Table).
 
     The node walk runs each node's operator on the bound tables as they
-    are. ``cancel_token`` (any object with ``check(where)``) is checked
-    once before any compute."""
+    are, after the ``fusion.region`` seam, under the retry policy. ``cancel_token`` (any object with
+    ``check(where)``) is checked once before any compute."""
     if cancel_token is not None:
         cancel_token.check(f"fusion.{plan.name}")
     nodes = _topo(plan.root)
@@ -632,7 +638,15 @@ def execute(plan: Plan, bindings: dict, *,
     _fingerprint(nodes, resolved)  # module-level callables only
     telemetry.count("fusion.regions")
     telemetry.count("fusion.nodes_fused", len(nodes))
-    value, side = _eval_plan(nodes, bindings, resolved)
+
+    def _walk():
+        # the seam fires before any node runs, so a replay starts clean
+        faults.fire("fusion.region", 0, plan=plan.name)
+        with trace_range(f"region.{plan.name}"):
+            return _eval_plan(nodes, bindings, resolved)
+
+    value, side = resilience.retrying(
+        f"fusion.{plan.name}", _walk, seam="fusion.region")
     meta = dict(side)
     meta.update({
         f"{n.label}.lowered": _planned_lowering(n)

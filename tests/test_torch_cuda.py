@@ -1686,3 +1686,116 @@ def test_struct_parquet_read_on_the_card(dev, tmp_path):
     assert want.column(1).to_pylist()[:2] == [
         None, tuple(int(f.values[1]) if f.valid[1] else None
                     for f in fields)]
+
+
+# ---- memory and out-of-core (runtime/memory.py, pipeline.py, resilience.py)
+
+
+def _pinned_sources(chunks, dev):
+    """Decode thunks of ``chunks`` (CPU tables) as a reader's
+    ``chunk_sources()`` gives them for the card: pinned snapshots staged
+    to ``dev``."""
+    from spark_rapids_jni_tpu_torch.runtime.memory import host_table_chunk
+
+    def snap(c):
+        return (c.dtype, c.data.pin_memory(),
+                None if c.validity is None else c.validity.pin_memory(),
+                None, None)
+
+    return [(lambda ch=ch: host_table_chunk(
+        [snap(c) for c in ch.columns], ch.num_rows, dev)) for ch in chunks]
+
+
+@pytest.mark.parametrize("tier", ["host", "codec_off", "disk"])
+def test_spill_round_trip_on_the_card(dev, tier, tmp_path):
+    from spark_rapids_jni_tpu_torch.runtime.memory import (
+        SpillStore,
+        table_nbytes,
+    )
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    n = 100_000
+    rng = np.random.default_rng(5)
+    vals = [None if rng.random() < 0.2 else "s" * int(rng.integers(0, 12))
+            for _ in range(n)]
+    data = rng.integers(0, 50, n).astype(np.int64)
+    valid = torch.from_numpy(rng.random(n) > 0.3)
+    cpu = Table([Column(t.INT64, torch.from_numpy(data), valid),
+                 string_column(vals, device="cpu")])
+    if tier == "codec_off":
+        config.set_option("compress.spill", False)
+    try:
+        gpu = Table([Column(c.dtype, c.data.to(dev),
+                            None if c.validity is None
+                            else c.validity.to(dev),
+                            chars=None if c.chars is None
+                            else c.chars.to(dev)) for c in cpu.columns])
+        nb = table_nbytes(gpu)
+        store = SpillStore(nb, spill_dir=str(tmp_path)
+                           if tier == "disk" else None)
+        h = store.put(gpu)
+        del gpu
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        assert store.spill(h) == nb
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) <= before - nb
+        assert store.state(h) == ("disk" if tier == "disk" else "host")
+        back = store.get(h)
+        torch.cuda.synchronize()
+        assert back.columns[0].data.device.type == "cuda"
+        assert Table([Column(c.dtype, c.data.cpu(),
+                             None if c.validity is None
+                             else c.validity.cpu(),
+                             chars=None if c.chars is None
+                             else c.chars.cpu())
+                      for c in back.columns]).equals(cpu)
+        store.close()
+    finally:
+        config.reset_option("compress.spill")
+
+
+def test_pipeline_on_the_card_equals_serial(dev):
+    from torch_ooc import port_merge, port_partial
+    from spark_rapids_jni_tpu_torch.runtime.memory import (
+        MemoryLimiter,
+        table_nbytes,
+    )
+    from spark_rapids_jni_tpu_torch.runtime.outofcore import (
+        run_chunked_aggregate,
+    )
+
+    li = tpch.lineitem_table(400_000, seed=11, device="cpu")
+    rows = 100_000
+    chunks = [Table([Column(c.dtype, c.data[a:a + rows],
+                            None if c.validity is None
+                            else c.validity[a:a + rows])
+                     for c in li.columns]) for a in range(0, 400_000, rows)]
+    budget = max(table_nbytes(c) for c in chunks) * 8
+    serial = run_chunked_aggregate(
+        iter([Table([Column(c.dtype, c.data.to(dev),
+                            None if c.validity is None
+                            else c.validity.to(dev)) for c in ch.columns])
+              for ch in chunks]),
+        port_partial, port_merge, limiter=MemoryLimiter(budget))
+    limiter = MemoryLimiter(budget)
+    piped = run_chunked_aggregate(_pinned_sources(chunks, dev), port_partial,
+                                  port_merge, limiter=limiter,
+                                  prefetch_depth=2, pipeline=True)
+    torch.cuda.synchronize()
+    assert limiter.used == 0 and piped.chunks == 4
+    for a, b in zip(piped.table.columns, serial.table.columns):
+        assert torch.equal(a.data, b.data)
+        assert torch.equal(a.valid_mask(), b.valid_mask())
+    assert piped.table.columns[0].data.device.type == "cuda"
+
+
+def test_card_out_of_memory_is_resource_exhausted(dev):
+    from spark_rapids_jni_tpu_torch.runtime import resilience
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    assert resilience.classify(ei.value) is resilience.ResourceExhausted
+    assert not resilience.is_transient(ei.value)
+    torch.cuda.empty_cache()

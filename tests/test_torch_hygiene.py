@@ -91,6 +91,12 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.ops.lists, "
             "spark_rapids_jni_tpu_torch.ops.structs, "
             "spark_rapids_jni_tpu_torch.ops.window, "
+            "spark_rapids_jni_tpu_torch.runtime.resilience, "
+            "spark_rapids_jni_tpu_torch.runtime.compress, "
+            "spark_rapids_jni_tpu_torch.runtime.outofcore, "
+            "spark_rapids_jni_tpu_torch.runtime.pipeline, "
+            "spark_rapids_jni_tpu_torch.runtime.degrade, "
+            "spark_rapids_jni_tpu_torch.errors, "
             "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spark_rapids_jni_tpu', 'pyarrow')]; "
@@ -163,6 +169,9 @@ def test_entry_point_refuses_quiet_cpu_fallback():
     from spark_rapids_jni_tpu_torch.ops.lists import make_list_column
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_list_column([[1], None], t.INT64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpch.tpch_q1_outofcore("lineitem.parquet", budget_bytes=1 << 20,
+                               chunk_read_limit=1)
 
 
 def test_registered_kernels_declare_oracle_and_source():

@@ -193,8 +193,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the process's peak host memory; then the embedded-interpreter
    self test (a C program that owns ``Py_Initialize``) on the card
    where the interpreter has a shared libpython;
-17. the remaining operators over half of SF10 lineitem (29,993,026 rows
-   of ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
+17. the remaining operators over a quarter of SF10 lineitem (14,996,513
+   rows of ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
    q5's l_orderkey and l_suppkey, a FLOAT64 price with NaN rows, a
    DECIMAL128 column) and bench.py's log lines, none of which launches
    a kernel of A-D (the counts read after each part), each against a
@@ -235,7 +235,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``torch.OutOfMemoryError`` at the ``fusion.region`` seam classified
    ``ResourceExhausted`` and stepped to the out-of-core tier (8 chunks,
    no launch), with the same rows; the phase's seconds and device peak;
-19. one ``{"kernels": [...]}`` line, the card line, and the final
+   and ``tpch_q3_outofcore`` twice more with the runtime filter on
+   (``rtfilter.max_build_rows`` raised to 2,097,152): decided
+   ``no_history_optimistic`` then ``selective``, each chunk pruned
+   before staging, the rows in and pruned and the limiter's peak beside
+   the unpruned run's, the same result and no launch;
+19. serving at SF10 (lineitem and q3's tables resident): one
+   ``QueryServer`` (two queries in flight, a 16 GiB logical budget, the
+   runtime filter on, telemetry to a JSONL file) serving three sessions
+   at once: "dashboard" planned q1, q6 and planned q1 again (a result
+   cache hit, no wait), "analyst" q3 (the filter applied at join 1) and
+   planned q3, "etl" general q1 and two plans sharing a Filter +
+   Project prefix (the second a subplan hit); every result equal to
+   ``fusion.execute`` of its plan and to its numpy oracle, kernel A
+   launched once and D twice over the traffic, every span tree valid,
+   per-session latency and queue wait; then on a second server with one
+   worker an estimate over the budget rejected, a deadline expiring
+   behind a blocked worker cancelled, and a real out-of-memory error at
+   ``fusion.region`` stepped down the ladder to the out-of-core tier
+   with the same rows; each server's ``limiter.used`` 0 after
+   ``close()``; a third server warmed up from the first's learned
+   estimates (``warmup(top_n=1)`` replays one plan);
+20. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -257,8 +278,9 @@ ROWS = SF10_ROWS
 # phase 14 runs over half of SF10 lineitem (its host oracles are most of
 # its time), which keeps the whole script near 700 s
 GROUPBY_ROWS = SF10_ROWS // 2
-# phase 17 runs over half of SF10 lineitem too, for the same reason
-OPERATORS_ROWS = SF10_ROWS // 2
+# phase 17 runs over a quarter of SF10 lineitem (half until the serving
+# phase came), for the same reason
+OPERATORS_ROWS = SF10_ROWS // 4
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
 DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
@@ -716,7 +738,8 @@ def _run_plan(name: str, fn, want: dict):
 
 def q3_path_phase(customer, orders, li3) -> tuple:
     """``tpch_q3`` and ``tpch_q3_planned`` at SF10 through the entry
-    points, each with the counts set to 0 just before it."""
+    points, each with the counts set to 0 just before it; also returns
+    the numpy oracle's groups (phase 19 serves the same tables)."""
     from spark_rapids_jni_tpu_torch.models import tpch
 
     torch.cuda.reset_peak_memory_stats()
@@ -764,7 +787,7 @@ def q3_path_phase(customer, orders, li3) -> tuple:
         f"{li3.num_rows / s_planned:.4g} rows/s")
     return launches, {"q3_s": s, "q3_planned_s": s_planned,
                       "q3_matched_rows": total, "q3_groups": groups,
-                      "q3_peak_gib": peak}
+                      "q3_peak_gib": peak}, want
 
 
 def tpcds_tables() -> dict:
@@ -4855,8 +4878,8 @@ def _struct_part(tab, host, dev, out) -> None:
 
 
 def operators_phase(dev) -> dict:
-    """Phase 17: the remaining operators over half of SF10 lineitem
-    (``OPERATORS_ROWS``, 29,993,026 rows of
+    """Phase 17: the remaining operators over a quarter of SF10 lineitem
+    (``OPERATORS_ROWS``, 14,996,513 rows of
     ``tpch.lineitem_groupby_table``, the SF10 widths): elementwise,
     window, lists and STRUCT, each against numpy, none launching a
     kernel of A-D."""
@@ -4920,6 +4943,7 @@ OOC_BUDGET = 1 << 30             # the out-of-core runs' device budget
 OOC_SPILL_BUDGET = 16 * 2**20    # q3: ~10 MB partials (~358,000 groups)
 OOC_RECOVERY_SPILL = 1024        # q1's partials spill, so one can corrupt
 LADDER_CHUNK_ROWS = 8_388_608    # degrade.chunk_rows: 8 chunks of SF10
+RTF_MAX_BUILD_ROWS = 2_097_152   # rtfilter.max_build_rows at SF10
 
 
 def _q1_rows(what: str, got, want) -> None:
@@ -5070,14 +5094,13 @@ def _ooc_q1_part(path, q1_oracle, q1_general) -> dict:
     return out
 
 
-def _ooc_q3_part(dev, path) -> dict:
+def _ooc_q3_part(dev, path, q3_oracle) -> dict:
     """Out-of-core q3 over the SF10 q3 lineitem file, customer and orders
     resident, partials under a 16 MiB spill budget: the host tier, the
     codec (and zstd where installed) and a disk tier, each equal to
-    ``tpch_q3`` in memory and the numpy oracle; and one spill's drop of
-    ``torch.cuda.memory_allocated``."""
-    import concurrent.futures
-
+    ``tpch_q3`` in memory and the numpy oracle (``q3_oracle``, phase
+    6's); one spill's drop of ``torch.cuda.memory_allocated``; then the
+    runtime filter's pruned runs (:func:`_pruned_q3_runs`)."""
     import numpy as np
 
     from spark_rapids_jni_tpu_torch.columnar import Column, Table
@@ -5091,8 +5114,6 @@ def _ooc_q3_part(dev, path) -> dict:
     from spark_rapids_jni_tpu_torch.utils import config
 
     customer, orders, li3 = q3_tables()
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    oracle = pool.submit(tpch.tpch_q3_oracle, customer, orders, li3)
     want = _q3_arrays(tpch.tpch_q3(customer, orders, li3).result.compact())
     del li3
     torch.cuda.empty_cache()
@@ -5126,10 +5147,7 @@ def _ooc_q3_part(dev, path) -> dict:
             pass
         else:
             require(False, "compress_spill without zstandard did not raise")
-    # the oracle's thread holds li3 on the card and competes for the host
-    # until it ends: join it before the timed runs
-    o = oracle.result()
-    pool.shutdown()
+    o = q3_oracle
     wanted = [o["orderkey"], o["orderdate"], o["shippriority"], o["revenue"]]
     torch.cuda.empty_cache()
     spill_dir = DATA_DIR / "spill"
@@ -5177,7 +5195,82 @@ def _ooc_q3_part(dev, path) -> dict:
         require(not any(spill_dir.iterdir()), "spill files left behind")
     finally:
         config.reset_option("pipeline.decode_threads")
-        pool.shutdown()
+    out["pruned"] = _pruned_q3_runs(path, customer, orders, want, wanted,
+                                    out["host tier"])
+    return out
+
+
+def _rtfilter_events(op: str) -> tuple:
+    """The ``apply`` reasons and the summed rows in and rows passed of
+    the runtime filter's records of ``op`` (a plan/join signature)."""
+    from spark_rapids_jni_tpu_torch import telemetry
+
+    recs = [e for e in telemetry.events("rtfilter") if e["op"] == op]
+    seen = [e for e in recs if e["event"] == "observed"]
+    return ([e["reason"] for e in recs if e["event"] == "apply"],
+            sum(e["rows_in"] for e in seen),
+            sum(e["rows_pass"] for e in seen))
+
+
+def _pruned_q3_runs(path, customer, orders, want, wanted, unpruned) -> dict:
+    """``tpch_q3_outofcore`` with the runtime filter on, twice, as the
+    host tier's run: the first decides ``no_history_optimistic``, the
+    second ``selective`` from the first's observed pass fraction; each
+    equal to ``tpch_q3`` and the oracle, none launching A-D, its rows in
+    and pruned and its limiter peak beside the unpruned run's. The SF10
+    build side (about 966,000 qualifying orders) is over the default
+    ``rtfilter.max_build_rows``, which is raised for these runs."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.runtime.memory import MemoryLimiter
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    options = {"rtfilter.enabled": True,
+               "rtfilter.max_build_rows": RTF_MAX_BUILD_ROWS,
+               "compress.spill": False, "pipeline.decode_threads": 8}
+    out = {}
+    try:
+        for k, v in options.items():
+            config.set_option(k, v)
+        for run, reason in enumerate(("no_history_optimistic",
+                                      "selective"), 1):
+            what = f"pruned out-of-core q3 (run {run})"
+            limiter = MemoryLimiter(OOC_BUDGET)
+            res, row = _ooc_run(what, lambda: tpch.tpch_q3_outofcore(
+                path, customer, orders, budget_bytes=OOC_BUDGET,
+                chunk_read_limit=CHUNK_READ_LIMIT, pipeline=True,
+                prefetch_depth=8, spill_budget_bytes=OOC_SPILL_BUDGET,
+                limiter=limiter), limiter, profiled=False)
+            reasons, rows_in, rows_pass = _rtfilter_events(
+                "tpch_q3_outofcore/pk2")
+            require(reasons == [reason], f"{what}: decided {reasons}")
+            require(rows_in == ROWS and 0 < rows_pass < rows_in,
+                    f"{what}: {rows_pass} of {rows_in} rows passed")
+            got = _q3_arrays(res.table)
+            for i in range(4):
+                require(np.array_equal(got[i], want[i])
+                        and np.array_equal(got[i], wanted[i]),
+                        f"{what}: column {i} differs from tpch_q3 or the "
+                        f"oracle")
+            prunes = telemetry.REGISTRY.histogram("rtfilter.prune_us")
+            row.update(rows_in=rows_in, rows_pruned=rows_in - rows_pass,
+                       reason=reason, unpruned_limiter_peak=unpruned[
+                           "limiter_peak"], unpruned_s=unpruned["s"],
+                       prunes=prunes.count, prune_s=prunes.sum / 1e6)
+            out[f"run {run}"] = row
+            log(f"{what}: {row['s']:.3f} s, decision {reason}, "
+                f"{rows_in} rows in, {rows_in - rows_pass} pruned "
+                f"({(rows_in - rows_pass) / rows_in:.4f}) by "
+                f"{prunes.count} prunes taking {row['prune_s']:.3f} s of "
+                f"host time (summed over the decode threads), limiter peak "
+                f"{limiter.peak} (unpruned {unpruned['limiter_peak']}), "
+                f"device peak {row['device_peak_gib']:.2f} GiB; equal to "
+                f"tpch_q3 and the oracle; no launch")
+    finally:
+        for k in options:
+            config.reset_option(k)
     return out
 
 
@@ -5267,16 +5360,34 @@ def _ladder_part(dev, q1_general) -> tuple:
     return {"degradation ladder, fused tier": {"A": 1, "D": 0}}, out
 
 
-def memory_outofcore_phase(dev, q1_oracle, q1_general) -> tuple:
-    """Phase 18: memory and out-of-core at SF10: out-of-core q1 and q3
-    over Parquet under a 1 GiB device budget, and the degradation ladder
-    over planned q1; every result against the in-memory plan and its
-    numpy oracle."""
-    import shutil
-
+def _write_q3_parquet(path) -> tuple:
+    """q3's SF10 lineitem (its generator's seed, on the host) written to
+    ``path``: l_orderkey, l_extendedprice and l_discount as INT64,
+    l_shipdate as INT32/DATE with a dictionary; (size, seconds)."""
     from spark_rapids_jni_tpu_torch.models import tpch
 
     import chip_smoke_writers as w
+
+    t0 = time.perf_counter()
+    gen = tpch.lineitem_q3_table(ROWS, Q3_ORDERS, device="cpu")
+    host = [c.data.numpy() for c in gen.columns]
+    size = w.write_parquet(path, [
+        w.ParquetColumn("l_orderkey", host[0], w.INT64),
+        w.ParquetColumn("l_extendedprice", host[1], w.INT64),
+        w.ParquetColumn("l_discount", host[2], w.INT64),
+        w.ParquetColumn("l_shipdate", host[3], w.INT32, w.CONV_DATE,
+                        dictionary=True)], PARQUET_RG_ROWS,
+        PARQUET_PAGE_ROWS)
+    return size, time.perf_counter() - t0
+
+
+def memory_outofcore_phase(dev, q1_oracle, q1_general, q3_oracle) -> tuple:
+    """Phase 18: memory and out-of-core at SF10: out-of-core q1 and q3
+    over Parquet under a 1 GiB device budget (q3 also pruned by the
+    runtime filter), and the degradation ladder over planned q1; every
+    result against the in-memory plan and its numpy oracle."""
+    import concurrent.futures
+    import shutil
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
@@ -5284,31 +5395,25 @@ def memory_outofcore_phase(dev, q1_oracle, q1_general) -> tuple:
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     DATA_DIR.mkdir(parents=True)
     try:
+        # q3's file is written on a thread beside q1's (host work only),
+        # and joined before any timed run
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        q3_path = DATA_DIR / "lineitem_q3.parquet"
+        q3_write = pool.submit(_write_q3_parquet, q3_path)
         t0 = time.perf_counter()
         q1_path = DATA_DIR / "lineitem.parquet"
         _, size = _write_q1_parquet(q1_path, ROWS)
         out["q1_file"] = {"bytes": size, "write_s": time.perf_counter() - t0}
-        log(f"phase 18 q1 file: {ROWS} rows, {size} bytes written in "
-            f"{out['q1_file']['write_s']:.1f} s")
+        q3_size, q3_s = q3_write.result()
+        pool.shutdown()
+        out["q3_file"] = {"bytes": q3_size, "write_s": q3_s}
+        log(f"phase 18 files: q1 {ROWS} rows, {size} bytes written in "
+            f"{out['q1_file']['write_s']:.1f} s; q3 {ROWS} rows, {q3_size} "
+            f"bytes in {q3_s:.1f} s beside it; "
+            f"{time.perf_counter() - t0:.1f} s together")
         out["q1"] = _ooc_q1_part(q1_path, q1_oracle, q1_general)
         q1_path.unlink()
-
-        t0 = time.perf_counter()
-        gen = tpch.lineitem_q3_table(ROWS, Q3_ORDERS, device="cpu")
-        host = [c.data.numpy() for c in gen.columns]
-        q3_path = DATA_DIR / "lineitem_q3.parquet"
-        size = w.write_parquet(q3_path, [
-            w.ParquetColumn("l_orderkey", host[0], w.INT64),
-            w.ParquetColumn("l_extendedprice", host[1], w.INT64),
-            w.ParquetColumn("l_discount", host[2], w.INT64),
-            w.ParquetColumn("l_shipdate", host[3], w.INT32, w.CONV_DATE,
-                            dictionary=True)], PARQUET_RG_ROWS,
-            PARQUET_PAGE_ROWS)
-        del gen, host
-        out["q3_file"] = {"bytes": size, "write_s": time.perf_counter() - t0}
-        log(f"phase 18 q3 file: {ROWS} rows, {size} bytes written in "
-            f"{out['q3_file']['write_s']:.1f} s")
-        out["q3"] = _ooc_q3_part(dev, q3_path)
+        out["q3"] = _ooc_q3_part(dev, q3_path, q3_oracle)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     launches, out["ladder"] = _ladder_part(dev, q1_general)
@@ -5317,6 +5422,439 @@ def memory_outofcore_phase(dev, q1_oracle, q1_general) -> tuple:
     log(f"phase 18 (memory and out-of-core): {out['s']:.1f} s, device peak "
         f"{out['peak_gib']:.2f} GiB")
     return launches, out
+
+
+SERVE_BUDGET = 16 << 30        # phase 19's logical device budget
+SERVE_CACHE_BYTES = 1 << 30    # cache.max_bytes: the etl prefix, ~0.84 GB
+SERVE_WAIT_S = 600             # seconds a served query may take
+ETL_SHIP_FROM = 9131           # 1995-01-01: the etl plans' date filter
+Q3_SPLIT = (Q3_CUSTOMERS, Q3_ORDERS, SF10_ROWS)  # SF10's q3 proportions
+
+
+def _etl_shipped_since(tab, day):
+    """The etl plans' Filter: shipped on or after ``day``."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    return tab.column(tpch.L_SHIPDATE).data >= day
+
+
+def _etl_revenue(tab):
+    """The etl plans' rowwise Project: [l_shipdate, price * (100 -
+    discount)], the revenue valid where both inputs are."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    price = tab.column(tpch.L_EXTENDEDPRICE)
+    disc = tab.column(tpch.L_DISCOUNT)
+    return Table([tab.column(tpch.L_SHIPDATE),
+                  Column(t.decimal64(-4), price.data * (100 - disc.data),
+                         price.valid_mask() & disc.valid_mask())])
+
+
+def _etl_total(tab, row_valid):
+    """Plan A's tail: the filtered revenue's sum and row count."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+
+    rev = tab.column(1)
+    m = rev.valid_mask()
+    return Table([Column(rev.dtype, torch.where(m, rev.data, 0).sum()
+                         .reshape(1)),
+                  Column(t.INT64, m.sum().reshape(1))])
+
+
+def _etl_plans():
+    """Two plans over lineitem sharing the prefix Filter(shipped since
+    1995) -> Project(revenue): A totals it, B groups it by ship day."""
+    from spark_rapids_jni_tpu_torch.runtime import fusion
+
+    prefix = fusion.Project(fusion.Filter(
+        fusion.Scan("lineitem"), _etl_shipped_since, (ETL_SHIP_FROM,)),
+        _etl_revenue)
+    return (fusion.Plan("etl_revenue_total", fusion.Project(
+        prefix, _etl_total, rowwise=False)),
+        fusion.Plan("etl_revenue_by_day", fusion.GroupBy(
+            prefix, (0,), ((1, "sum"),), max_groups=4096, label="by_day")))
+
+
+def _etl_oracle(li) -> dict:
+    """The etl plans on the host: the total, the row count and the sums
+    by ship day (exact: a day's sum stays far below 2^53)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    def host(i):
+        c = li.column(i)
+        return c.data.cpu().numpy(), c.valid_mask().cpu().numpy()
+
+    (ship, sv), (price, pv), (disc, dv) = (
+        host(tpch.L_SHIPDATE), host(tpch.L_EXTENDEDPRICE),
+        host(tpch.L_DISCOUNT))
+    sel = sv & (ship >= ETL_SHIP_FROM) & pv & dv
+    rev = price[sel] * (100 - disc[sel])
+    days = ship[sel].astype(np.int64)
+    lo = int(days.min())
+    sums = np.bincount(days - lo, weights=rev.astype(np.float64))
+    keep = np.bincount(days - lo) > 0
+    return {"total": int(rev.sum()), "count": int(sel.sum()),
+            "days": np.flatnonzero(keep) + lo,
+            "by_day": sums[keep].astype(np.int64)}
+
+
+def _q3_warmup(rows: int) -> None:
+    """Warm-up builder of q3 (the script's: a multi-table plan has no
+    builder of its own): ``rows`` total rows split in SF10's
+    proportions."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+
+    c, o, n = (max(1, rows * k // sum(Q3_SPLIT)) for k in Q3_SPLIT)
+    tpch.tpch_q3(tpch.customer_table(c), tpch.orders_table(o, c),
+                 tpch.lineitem_q3_table(n, o))
+
+
+def _client(session, queries, out: dict, errors: list) -> None:
+    """One session's client: submits its queries one after another,
+    each after the previous one's result."""
+    try:
+        for what, plan, bindings, kw in queries:
+            ticket = session.submit(plan, bindings, **kw)
+            out[what] = (ticket, ticket.result(timeout=SERVE_WAIT_S))
+    except BaseException as exc:  # re-raised on the main thread
+        errors.append(exc)
+
+
+def _served_traffic(li, q3b, tmp) -> tuple:
+    """The three sessions through one ``QueryServer`` (two in flight, the
+    runtime filter on): the launches, each query's (ticket, result), the
+    traffic, the server's stats and per-session numbers, the span
+    records and the traffic's seconds."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import (
+        groupby_accumulate as kga,
+        hash_probe as khp,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import fusion, server
+    from spark_rapids_jni_tpu_torch.telemetry import report
+
+    etl_a, etl_b = _etl_plans()
+    q6 = fusion.Plan("tpch_q6", fusion.Project(
+        fusion.Scan("lineitem"), tpch._q6_reduce, rowwise=False))
+    lb = {"lineitem": li}
+    q3fp = {"cache_fingerprint": "tpch-sf10-q3-default-seeds"}
+    traffic = {
+        "dashboard": [("planned q1", tpch._q1_planned_plan(), lb, {}),
+                      ("q6", q6, lb, {}),
+                      ("planned q1 again", tpch._q1_planned_plan(), lb, {})],
+        "analyst": [("q3", tpch._q3_plan(0, tpch._Q3_CUTOFF_DAYS, 2), q3b,
+                     q3fp),
+                    ("planned q3", tpch._q3_planned_plan(
+                        0, tpch._Q3_CUTOFF_DAYS), q3b, q3fp)],
+        "etl": [("q1", tpch._q1_plan(), lb, {}),
+                ("etl total", etl_a, lb, {}),
+                ("etl by day", etl_b, lb, {})]}
+    served, errors = {}, []
+    srv = server.QueryServer(budget_bytes=SERVE_BUDGET, max_inflight=2)
+    try:
+        sessions = {sid: srv.session(sid) for sid in traffic}
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=_client, args=(
+            sessions[sid], qs, served, errors)) for sid, qs in traffic.items()]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_WAIT_S)
+        torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        require(not any(th.is_alive() for th in threads),
+                "a session's client did not finish")
+        launches = {"A": kernels.launches(kga.NAME),
+                    "D": kernels.launches(khp.NAME)}
+        require(launches == {"A": 1, "D": 2},
+                f"the served traffic launched {kernels.launches()}")
+        require(not kernels.fallbacks(),
+                f"the served traffic fell back: {kernels.fallbacks()}")
+        stats = srv.stats()
+        per_session = {sid: srv.session_stats(sid) for sid in traffic}
+    finally:
+        srv.close()
+    require(srv.limiter.used == 0,
+            f"{srv.limiter.used} bytes reserved after close()")
+    records = report.load_jsonl(str(tmp / "run.jsonl"))
+    return launches, served, traffic, stats, per_session, records, \
+        traffic_s
+
+
+def _check_served(served, traffic, li, q3b, q1_oracle, q1_general,
+                  q3_oracle) -> dict:
+    """Every served result against ``fusion.execute`` of its plan with no
+    server, bit for bit, and against its numpy oracle."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops.groupby import GroupByResult
+    from spark_rapids_jni_tpu_torch.runtime import fusion
+
+    plans = {what: (plan, b) for qs in traffic.values()
+             for what, plan, b, _ in qs}
+    etl = _etl_oracle(li)
+    q6 = tpch.tpch_q6_oracle(li)
+    out = {}
+    for what, (ticket, res) in served.items():
+        plan, b = plans[what]
+        direct = fusion.execute(plan, b)
+        _same_tables(f"served {what}", res.table, direct.table)
+        tab = res.table
+        if what in ("planned q1", "planned q1 again", "q1"):
+            _q1_rows(f"served {what}", tab, q1_general)
+            host = [c.data[:6].cpu().numpy() for c in tab.columns]
+            for g in range(6):
+                key = (int(host[0][g]), int(host[1][g]))
+                require(int(host[9][g]) == q1_oracle[key]["count"]
+                        and int(host[2][g]) == q1_oracle[key]["sum_qty"],
+                        f"served {what} group {key} differs from the oracle")
+        elif what == "q6":
+            require(int(tab.column(0).data[0]) == q6,
+                    f"served q6 differs from the oracle {q6}")
+        elif what in ("q3", "planned q3"):
+            g = GroupByResult(tab, res.meta["groupby.num_groups"]).compact()
+            got = _q3_arrays(g)
+            for i, name in enumerate(("orderkey", "orderdate",
+                                      "shippriority", "revenue")):
+                require(np.array_equal(got[i], q3_oracle[name]),
+                        f"served {what} {name} differs from the oracle")
+        elif what == "etl total":
+            require(int(tab.column(0).data[0]) == etl["total"]
+                    and int(tab.column(1).data[0]) == etl["count"],
+                    "served etl total differs from the oracle")
+        else:  # etl by day
+            k = int(res.meta["by_day.num_groups"])
+            keys = tab.column(0)
+            kv = keys.valid_mask()[:k].cpu().numpy()
+            days = keys.data[:k].cpu().numpy()[kv]
+            sums = tab.column(1).data[:k].cpu().numpy()[kv]
+            require(np.array_equal(days, etl["days"])
+                    and np.array_equal(sums, etl["by_day"]),
+                    "served etl by day differs from the oracle")
+        out[what] = {"latency_s": ticket.latency_s,
+                     "queue_wait_s": ticket.queue_wait_s}
+        del direct
+    return out
+
+
+def _refusals(li) -> dict:
+    """On a second server with one worker: an estimate over the whole
+    budget rejected; a deadline that expires behind a blocked worker,
+    cancelled; planned q1 with a real out-of-memory error at the
+    ``fusion.region`` seam stepped to the out-of-core tier, the same
+    rows. ``limiter.used`` is 0 after ``close()``."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.runtime import (
+        degrade,
+        faults,
+        fusion,
+        resilience,
+        server,
+    )
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    q1p = tpch._q1_planned_plan()
+    q6 = fusion.Plan("tpch_q6", fusion.Project(
+        fusion.Scan("lineitem"), tpch._q6_reduce, rowwise=False))
+    lb = {"lineitem": li}
+    release, entered = threading.Event(), threading.Event()
+
+    def block(seam, seq, ctx):
+        if seam == "server.execute" and ctx["session"] == "blocker":
+            entered.set()
+            release.wait(SERVE_WAIT_S)
+
+    out = {}
+    dev = li.columns[0].device
+    srv = server.QueryServer(budget_bytes=SERVE_BUDGET, max_inflight=1)
+    try:
+        big = srv.session("adhoc").submit(q6, lb,
+                                          estimate_bytes=SERVE_BUDGET + 1)
+        try:
+            big.result(timeout=SERVE_WAIT_S)
+            require(False, "an estimate over the budget was served")
+        except server.QueryRejected as exc:
+            require(exc.retry_after_s is None and big.status == "rejected",
+                    f"rejection {exc.reason!r}")
+            out["rejected"] = exc.reason
+        with faults.inject(block):
+            blocker = srv.session("blocker").submit(q1p, lb)
+            require(entered.wait(SERVE_WAIT_S), "the blocker never ran")
+            late = srv.session("late").submit(q6, lb, deadline_ms=100)
+            time.sleep(0.5)
+            release.set()
+            try:
+                late.result(timeout=SERVE_WAIT_S)
+                require(False, "the expired query was served")
+            except resilience.QueryCancelled as exc:
+                require(late.status == "cancelled", late.status)
+                out["cancelled"] = str(exc)
+            blocker.result(timeout=SERVE_WAIT_S)
+
+        def oom():
+            total = torch.cuda.get_device_properties(dev).total_memory
+            torch.empty(2 * total, dtype=torch.uint8, device=dev)
+            raise AssertionError("allocated twice the card's memory")
+
+        partial_fn, merge_fn = tpch.q1_row_chunked_fns()
+        steps = telemetry.counter("degrade.step")
+        config.set_option("cache.enabled", False)
+        config.set_option("degrade.chunk_rows", LADDER_CHUNK_ROWS)
+        script = faults.FaultScript([faults.FaultSpec("fusion.region", oom)])
+        try:
+            with faults.inject(script):
+                kernels.reset_counts()
+                ladder = srv.session("ladder").submit(
+                    q1p, lb, outofcore=lambda b, lim:
+                    degrade.row_chunked_tier(b, "lineitem", partial_fn,
+                                             merge_fn, limiter=lim))
+                res = ladder.result(timeout=SERVE_WAIT_S)
+                torch.cuda.synchronize()
+        finally:
+            config.reset_option("cache.enabled")
+            config.reset_option("degrade.chunk_rows")
+        torch.cuda.empty_cache()
+        require(script.fired and res.meta == {
+            "degrade.chunk_rows": LADDER_CHUNK_ROWS},
+            f"ladder: fired {script.fired}, meta {res.meta}")
+        require(telemetry.counter("degrade.step") - steps == 1,
+                "the ladder did not step exactly once")
+        require(not any(kernels.launches().values()),
+                f"the out-of-core tier launched {kernels.launches()}")
+        _q1_rows("served ladder", res.table, fusion.execute(q1p, lb).table)
+        out["ladder_s"] = ladder.latency_s
+    finally:
+        release.set()
+        srv.close()
+    require(srv.limiter.used == 0,
+            f"{srv.limiter.used} bytes reserved after close()")
+    return out
+
+
+def serving_phase(dev, q1_oracle, q1_general, q3_oracle) -> tuple:
+    """Phase 19: the serving stack at SF10. Three sessions through one
+    ``QueryServer`` over resident SF10 lineitem and q3's tables, a result
+    cache hit and a subplan hit, A once and D twice; three classified
+    refusals; a second server's warm-up from the first's learned
+    estimates."""
+    import shutil
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.runtime import server
+    from spark_rapids_jni_tpu_torch.telemetry import spans
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    tmp = DATA_DIR / "serving"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    options = {"telemetry.enabled": True,
+               "telemetry.path": str(tmp / "run.jsonl"),
+               "server.estimate_path": str(tmp / "learned.json"),
+               "rtfilter.max_build_rows": RTF_MAX_BUILD_ROWS,
+               "cache.max_bytes": SERVE_CACHE_BYTES}
+    out = {}
+    try:
+        for k, v in options.items():
+            config.set_option(k, v)
+        li = tpch.lineitem_table(ROWS, seed=0)
+        customer, orders, li3 = q3_tables()
+        q3b = {"customer": customer, "orders": orders, "lineitem": li3}
+        config.set_option("rtfilter.enabled", True)
+        try:
+            (launches, served, traffic, stats, per_session, records,
+             traffic_s) = _served_traffic(li, q3b, tmp)
+        finally:
+            config.reset_option("rtfilter.enabled")
+        # cache.hit counts every hit, the subplan's included (as the
+        # reference's ResultCache.get does): one whole-query hit
+        subplan_hits = telemetry.counter("cache.subplan_hit")
+        require(stats["cache"]["hits"] - subplan_hits == 1
+                and subplan_hits == 1, f"cache {stats['cache']}")
+        require(served["planned q1 again"][0].queue_wait_s == 0.0,
+                "the cached query waited")
+        require(max(t.queue_wait_s for t, _ in served.values()) > 0,
+                "no query waited for admission")
+        reasons, rows_in, rows_pass = _rtfilter_events("tpch_q3/join1")
+        require(reasons == ["no_history_optimistic"]
+                and 0 < rows_pass < rows_in,
+                f"q3's join 1 filter: {reasons}, {rows_pass}/{rows_in}")
+        problems = spans.validate(records)
+        require(not problems, f"span trees: {problems[:5]}")
+        trace = spans.chrome_trace(records)
+        n_spans = sum(1 for e in trace["traceEvents"] if e["ph"] == "X")
+        queries = _check_served(served, traffic, li, q3b, q1_oracle,
+                                q1_general, q3_oracle)
+        for what, q in queries.items():
+            log(f"served {what}: latency {q['latency_s'] * 1e3:.3f} ms, "
+                f"queue wait {q['queue_wait_s'] * 1e3:.3f} ms; equal to "
+                f"fusion.execute and the oracle")
+        for sid, st in per_session.items():
+            log(f"session {sid}: latency p50 {st['latency_ms_p50']:.3f} / "
+                f"p95 {st['latency_ms_p95']:.3f} ms, queue wait p50 "
+                f"{st['queue_wait_ms_p50']:.3f} / p95 "
+                f"{st['queue_wait_ms_p95']:.3f} ms (histogram estimates)")
+        log(f"served traffic: {traffic_s:.3f} s for 8 queries, launches "
+            f"{launches}; q3 join 1 filter: {rows_in} rows in, "
+            f"{rows_in - rows_pass} pruned; cache.hit "
+            f"{stats['cache']['hits']} (1 whole query, {subplan_hits} "
+            f"subplan); {len(records)} records, "
+            f"{n_spans} spans, trees valid; stats {json.dumps(stats)}")
+        out.update(traffic_s=traffic_s, launches=launches, queries=queries,
+                   sessions=per_session, stats=stats, spans=n_spans,
+                   rtfilter={"rows_in": rows_in,
+                             "rows_pruned": rows_in - rows_pass})
+        del served, q3b, customer, orders, li3
+        torch.cuda.empty_cache()
+        out["refusals"] = _refusals(li)
+        log(f"refusals: rejected ({out['refusals']['rejected']}); "
+            f"cancelled ({out['refusals']['cancelled'][:80]}); ladder "
+            f"stepped to outofcore in {out['refusals']['ladder_s']:.3f} s, "
+            f"same rows")
+        del li
+        torch.cuda.empty_cache()
+
+        server.register_warmup_builder("tpch_q3", _q3_warmup)
+        learned = json.loads((tmp / "learned.json").read_text())
+        top = max(learned.items(), key=lambda kv: kv[1])
+        with server.QueryServer(budget_bytes=SERVE_BUDGET) as srv:
+            t0 = time.perf_counter()
+            summary = srv.warmup(top_n=1)
+            torch.cuda.synchronize()
+        require(summary["compiled"] == 1, f"warm-up {summary}")
+        out["warmup"] = {**summary, "signature": top[0],
+                         "s": time.perf_counter() - t0}
+        log(f"warm-up from the first server's learned estimates: "
+            f"{summary}, top signature {top[0]} ({top[1]:.4g} bytes), "
+            f"{out['warmup']['s']:.3f} s")
+    finally:
+        for k in options:
+            config.reset_option(k)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 19 (serving): {out['s']:.1f} s, device peak "
+        f"{out['peak_gib']:.2f} GiB")
+    return {"served traffic (phase 19)": launches}, out
 
 
 def _start_native_build():
@@ -5395,7 +5933,7 @@ def main() -> int:
     q3 = q3_tables()
     kernel_rows["D"], probe_rows = probe_phase(*q3, dev)
     path_times["probe_joins"] = probe_rows
-    q3_launches, q3_numbers = q3_path_phase(*q3)
+    q3_launches, q3_numbers, q3_oracle = q3_path_phase(*q3)
     path_times.update(q3_numbers)
     del q3
     torch.cuda.empty_cache()
@@ -5432,13 +5970,15 @@ def main() -> int:
     # launches none of A-D (checked after each of its parts)
     path_times["remaining_operators"] = operators_phase(dev)
     oc_launches, path_times["memory_outofcore"] = memory_outofcore_phase(
-        dev, q1_oracle, q1_general)
+        dev, q1_oracle, q1_general, q3_oracle)
+    sv_launches, path_times["serving"] = serving_phase(
+        dev, q1_oracle, q1_general, q3_oracle)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
                **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
                                  for p, n in rd_launches.items()},
-               **ex_launches, **oc_launches}
+               **ex_launches, **oc_launches, **sv_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

@@ -61,7 +61,7 @@ from spark_rapids_jni_tpu_torch.ops.strings import (
     static_strings,
 )
 from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
-from spark_rapids_jni_tpu_torch.runtime import fusion
+from spark_rapids_jni_tpu_torch.runtime import fusion, rtfilter
 from spark_rapids_jni_tpu_torch.utils.platform import resolve_device
 
 # lineitem columns used by q1 (positions in the table below)
@@ -249,32 +249,32 @@ def tpch_q1_numpy(lineitem: Table) -> dict:
     def host(i):
         return lineitem.column(i).data.cpu().numpy()
 
-    qty = host(L_QUANTITY)
-    price = host(L_EXTENDEDPRICE)
-    disc = host(L_DISCOUNT)
-    tax = host(L_TAX)
-    rf = host(L_RETURNFLAG)
-    ls = host(L_LINESTATUS)
-    ship = host(L_SHIPDATE)
-    keep = ship <= _Q1_CUTOFF_DAYS
+    keep = host(L_SHIPDATE) <= _Q1_CUTOFF_DAYS
+    # one stable sort by group (int16 keys: numpy's radix sort) puts
+    # each group's rows in one block, in their row order
+    gid = (host(L_RETURNFLAG)[keep].astype(np.int16) << 8) \
+        | host(L_LINESTATUS)[keep].astype(np.uint8)
+    order = np.argsort(gid, kind="stable")
+    gid = gid[order]
+    qty, price, disc, tax = (host(c)[keep][order] for c in (
+        L_QUANTITY, L_EXTENDEDPRICE, L_DISCOUNT, L_TAX))
+    starts = np.flatnonzero(np.r_[True, gid[1:] != gid[:-1]]) \
+        if len(gid) else np.zeros((0,), np.int64)
     out = {}
-    for f in np.unique(rf[keep]):
-        for s in np.unique(ls[keep]):
-            m = keep & (rf == f) & (ls == s)
-            if not m.any():
-                continue
-            dp = price[m] * (100 - disc[m])
-            out[(int(f), int(s))] = {
-                "sum_qty": int(qty[m].sum()),
-                "sum_base_price": int(price[m].sum()),
-                "sum_disc_price": int(dp.sum()),
-                "sum_charge": int((dp * (100 + tax[m])).sum()),
-                # true values: unscaled decimal(scale -2) means x 10^-2
-                "avg_qty": qty[m].mean() * 1e-2,
-                "avg_price": price[m].mean() * 1e-2,
-                "avg_disc": disc[m].mean() * 1e-2,
-                "count": int(m.sum()),
-            }
+    for a, b in zip(starts, np.r_[starts[1:], len(gid)]):
+        g = slice(a, b)
+        dp = price[g] * (100 - disc[g])
+        out[(int(gid[a]) >> 8, int(np.int8(gid[a] & 0xFF)))] = {
+            "sum_qty": int(qty[g].sum()),
+            "sum_base_price": int(price[g].sum()),
+            "sum_disc_price": int(dp.sum()),
+            "sum_charge": int((dp * (100 + tax[g])).sum()),
+            # true values: unscaled decimal(scale -2) means x 10^-2
+            "avg_qty": qty[g].mean() * 1e-2,
+            "avg_price": price[g].mean() * 1e-2,
+            "avg_disc": disc[g].mean() * 1e-2,
+            "count": int(b - a),
+        }
     return out
 
 
@@ -793,10 +793,16 @@ def tpch_q3_outofcore(path, customer: Table, orders: Table, *,
     ``OutOfCoreResult`` whose ``.table`` holds the valid q3 groups in the
     query's order.
 
-    The reference prunes each chunk with a runtime bloom filter only when
-    ``rtfilter.enabled``, which is off by default; this takes that
-    default path (the filter comes with ``rtfilter.py``, ROADMAP.md
-    Queue 1 entry 12). ``spill_budget_bytes`` (default
+    With ``rtfilter.enabled`` (off by default) and the learned gate's
+    consent (``rtfilter.decide("tpch_q3_outofcore", "pk2", ...)``), the
+    resident build side's order keys go into a bloom filter once, and
+    every lineitem chunk is pruned of the rows whose order key it proves
+    absent before the chunk is reserved and staged (``rtfilter.
+    pruned_chunks``): fewer rows reserved, staged and joined, the same
+    result. The gate and the filter's size take the build side's valid
+    keys (one host read), where the reference takes its row count: the
+    build is one row per order, most of them nulled by the date and
+    segment predicates. ``spill_budget_bytes`` (default
     ``budget_bytes``), ``compress_spill`` and ``spill_dir`` shape the
     partials' SpillStore; ``limiter`` lends a ``MemoryLimiter``, as in
     ``tpch_q1_outofcore``."""
@@ -824,6 +830,9 @@ def tpch_q3_outofcore(path, customer: Table, orders: Table, *,
     if bool(j1.pk_violation):
         raise ValueError("customer PK declaration violated")
     build2 = _q3_build2_fn(j1.table)
+    bkey = build2.column(0)
+    n_keys = int(bkey.valid_mask().sum())
+    decision = rtfilter.decide("tpch_q3_outofcore", "pk2", n_keys)
 
     def partial_fn(chunk: Table) -> Table:
         res = fusion.execute(_q3_partial_plan(cutoff),
@@ -833,12 +842,18 @@ def tpch_q3_outofcore(path, customer: Table, orders: Table, *,
             raise ValueError("orders PK declaration violated")
         return trim_table(res.table, int(res.meta["partial.num_groups"]))
 
-    reader = ParquetChunkedReader(
+    chunks = ParquetChunkedReader(
         path, chunk_read_limit=chunk_read_limit,
         device=customer.columns[0].device)
+    if decision.apply:
+        bf = rtfilter.build_filter(bkey.data, bkey.valid_mask(),
+                                   expected_items=n_keys)
+        chunks = rtfilter.pruned_chunks(chunks, bf, L3_ORDERKEY,
+                                        plan_name="tpch_q3_outofcore",
+                                        label="pk2")
     try:
         return run_chunked_aggregate(
-            reader, partial_fn, _q3_merge, limiter=limiter, spill=spill,
+            chunks, partial_fn, _q3_merge, limiter=limiter, spill=spill,
             prefetch_depth=prefetch_depth, pipeline=pipeline,
             cancel_token=cancel_token)
     finally:
@@ -859,7 +874,7 @@ def tpch_q3_oracle(customer: Table, orders: Table, lineitem: Table,
     good_cust = host(customer, C_CUSTKEY)[
         host(customer, C_MKTSEGMENT) == segment]
     keep = (host(orders, O_ORDERDATE) < cutoff) \
-        & np.isin(host(orders, O_CUSTKEY), good_cust)
+        & _host_isin(host(orders, O_CUSTKEY), good_cust)
     okey = host(orders, O_ORDERKEY)[keep]
     ukey, first = np.unique(okey[::-1], return_index=True)
     last = len(okey) - 1 - first
@@ -870,9 +885,7 @@ def tpch_q3_oracle(customer: Table, orders: Table, lineitem: Table,
     lkey = host(lineitem, L3_ORDERKEY)[lmask]
     rev = host(lineitem, L3_EXTENDEDPRICE)[lmask] \
         * (100 - host(lineitem, L3_DISCOUNT)[lmask])
-    pos = np.searchsorted(ukey, lkey)
-    hit = pos < len(ukey)
-    hit[hit] = ukey[pos[hit]] == lkey[hit]
+    hit, pos = _host_lookup(ukey, np.arange(len(ukey)), lkey)
     order = np.argsort(lkey[hit], kind="stable")
     gkey, grev, gpos = lkey[hit][order], rev[hit][order], pos[hit][order]
     starts = np.flatnonzero(np.r_[True, gkey[1:] != gkey[:-1]]) \
@@ -999,6 +1012,23 @@ def _host_lookup(keys: np.ndarray, values: np.ndarray, probe: np.ndarray):
     out = np.zeros(probe.shape, values.dtype)
     out[found] = vals[pos[found]]
     return found, out
+
+
+def _host_isin(probe: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """``np.isin(probe, keys)``; compact integer keys (as in
+    :func:`_host_lookup`) go through a direct-address table, one read
+    per probe, in place of ``np.isin``'s sort of both arrays."""
+    if not len(keys):
+        return np.zeros(probe.shape, bool)
+    lo, hi = int(keys.min()), int(keys.max())
+    if hi - lo >= max(16 * len(keys), 1 << 24):
+        return np.isin(probe, keys)
+    table = np.zeros(hi - lo + 1, bool)
+    table[(keys - lo).astype(np.int64)] = True
+    inside = (probe >= lo) & (probe <= hi)
+    out = np.zeros(probe.shape, bool)
+    out[inside] = table[(probe[inside] - lo).astype(np.int64)]
+    return out
 
 
 def _host_group_sums(keys: np.ndarray, values: np.ndarray) -> dict:
@@ -1921,15 +1951,20 @@ def tpch_q4_oracle(orders: Table, lineitem: Table,
     late = _host(lineitem, L12_COMMITDATE) < _host(lineitem,
                                                    L12_RECEIPTDATE)
     odate = _host(orders, O4_ORDERDATE)
-    ok = (odate >= qtr_start) & (odate < qtr_end) & np.isin(
+    ok = (odate >= qtr_start) & (odate < qtr_end) & _host_isin(
         _host(orders, O4_ORDERKEY), _host(lineitem, L12_ORDERKEY)[late])
     lens, mat, valid = _host_strings(orders.column(O4_ORDERPRIORITY), ok)
     out: dict = {}
     if valid.any():
-        rows = np.concatenate([lens[valid, None].view(np.uint8).reshape(
-            -1, 4), mat[valid]], 1)
-        uniq, counts = np.unique(rows, axis=0, return_counts=True)
+        rows = np.ascontiguousarray(np.concatenate([
+            lens[valid, None].view(np.uint8).reshape(-1, 4), mat[valid]],
+            1))
+        # each row as one opaque value: a bytewise sort, not a sort of
+        # one field per column
+        keys = rows.view(np.dtype((np.void, rows.shape[1]))).reshape(-1)
+        uniq, counts = np.unique(keys, return_counts=True)
         for r, c in zip(uniq, counts):
+            r = np.frombuffer(r.tobytes(), np.uint8)
             n = int(r[:4].view(np.int32)[0])
             out[r[4:4 + n].tobytes().decode()] = int(c)
     if not valid.all():
@@ -2414,3 +2449,28 @@ def tpch_q13_oracle(orders: Table) -> dict:
     counts = np.bincount(_host(orders, O_CUSTKEY)[ok])
     keys = np.flatnonzero(counts)
     return {"custkey": keys.astype(np.int64), "count": counts[keys]}
+
+
+# ---- warm-up builders (runtime/server.QueryServer.warmup) -----------------
+#
+# The learned-estimate file keys plans as ``<plan>@<bucket>``; a new
+# server replays its costliest ones through these builders at the
+# signature's rows. Only single-table plans register: their bucket maps
+# onto one table's rows (a multi-table plan such as q3 has no unique
+# split of a total-row bucket).
+
+def _register_warmup_builders() -> None:
+    from spark_rapids_jni_tpu_torch.runtime.server import (
+        register_warmup_builder,
+    )
+
+    register_warmup_builder(
+        "tpch_q1", lambda rows: tpch_q1(lineitem_table(rows)))
+    register_warmup_builder(
+        "tpch_q1_planned",
+        lambda rows: tpch_q1_planned(lineitem_table(rows)))
+    register_warmup_builder(
+        "tpch_q6", lambda rows: tpch_q6(lineitem_table(rows)))
+
+
+_register_warmup_builders()

@@ -243,6 +243,9 @@ class DegradationController:
                         telemetry.record_degrade(
                             op, "resumed", tier="parked", trigger=trigger,
                             rung=steps, **attrs)
+                        # the drain wait discounted evictable cache
+                        # bytes: shed them before the retry reserves
+                        self.limiter.reclaim_cache()
                         # retry the most degraded tier that runs
                         rung = len(tiers) - 2
                         if tiers[rung] == "staged":

@@ -16,8 +16,8 @@ and ``faults.injected.<seam>``; mutations ``faults.corrupted`` and
 ``faults.corrupted.<seam>``.
 
 The seams are the reference's that the port fires; the dispatch,
-transport, exchange, serving and fleet seams come with ROADMAP.md
-Queue 1 entries 11-12.
+transport, exchange and fleet seams come with ROADMAP.md Queue 1
+entries 11 and 12b.
 """
 
 from __future__ import annotations
@@ -56,6 +56,9 @@ SEAMS: Tuple[str, ...] = (
     "pipeline.merge",
     # a plan's walk (runtime/fusion.py)
     "fusion.region",
+    # the serving runtime (runtime/server.py)
+    "server.admit",
+    "server.execute",
     # cooperative cancellation checkpoints (resilience.CancelToken)
     "server.cancel",
     # degradation ladder steps (runtime/degrade.py)
@@ -66,6 +69,7 @@ SEAMS: Tuple[str, ...] = (
     "integrity.spill",
     "integrity.checkpoint",
     "integrity.ingest",
+    "integrity.cache",
 )
 
 _SEAM_SET = frozenset(SEAMS)

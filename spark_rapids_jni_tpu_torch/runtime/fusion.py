@@ -31,15 +31,22 @@ kernel; joins: the probe kernel). So:
   memory pressure or not, and the degradation ladder
   (``runtime/degrade.py``) takes a pressure failure from there.
 - An ``Exchange`` (as the root or mid-plan) raises
-  ``NotImplementedError`` until entries 11-12 port the exchange; the
-  runtime-filter pass (``inject_runtime_filters``) comes with
-  ``rtfilter.py`` in entry 12. ``split_at_exchange`` is pure IR and is
-  here.
+  ``NotImplementedError`` until entries 11 and 12b port the exchange.
+  ``split_at_exchange`` is pure IR and is here.
+- With ``rtfilter.enabled`` the runtime-filter pass
+  (``inject_runtime_filters``, the gate in ``runtime/rtfilter.py``)
+  places a ``BloomBuild``/``BloomProbe`` pair at each join it decides to
+  filter, before the walk.
 - The executor makes no host sync of its own: meta values stay device
   tensors, and every shape comes from the plan and the inputs' row
-  counts.
+  counts. The one exception is the runtime filter's harvest: with the
+  pass on, each ``BloomProbe`` that ran costs exactly one host read
+  after the walk (its ``rows_in`` and ``rows_pass`` stacked into one
+  copy), which feeds the learned gate; ``fusion.host_reads`` counts
+  them. With the pass off there is none.
 
-Telemetry: ``fusion.regions`` and ``fusion.nodes_fused`` (``stats()``).
+Telemetry: ``fusion.regions`` and ``fusion.nodes_fused`` (``stats()``),
+and the counter ``fusion.host_reads``.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.runtime import faults, resilience
+from spark_rapids_jni_tpu_torch.utils.config import get_option
 from spark_rapids_jni_tpu_torch.utils.tracing import trace_range
 
 __all__ = [
@@ -72,6 +80,7 @@ __all__ = [
     "min_rows_of",
     "execute",
     "split_at_exchange",
+    "inject_runtime_filters",
     "estimate_hbm_bytes",
     "plan_fingerprint",
     "scan_prefix_chains",
@@ -599,6 +608,118 @@ def _eval_plan(nodes: list, tables: dict, resolved: dict):
     return env[id(nodes[-1])], side
 
 
+# ---------------------------------------------------------------------------
+# the runtime-filter planner pass
+# ---------------------------------------------------------------------------
+
+
+def _subtree_rows_estimate(node, bindings: dict) -> int:
+    """A static upper bound on the keys a subtree can feed a bloom
+    build: its bound scans' rows summed, and any interior join's
+    resolved ``out_rows`` taken as a floor. Used only for gating and
+    sizing: an overestimate buys a larger filter, never a wrong
+    result."""
+    nodes = _topo(node)
+    rows = sum(int(bindings[n.name].num_rows) for n in nodes
+               if isinstance(n, Scan) and n.name in bindings)
+    for n in nodes:
+        if isinstance(n, Join):
+            spec = n.out_rows
+            if isinstance(spec, int):
+                rows = max(rows, spec)
+            elif (isinstance(spec, tuple) and len(spec) == 3
+                    and spec[0] == "rows_of" and spec[1] in bindings):
+                rows = max(rows,
+                           int(bindings[spec[1]].num_rows) * int(spec[2]))
+    return rows
+
+
+def inject_runtime_filters(plan: Plan, bindings: dict) -> Plan:
+    """The runtime-filter planner pass: for each single-key inner
+    ``Join`` (the smaller side builds) and each ``DensePkJoin`` (the
+    build side is the layout's), ask the learned gate
+    (``rtfilter.decide``, every decision recorded with its reason)
+    whether a filter pays, and where it does put a ``BloomBuild`` over
+    the build child and a ``BloomProbe`` over the probe child. The
+    result is the same bits with the pass on or off (see
+    ``BloomProbe``); the plan's fingerprint changes, so a filtered plan
+    never shares a cached result's key with an unfiltered one."""
+    from spark_rapids_jni_tpu_torch.runtime import rtfilter
+
+    root = plan.root
+    done: set = set()
+    while True:
+        target = None
+        for node in _topo(root):
+            if isinstance(node, Join):
+                if (node.how != "inner" or len(node.left_on) != 1
+                        or len(node.right_on) != 1 or node.label in done):
+                    continue
+                if isinstance(node.left, BloomProbe) \
+                        or isinstance(node.right, BloomProbe):
+                    done.add(node.label)
+                    continue
+                left_rows = _subtree_rows_estimate(node.left, bindings)
+                right_rows = _subtree_rows_estimate(node.right, bindings)
+                if right_rows <= left_rows:
+                    sides = ("left", node.left, node.left_on[0],
+                             node.right, node.right_on[0], right_rows)
+                else:
+                    sides = ("right", node.right, node.right_on[0],
+                             node.left, node.left_on[0], left_rows)
+                target = (node,) + sides
+                break
+            if isinstance(node, DensePkJoin):
+                if node.label in done:
+                    continue
+                if isinstance(node.probe, BloomProbe):
+                    done.add(node.label)
+                    continue
+                target = (node, "probe", node.probe, node.probe_key,
+                          node.build, node.build_key,
+                          _subtree_rows_estimate(node.build, bindings))
+                break
+        if target is None:
+            break
+        node, side, probe_child, probe_key, build_child, build_key, \
+            build_rows = target
+        done.add(node.label)
+        decision = rtfilter.decide(plan.name, node.label, build_rows)
+        if not decision.apply:
+            continue
+        rtf_label = f"rtf_{node.label}"
+        bb = BloomBuild(build_child, build_key, decision.num_bits,
+                        decision.num_hashes, label=rtf_label)
+        bp = BloomProbe(probe_child, bb, probe_key, decision.num_bits,
+                        decision.num_hashes, label=rtf_label)
+        if isinstance(node, DensePkJoin):
+            new_node = node._replace(probe=bp)
+        elif side == "left":
+            new_node = node._replace(left=bp)
+        else:
+            new_node = node._replace(right=bp)
+        root = replace_node(root, node, new_node)
+    if root is plan.root:
+        return plan
+    return plan._replace(root=root)
+
+
+def _harvest_rtfilter(plan: Plan, nodes, meta: dict) -> None:
+    """Feed each probe's pass fraction to the learned gate: one host
+    read per ``BloomProbe`` (its two counts in one copy)."""
+    probes = [n for n in nodes if isinstance(n, BloomProbe)]
+    if not probes:
+        return
+    from spark_rapids_jni_tpu_torch.runtime import rtfilter
+
+    for n in probes:
+        rows_in, rows_pass = torch.stack(
+            [meta[f"{n.label}.rows_in"], meta[f"{n.label}.rows_pass"]]
+        ).tolist()
+        telemetry.count("fusion.host_reads")
+        rtfilter.observe(plan.name, n.label, rows_in, rows_pass)
+
+
 def split_at_exchange(plan: Plan):
     """Break a plan at its deepest interior ``Exchange``. Returns None
     when there is none (a root Exchange is a pack plan of its own);
@@ -627,11 +748,13 @@ def execute(plan: Plan, bindings: dict, *,
     ``check(where)``) is checked once before any compute."""
     if cancel_token is not None:
         cancel_token.check(f"fusion.{plan.name}")
-    nodes = _topo(plan.root)
-    if any(isinstance(n, Exchange) for n in nodes):  # root or mid-plan
-        raise NotImplementedError(
+    if any(isinstance(n, Exchange) for n in _topo(plan.root)):
+        raise NotImplementedError(  # as the root or mid-plan
             f"plan {plan.name!r}: executing an Exchange (the distributed "
             "exchange) waits for ROADMAP.md Queue 1 entries 11-12")
+    if get_option("rtfilter.enabled"):
+        plan = inject_runtime_filters(plan, bindings)
+    nodes = _topo(plan.root)
     true_rows = _bound_true_rows(plan, nodes, bindings)
     resolved = _resolve_statics(nodes, true_rows)
     _limit_bound(nodes, resolved, _spaces(nodes), true_rows)
@@ -653,6 +776,7 @@ def execute(plan: Plan, bindings: dict, *,
         for n in nodes
         if isinstance(n, GroupBy) and n.domains is not None
     })
+    _harvest_rtfilter(plan, nodes, meta)
     return FusedResult(value, meta)
 
 

@@ -20,9 +20,11 @@
 Accounting is in logical bytes (``table_nbytes``: data, validity, chars
 and children), as in the reference. The caching allocator keeps freed
 blocks, so ``torch.cuda.memory_allocated`` (not ``mem_get_info``) is the
-reading that shows a spill freed device memory. The result cache's hooks
-(``attach_result_cache``, ``reclaim_cache``) come with ROADMAP.md Queue
-1 entry 12.
+reading that shows a spill freed device memory. A ``ResultCache``
+attached to a limiter (``attach_result_cache``) is the first thing its
+pressure sheds, before any live query's partials spill, and its
+evictable bytes do not count against a parked query's drain wait
+(``reclaim_cache`` then makes that discount real).
 
 Staging a decoded read: the native engine's copy-out
 (``tpudf_read_col_copy``) writes into buffers the caller gives, so the
@@ -325,6 +327,7 @@ class MemoryLimiter:
         self._pressure = False
         self._pressure_crossings = 0
         self._spill_store: Optional["SpillStore"] = None
+        self._result_cache = None
         self._lock = threading.Condition()
         # blocked reserve_blocking tickets, served first come first served
         self._waiters: "collections.deque[_Waiter]" = collections.deque()
@@ -353,6 +356,37 @@ class MemoryLimiter:
         """Register the SpillStore whose coldest entries a high-watermark
         crossing spills (None detaches)."""
         self._spill_store = store
+
+    def attach_result_cache(self, cache) -> None:
+        """Register the ``ResultCache`` whose resident entries a
+        high-watermark crossing sheds before the spill store's, and whose
+        evictable bytes a parked drain wait does not count (None
+        detaches). The limiter reads the cache's ``evictable_bytes`` int
+        under its own lock and calls ``shed()`` outside it; the cache
+        takes its lock and then the limiter's, never the reverse."""
+        self._result_cache = cache
+
+    def _evictable_cache_bytes(self) -> int:
+        """Resident charged cache bytes a pressure event could reclaim
+        (a lock-free read of a plain int)."""
+        cache = self._result_cache
+        if cache is None:
+            return 0
+        return max(int(cache.evictable_bytes), 0)
+
+    def reclaim_cache(self, nbytes: Optional[int] = None) -> int:
+        """Shed evictable cache entries for up to ``nbytes`` (default:
+        usage above the low watermark): the parked rung calls this after
+        its drain wait, so the retry finds the bytes the wait discounted.
+        Called outside the limiter's lock; the bytes shed."""
+        cache = self._result_cache
+        if cache is None:
+            return 0
+        target = (max(self._used - self._low_bytes(), 0)
+                  if nbytes is None else max(int(nbytes), 0))
+        if target <= 0:
+            return 0
+        return cache.shed(target)
 
     def watermarks(self) -> dict:
         """One consistent snapshot of the watermark state."""
@@ -402,21 +436,26 @@ class MemoryLimiter:
 
     def _enter_pressure(self) -> None:
         """The reaction to a high-watermark crossing, outside the lock:
-        the seam, the event, the store's coldest entries spilled down to
-        the low watermark. An injected fault propagates to the reserving
-        caller, which rolls its grant back."""
+        the seam, the event, then down to the low watermark the attached
+        cache's resident entries shed first and the store's coldest
+        entries spilled for the rest. An injected fault propagates to
+        the reserving caller, which rolls its grant back."""
         faults.fire("memory.pressure", self._pressure_crossings,
                     used=self._used, budget=self.budget,
                     watermark=self._high_bytes())
         freed = 0
+        shed = 0
         target = max(self._used - self._low_bytes(), 1)
+        cache = self._result_cache
+        if cache is not None:
+            shed = cache.shed(target)
         store = self._spill_store
-        if store is not None:
-            freed = store.spill_coldest(target)
+        if store is not None and shed < target:
+            freed = store.spill_coldest(target - shed)
         telemetry.record_degrade(
             "memory_limiter", "pressure", tier="high", trigger="watermark",
             rung=0, used=self._used, budget=self.budget,
-            proactive_spill_bytes=freed)
+            proactive_spill_bytes=freed, cache_shed_bytes=shed)
         if get_option("memory.log_level") >= 1:
             _log.info("memory pressure: %d/%d in use (high watermark %d), "
                       "proactively spilled %d bytes", self._used,
@@ -498,13 +537,15 @@ class MemoryLimiter:
 
     def wait_below_low(self, timeout: Optional[float] = None, cancel=None,
                        own_held: int = 0) -> bool:
-        """Park until usage, less the caller's own ``own_held`` bytes,
-        drains below the low watermark (the parked rung's wait). True once
-        drained, False when ``cancel`` fired or ``timeout`` passed."""
+        """Park until usage, less the caller's own ``own_held`` bytes and
+        the attached cache's evictable bytes, drains below the low
+        watermark (the parked rung's wait). True once drained, False
+        when ``cancel`` fired or ``timeout`` passed."""
         deadline = None if timeout is None else time.monotonic() + timeout
         own = max(int(own_held), 0)
         with self._lock:
-            while self._used - own > self._low_bytes():
+            while (self._used - own - self._evictable_cache_bytes()
+                   > self._low_bytes()):
                 if cancel is not None and cancel.is_set():
                     return False
                 wait = 0.05
@@ -1011,6 +1052,20 @@ class SpillStore:
             if handle not in self._entries:
                 raise KeyError(f"unknown spill handle {handle}")
             return self._entries[handle]["nbytes"]
+
+    def stored_nbytes(self, handle: int) -> int:
+        """An entry's footprint in its tier: its logical bytes on the
+        device, its (possibly encoded) snapshot bytes on the host, its
+        file's bytes on disk. The result cache's LRU charges this."""
+        with self._lock:
+            e = self._entries.get(handle)
+            if e is None:
+                raise KeyError(f"unknown spill handle {handle}")
+            if e["state"] == "device":
+                return e["nbytes"]
+            if e["state"] == "disk":
+                return int(e.get("stored_bytes", 0))
+            return _snaps_nbytes(e["host_cols"])
 
     def drop(self, handle: int) -> None:
         with self._lock:

@@ -43,7 +43,11 @@ def prefetch_chunks(chunks, depth: int = 1,
     to ``depth + 2`` chunks are reserved at once (``depth`` queued, one
     in the producer's hand, one in the consumer's). The producer's
     exceptions, ``MemoryLimitExceeded`` included, re-raise at the
-    consumer; on early exit every undelivered reservation is released."""
+    consumer; on early exit every undelivered reservation is released.
+    Neither thread keeps a delivered chunk: the producer drops its
+    reference once the chunk is queued, the consumer once it is yielded,
+    so a chunk the caller released is freed while the next one is
+    awaited."""
     import queue
     import threading
 
@@ -74,6 +78,7 @@ def prefetch_chunks(chunks, depth: int = 1,
                     if limiter is not None:
                         limiter.release(table_nbytes(chunk))
                     return
+                del chunk  # not held while the next one decodes
         except BaseException as exc:  # re-raised at the consumer
             _put_cancellable(("err", exc))
             return
@@ -89,6 +94,7 @@ def prefetch_chunks(chunks, depth: int = 1,
             if kind == "end":
                 break
             yield payload
+            del payload  # not held while the next one is awaited
     finally:
         cancel.set()
         th.join()

@@ -1,0 +1,268 @@
+"""Process-local metrics registry: counters, gauges, bounded histograms
+(counterpart of the reference's ``telemetry/registry.py``, the same
+instruments and the same Prometheus-style exposition).
+
+The reference exposes NVTX ranges and RMM/cuDF counters that operators
+scrape to see where device time goes; this is the port's store of the
+same kind, with no third-party dependency and no device access, so any
+layer (and the ``python -m spark_rapids_jni_tpu_torch.telemetry`` CLI)
+can import it for nothing. Instruments are created on first use and live
+until ``reset``; one lock guards the name tables and each instrument has
+its own. ``counter_value`` and ``gauge_value`` read an instrument without
+creating it, so a read never adds a line to the exposition.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Registry",
+    "REGISTRY",
+    "DEFAULT_BOUNDS",
+]
+
+def _exposition_name(name: str) -> str:
+    """Map an instrument name onto the Prometheus metric charset."""
+    out = "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+# Default histogram bounds: geometric ms-scale ladder wide enough for both
+# sub-ms device dispatches and multi-second out-of-core runs.
+DEFAULT_BOUNDS: Tuple[float, ...] = (
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
+    100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0,
+)
+
+
+class Counter:
+    """Monotonic counter. ``inc`` with a negative amount is a bug."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: int = 1) -> None:
+        if amount < 0:
+            raise ValueError(f"counter {self.name}: negative inc {amount}")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> int:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins scalar (e.g. current host-staged bytes)."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def add(self, delta: float) -> None:
+        with self._lock:
+            self._value += float(delta)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Bounded histogram: fixed bucket bounds, O(len(bounds)) memory.
+
+    Observations land in the first bucket whose upper bound is >= the value;
+    values above the last bound land in the overflow bucket. Percentiles are
+    estimated by linear interpolation inside the winning bucket — good enough
+    for p50/p95 reporting, and bounded regardless of observation count.
+    """
+
+    __slots__ = ("name", "bounds", "_counts", "_sum", "_count", "_max", "_lock")
+
+    def __init__(self, name: str, bounds: Sequence[float] = DEFAULT_BOUNDS) -> None:
+        if not bounds or list(bounds) != sorted(bounds):
+            raise ValueError(f"histogram {name}: bounds must be sorted, non-empty")
+        self.name = name
+        self.bounds = tuple(float(b) for b in bounds)
+        self._counts = [0] * (len(self.bounds) + 1)  # +1 overflow bucket
+        self._sum = 0.0
+        self._count = 0
+        self._max = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        idx = len(self.bounds)
+        for i, b in enumerate(self.bounds):
+            if v <= b:
+                idx = i
+                break
+        with self._lock:
+            self._counts[idx] += 1
+            self._sum += v
+            self._count += 1
+            if v > self._max:
+                self._max = v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def percentile(self, q: float) -> float:
+        """Estimated q-th percentile (q in [0, 100])."""
+        if not 0.0 <= q <= 100.0:
+            raise ValueError(f"percentile {q} out of [0, 100]")
+        with self._lock:
+            total = self._count
+            if total == 0:
+                return 0.0
+            rank = math.ceil(q / 100.0 * total) or 1
+            seen = 0
+            for i, c in enumerate(self._counts):
+                if c == 0:
+                    continue
+                lo = 0.0 if i == 0 else self.bounds[i - 1]
+                hi = self.bounds[i] if i < len(self.bounds) else self._max
+                if seen + c >= rank:
+                    frac = (rank - seen) / c
+                    return lo + (hi - lo) * frac
+                seen += c
+            return self._max
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "count": self._count,
+                "sum": self._sum,
+                "max": self._max,
+                "bounds": list(self.bounds),
+                "counts": list(self._counts),
+            }
+
+
+class Registry:
+    """Named instrument store; create-on-first-use, thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def histogram(self, name: str, bounds: Sequence[float] = DEFAULT_BOUNDS) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(name, bounds)
+            return h
+
+    def counter_value(self, name: str) -> int:
+        """The counter ``name`` (0 if it was never created)."""
+        with self._lock:
+            c = self._counters.get(name)
+        return 0 if c is None else c.value
+
+    def gauge_value(self, name: str) -> float:
+        """The gauge ``name`` (0 if it was never created)."""
+        with self._lock:
+            g = self._gauges.get(name)
+        return 0 if g is None else g.value
+
+    def counters(self, prefix: str = "") -> Dict[str, int]:
+        with self._lock:
+            return {
+                n: c.value for n, c in sorted(self._counters.items())
+                if n.startswith(prefix)
+            }
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "counters": {n: c.value for n, c in sorted(self._counters.items())},
+                "gauges": {n: g.value for n, g in sorted(self._gauges.items())},
+                "histograms": {
+                    n: h.snapshot() for n, h in sorted(self._histograms.items())
+                },
+            }
+
+    def exposition(self) -> str:
+        """Prometheus-style text exposition of every instrument, for a
+        scrape endpoint or ``curl``-style operator inspection. Names are
+        sanitized to the Prometheus charset ([a-zA-Z0-9_:]); histograms
+        render cumulative ``_bucket{le=...}`` series plus ``_sum`` /
+        ``_count``, matching the native histogram text format."""
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            histograms = sorted(self._histograms.items())
+        lines: List[str] = []
+        for name, c in counters:
+            metric = _exposition_name(name)
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {c.value}")
+        for name, g in gauges:
+            metric = _exposition_name(name)
+            lines.append(f"# TYPE {metric} gauge")
+            lines.append(f"{metric} {g.value}")
+        for name, h in histograms:
+            metric = _exposition_name(name)
+            snap = h.snapshot()
+            lines.append(f"# TYPE {metric} histogram")
+            cumulative = 0
+            counts = snap["counts"]
+            for bound, count in zip(snap["bounds"], counts):
+                cumulative += count
+                lines.append(f'{metric}_bucket{{le="{bound}"}} {cumulative}')
+            cumulative += counts[-1]  # overflow bucket
+            lines.append(f'{metric}_bucket{{le="+Inf"}} {cumulative}')
+            lines.append(f"{metric}_sum {snap['sum']}")
+            lines.append(f"{metric}_count {snap['count']}")
+        return "\n".join(lines) + "\n"
+
+    def reset(self) -> None:
+        """Drop all instruments (test isolation; not for production paths)."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._histograms.clear()
+
+
+#: The process-local registry every instrumented seam records into.
+REGISTRY = Registry()

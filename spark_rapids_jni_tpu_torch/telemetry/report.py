@@ -1,0 +1,249 @@
+"""Aggregate a telemetry JSONL run into a per-op table (counterpart of
+the reference's ``telemetry/report.py``).
+
+``python -m spark_rapids_jni_tpu_torch.telemetry report <run.jsonl>``
+renders, per op: how many calls landed on the device and how many on the
+host, p50/p95 wall time of the timed calls, and bytes moved by spills;
+then the summary counts and each serving, degradation, integrity, codec
+and span section that has records. Pure stdlib; torn or non-JSON lines
+are skipped.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from spark_rapids_jni_tpu_torch.telemetry.events import summary
+
+__all__ = ["load_jsonl", "filter_records", "aggregate", "render_table",
+           "report"]
+
+# --kind values the CLI accepts ("span" records are the trace
+# substrate, not an event category: export those with ``trace``)
+KINDS = ("dispatch", "fallback", "spill", "server", "degrade", "integrity")
+
+
+def filter_records(
+    records: Iterable[Dict[str, Any]],
+    *,
+    session: Optional[str] = None,
+    kind: Optional[str] = None,
+) -> List[Dict[str, Any]]:
+    """Narrow a record stream to one session and/or one event kind.
+
+    ``session`` matches the ambient session id every emitter stamps;
+    records with no session (emitted outside ``session_scope``) only
+    survive when no session filter is given. ``kind`` must be one of
+    :data:`KINDS` (ValueError otherwise).
+    """
+    if kind is not None and kind not in KINDS:
+        raise ValueError(
+            f"unknown kind {kind!r}: expected one of {', '.join(KINDS)}")
+    out: List[Dict[str, Any]] = []
+    for rec in records:
+        if session is not None and rec.get("session") != session:
+            continue
+        if kind is not None and rec.get("kind") != kind:
+            continue
+        out.append(rec)
+    return out
+
+
+def load_jsonl(path: str) -> List[Dict[str, Any]]:
+    """Parse a JSONL event file, skipping torn or non-JSON lines."""
+    out: List[Dict[str, Any]] = []
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(rec, dict):
+                out.append(rec)
+    return out
+
+
+def _percentile(sorted_vals: List[float], q: float) -> float:
+    # nearest-rank on the exact sample (file-based: we have every observation)
+    if not sorted_vals:
+        return 0.0
+    rank = max(1, int(round(q / 100.0 * len(sorted_vals) + 0.5)))
+    return sorted_vals[min(rank, len(sorted_vals)) - 1]
+
+
+def aggregate(records: Iterable[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+    """Per-op stats: device/host split, p50/p95 wall ms, bytes moved.
+
+    An op instrumented through ``trace_range(record=True)`` records one
+    ``dispatch`` per *call* regardless of where it landed; the fallback
+    event is what marks a call as host-run. So: host = fallback count,
+    device = calls - host (fallback-only seams have calls=0, device=0).
+    """
+    per_op: Dict[str, Dict[str, Any]] = {}
+
+    def row(op: str) -> Dict[str, Any]:
+        r = per_op.get(op)
+        if r is None:
+            r = per_op[op] = {
+                "calls": 0, "host": 0, "spills": 0,
+                "bytes_moved": 0, "wall_ms": [], "reasons": {},
+            }
+        return r
+
+    for rec in records:
+        kind = rec.get("kind")
+        op = str(rec.get("op", "?"))
+        if kind == "dispatch":
+            r = row(op)
+            r["calls"] += 1
+            if "wall_ms" in rec:
+                r["wall_ms"].append(float(rec["wall_ms"]))
+        elif kind == "fallback":
+            r = row(op)
+            r["host"] += 1
+            reason = str(rec.get("reason", ""))
+            if reason:
+                r["reasons"][reason] = r["reasons"].get(reason, 0) + 1
+        elif kind == "spill":
+            r = row(op)
+            r["spills"] += 1
+            r["bytes_moved"] += int(rec.get("bytes_moved", 0))
+
+    for r in per_op.values():
+        walls = sorted(r.pop("wall_ms"))
+        r["p50_ms"] = _percentile(walls, 50.0)
+        r["p95_ms"] = _percentile(walls, 95.0)
+        r["timed"] = len(walls)
+        r["device"] = max(r["calls"] - r["host"], 0)
+    return per_op
+
+
+def _fmt_bytes(n: int) -> str:
+    if n >= 1 << 30:
+        return f"{n / (1 << 30):.2f}GiB"
+    if n >= 1 << 20:
+        return f"{n / (1 << 20):.2f}MiB"
+    if n >= 1 << 10:
+        return f"{n / (1 << 10):.1f}KiB"
+    return str(n)
+
+
+def render_table(per_op: Dict[str, Dict[str, Any]]) -> str:
+    """Fixed-width text table, one row per op plus a TOTAL row."""
+    headers = ("op", "device", "host", "p50_ms", "p95_ms", "bytes_moved")
+    rows: List[Tuple[str, ...]] = []
+    tot_dev = tot_host = tot_bytes = 0
+    for op in sorted(per_op):
+        r = per_op[op]
+        tot_dev += r["device"]
+        tot_host += r["host"]
+        tot_bytes += r["bytes_moved"]
+        rows.append((
+            op,
+            str(r["device"]),
+            str(r["host"]),
+            f"{r['p50_ms']:.2f}" if r["timed"] else "-",
+            f"{r['p95_ms']:.2f}" if r["timed"] else "-",
+            _fmt_bytes(r["bytes_moved"]) if r["bytes_moved"] else "-",
+        ))
+    rows.append(("TOTAL", str(tot_dev), str(tot_host), "", "", _fmt_bytes(tot_bytes)))
+    widths = [
+        max(len(headers[i]), max((len(row[i]) for row in rows), default=0))
+        for i in range(len(headers))
+    ]
+
+    def line(cells: Tuple[str, ...]) -> str:
+        # op column left-aligned, numerics right-aligned
+        parts = [cells[0].ljust(widths[0])]
+        parts += [cells[i].rjust(widths[i]) for i in range(1, len(headers))]
+        return "  ".join(parts).rstrip()
+
+    sep = "  ".join("-" * w for w in widths)
+    return "\n".join([line(headers), sep] + [line(r) for r in rows])
+
+
+def report(path: str, *, session: Optional[str] = None,
+           kind: Optional[str] = None) -> str:
+    """Full report text for a JSONL run: per-op table + summary counts.
+
+    ``session``/``kind`` narrow the input through
+    :func:`filter_records` before aggregation (the CLI's ``--session``
+    and ``--kind`` flags), so every table and count below reflects the
+    filtered view.
+    """
+    records = load_jsonl(path)
+    if session is not None or kind is not None:
+        records = filter_records(records, session=session, kind=kind)
+    per_op = aggregate(records)
+    s = summary(records)
+    lines = [render_table(per_op), ""]
+    lines.append(
+        "events={events}  fallbacks={fallbacks_total}  "
+        "spill_bytes={sb}  cache_hit/miss={h}/{m}  stale_reads={stale}".format(
+            events=s["events"], fallbacks_total=s["fallbacks_total"],
+            sb=_fmt_bytes(s["spill_bytes_total"]),
+            h=s["compile_cache"]["hit"], m=s["compile_cache"]["miss"],
+            stale=s["stale_reads"],
+        )
+    )
+    # serving-runtime sections render only when such events exist, so
+    # dispatch-only runs keep their historical output byte-for-byte
+    if s["server"]:
+        lines.append("server events:")
+        for ev, n in sorted(s["server"].items()):
+            lines.append(f"  {n:4d}x  {ev}")
+    if s["degrade"]:
+        lines.append("degrade events:")
+        for ev, n in sorted(s["degrade"].items()):
+            lines.append(f"  {n:4d}x  {ev}")
+        if s["degrade_tiers"]:
+            tiers = "  ".join(
+                f"{t}={n}" for t, n in sorted(s["degrade_tiers"].items()))
+            lines.append(f"  step tiers: {tiers}")
+    if s["integrity"]:
+        lines.append("integrity events:")
+        for ev, n in sorted(s["integrity"].items()):
+            lines.append(f"  {n:4d}x  {ev}")
+        if s["integrity_seams"]:
+            seams = "  ".join(
+                f"{sm}={n}" for sm, n in sorted(s["integrity_seams"].items()))
+            lines.append(f"  mismatch seams: {seams}")
+    if s.get("compress"):
+        c = s["compress"]
+        lines.append(
+            "compress: in={bi}  out={bo}  ratio={r}  schemes={sch}".format(
+                bi=_fmt_bytes(c["bytes_in"]), bo=_fmt_bytes(c["bytes_out"]),
+                r=c["ratio"] if c["ratio"] is not None else "n/a",
+                sch=" ".join(f"{k}={n}"
+                             for k, n in sorted(c["schemes"].items()))
+                or "none",
+            )
+        )
+    if s.get("cluster"):
+        lines.append("cluster events:")
+        for ev, n in sorted(s["cluster"].items()):
+            lines.append(f"  {n:4d}x  {ev}")
+    if s.get("hosts"):
+        # per-host aggregation of the host= stamp (cluster workers set
+        # telemetry.host; the supervisor stamps its own cluster.* events)
+        per_host = s.get("per_host") or {}
+        counts = "  ".join(f"{h}={per_host.get(h, 0)}" for h in s["hosts"])
+        lines.append(f"hosts: {counts}")
+    if s.get("spans"):
+        status = "  ".join(
+            f"{st}={n}" for st, n in sorted(s["span_status"].items()))
+        lines.append(f"spans: {s['spans']}  ({status})")
+    reasons: Dict[str, int] = {}
+    for rec in records:
+        if rec.get("kind") in ("fallback", "spill"):
+            key = f"{rec.get('op', '?')}: {rec.get('reason', '')}"
+            reasons[key] = reasons.get(key, 0) + 1
+    if reasons:
+        lines.append("fallback/spill reasons:")
+        for key, n in sorted(reasons.items(), key=lambda kv: (-kv[1], kv[0])):
+            lines.append(f"  {n:4d}x  {key}")
+    return "\n".join(lines)

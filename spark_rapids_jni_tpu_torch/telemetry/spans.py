@@ -1,0 +1,620 @@
+"""Hierarchical query spans: one causal tree per served query
+(counterpart of the reference's ``telemetry/spans.py``).
+
+A span is a named node with an id, a parent id, a status (``ok`` /
+``degraded`` / ``cancelled`` / ``failed``) and the host's monotonic
+clock at its start and end. The serving path opens one root per query
+and every instrumented seam underneath attaches a child (admission
+wait, degradation rungs, the plan's region, out-of-core chunks and
+their pipeline stages, spills), so one tree records ``query ->
+admission.wait -> rung.* -> region.* / outofcore.chunk -> pipeline.* ->
+spill``.
+
+Contracts:
+- **Nothing when disabled.** Every factory reads ``telemetry.enabled``
+  once and hands back a shared no-op span.
+- **Host time only.** A span reads the host clock when it opens and
+  when it closes and never synchronizes the device, so its length is
+  host time: the time the host spent in the block, which for an
+  asynchronous CUDA launch is the time to queue it, not to run it.
+  Device time is the profiler's (``profile_paths``). Once the process
+  has initialised CUDA, a span also opens an NVTX range of its name on
+  its thread, so Nsight and ``torch.profiler`` show the same tree over
+  the device's timeline.
+- **One sink.** A closed span is a ``kind="span"`` record through
+  ``events._emit``: the same ring and JSONL file as every record.
+- **Scoped.** A span is a context manager; a raise still closes it,
+  with ``cancelled`` for ``QueryCancelled`` and ``failed`` otherwise.
+
+The flight recorder keeps a bounded ring of recent trees
+(``telemetry.flight_recorder_depth``); ``dump_flight_record`` snapshots
+one tree with the caller's limiter and queue state, written under
+``telemetry.flight_recorder_path`` when that is set. ``chrome_trace``
+lays the records out as Chrome-trace / Perfetto complete events, one
+track per (query, OS thread); ``validate`` checks a record stream's
+trees and ``phase_breakdown`` attributes root wall time to phases.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from collections import deque
+from typing import Any, Iterable, Optional
+
+import importlib
+
+from spark_rapids_jni_tpu_torch.telemetry.registry import REGISTRY
+from spark_rapids_jni_tpu_torch.utils.config import get_option
+
+# The package __init__ re-exports the events() *function*, which shadows the
+# submodule attribute — resolve the module itself, unambiguously.
+_events = importlib.import_module("spark_rapids_jni_tpu_torch.telemetry.events")
+
+__all__ = [
+    "Span",
+    "NULL_SPAN",
+    "span",
+    "child",
+    "current_span",
+    "current_root",
+    "validate",
+    "chrome_trace",
+    "write_chrome_trace",
+    "phase_breakdown",
+    "flight_records",
+    "dump_flight_record",
+    "reset",
+]
+
+STATUSES = ("ok", "degraded", "cancelled", "failed")
+
+# Walking __mro__ by class NAME keeps this module import-free of the
+# runtime layer (resilience imports telemetry; the reverse would cycle).
+_CANCEL_EXC_NAME = "QueryCancelled"
+
+_ctx = threading.local()  # .stack: list[Span] — this thread's open spans
+
+_id_lock = threading.Lock()
+_next_id = 0
+
+
+def _new_id() -> int:
+    global _next_id
+    with _id_lock:
+        _next_id += 1
+        return _next_id
+
+
+def _nvtx_push(name: str) -> bool:
+    """Open an NVTX range on this thread once CUDA is initialised (no
+    import: a process without torch has no CUDA to annotate)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return False
+    torch.cuda.nvtx.range_push(name)
+    return True
+
+
+def _stack() -> list:
+    stack = getattr(_ctx, "stack", None)
+    if stack is None:
+        stack = []
+        _ctx.stack = stack
+    return stack
+
+
+class _NullSpan:
+    """Shared no-op span: what the factories return when telemetry is
+    disabled (or ``child`` finds no open parent). Supports the full Span
+    surface so call sites never branch on enablement."""
+
+    __slots__ = ()
+    id = None
+    parent_id = None
+    root = None
+    name = ""
+    status = "ok"
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: object) -> bool:
+        return False
+
+    def set_status(self, status: str) -> None:
+        pass
+
+    def annotate(self, **attrs: Any) -> None:
+        pass
+
+    def __bool__(self) -> bool:
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Span:
+    """One live node of a query's causal tree.
+
+    Created via the ``span``/``child`` factories, entered immediately
+    (``with``), closed by ``__exit__`` — which stamps the end timestamp,
+    derives status from any in-flight exception, emits the JSONL record
+    and, for a root, hands the completed tree to the flight recorder.
+    Children normally attach to the thread-local current span; crossing
+    a thread boundary (decode pool) passes ``parent=`` explicitly and
+    the child still pushes onto *its* thread's stack so deeper spans
+    nest correctly.
+    """
+
+    __slots__ = ("id", "parent", "root", "name", "status", "start", "end",
+                 "attrs", "children", "tid", "_entered", "_nvtx",
+                 "_tree_lock", "_nodes", "_dropped", "_max_nodes")
+
+    def __init__(self, name: str, parent: Optional["Span"],
+                 attrs: dict) -> None:
+        self.id = _new_id()
+        self.name = str(name)
+        self.parent = parent
+        self.status = "ok"
+        self.attrs = dict(attrs)
+        self.children: list = []
+        self.start: float = 0.0
+        self.end: Optional[float] = None
+        self.tid = threading.get_ident()
+        self._entered = False
+        self._nvtx = False
+        if parent is None:
+            self.root = self
+            # the in-memory tree backs the flight recorder and inspect();
+            # the JSONL sink stays unbounded — past the cap, records still
+            # emit but the tree stops growing.
+            self._tree_lock = threading.Lock()
+            self._nodes = 1
+            self._dropped = 0
+            self._max_nodes = int(get_option("telemetry.max_spans_per_tree"))
+        else:
+            self.root = parent.root
+            self._tree_lock = None
+            self._nodes = 0
+            self._dropped = 0
+            self._max_nodes = 0
+
+    # -- context management --------------------------------------------------
+
+    def __enter__(self) -> "Span":
+        if self._entered:
+            raise RuntimeError(f"span {self.name!r} entered twice")
+        self._entered = True
+        self.tid = threading.get_ident()
+        if self.parent is not None:
+            root = self.root
+            with root._tree_lock:
+                if root._nodes < root._max_nodes:
+                    root._nodes += 1
+                    self.parent.children.append(self)
+                else:
+                    root._dropped += 1
+        _stack().append(self)
+        self._nvtx = _nvtx_push(self.name)
+        self.start = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.end = time.monotonic()
+        if self._nvtx:
+            sys.modules["torch"].cuda.nvtx.range_pop()
+        if exc_type is not None and self.status == "ok":
+            names = {c.__name__ for c in getattr(exc_type, "__mro__", ())}
+            self.status = ("cancelled" if _CANCEL_EXC_NAME in names
+                           else "failed")
+            if self.status == "failed":
+                self.attrs.setdefault("error", exc_type.__name__)
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        if _events.enabled():
+            rec = dict(self.attrs)
+            rec.update({
+                "kind": "span",
+                "op": self.name,
+                "span": self.id,
+                "parent": self.parent.id if self.parent is not None else None,
+                "root": self.root.id,
+                "t0": self.start,
+                "t1": self.end,
+                "dur_ms": round((self.end - self.start) * 1e3, 6),
+                "status": self.status,
+                "tid": self.tid,
+            })
+            _events._emit(rec)
+            REGISTRY.counter("spans_total").inc()
+            if self.parent is None:
+                _RECORDER.note({
+                    "trigger": "completed",
+                    "root": self.id,
+                    "tree": self.tree(),
+                })
+        return False
+
+    # -- mutation ------------------------------------------------------------
+
+    def set_status(self, status: str) -> None:
+        if status not in STATUSES:
+            raise ValueError(
+                f"span status {status!r} not in {STATUSES}")
+        self.status = status
+
+    def annotate(self, **attrs: Any) -> None:
+        self.attrs.update(attrs)
+
+    # -- tree inspection -----------------------------------------------------
+
+    def _node(self) -> dict:
+        return {
+            "span": self.id,
+            "name": self.name,
+            "status": self.status if self.end is not None else "open",
+            "t0": self.start,
+            "t1": self.end,
+            "attrs": dict(self.attrs),
+            "children": [c._node() for c in self.children],
+        }
+
+    def tree(self) -> dict:
+        """Serialize the whole tree this span roots (or belongs to).
+        Open spans appear with ``t1: null`` / status ``open``."""
+        root = self.root
+        with root._tree_lock:
+            out = root._node()
+        if root._dropped:
+            out["dropped_spans"] = root._dropped
+        return out
+
+    def deepest_open(self) -> Optional["Span"]:
+        """The deepest not-yet-closed span in this tree — 'where is this
+        query right now' for live introspection."""
+        root = self.root
+        with root._tree_lock:
+            node = root if root.end is None else None
+            cur = root
+            while True:
+                nxt = None
+                for c in reversed(cur.children):
+                    if c.end is None:
+                        nxt = c
+                        break
+                if nxt is None:
+                    return node
+                node = nxt
+                cur = nxt
+
+
+def span(name: str, *, parent: Optional[Span] = None, **attrs: Any):
+    """Open a span. With no ``parent`` and no thread-local current span
+    this starts a new root (a new query tree) — seams that must never
+    create trees of their own use :func:`child` instead."""
+    if not _events.enabled():
+        return NULL_SPAN
+    if parent is None:
+        parent = current_span()
+    if isinstance(parent, _NullSpan):
+        parent = None
+    return Span(name, parent, attrs)
+
+
+def child(name: str, *, parent: Optional[Span] = None, **attrs: Any):
+    """Open a child span only when there is a tree to attach to: returns
+    the no-op span when telemetry is disabled or no parent exists. The
+    instrumentation seams (trace_range, pipeline stages, dispatch,
+    spill) all use this, so standalone calls outside a served query
+    never fabricate orphan roots."""
+    if not _events.enabled():
+        return NULL_SPAN
+    p = parent if parent is not None else current_span()
+    if p is None or isinstance(p, _NullSpan):
+        return NULL_SPAN
+    return Span(name, p, attrs)
+
+
+def current_span() -> Optional[Span]:
+    stack = getattr(_ctx, "stack", None)
+    return stack[-1] if stack else None
+
+
+def current_root() -> Optional[Span]:
+    cur = current_span()
+    return cur.root if cur is not None else None
+
+
+# ---------------------------------------------------------------------------
+# flight recorder
+# ---------------------------------------------------------------------------
+
+
+class _FlightRecorder:
+    """Bounded ring of recent span trees (completed roots and explicit
+    dumps). Depth re-reads ``telemetry.flight_recorder_depth`` on every
+    note so tests/operators can resize without rebuilding the ring."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._ring: deque = deque()
+        self._seq = 0
+
+    def note(self, entry: dict) -> None:
+        depth = max(1, int(get_option("telemetry.flight_recorder_depth")))
+        with self._lock:
+            self._seq += 1
+            entry = dict(entry)
+            entry["seq"] = self._seq
+            self._ring.append(entry)
+            while len(self._ring) > depth:
+                self._ring.popleft()
+
+    def records(self) -> list:
+        with self._lock:
+            return list(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+_RECORDER = _FlightRecorder()
+
+
+def flight_records() -> list:
+    """The in-memory flight-recorder ring, oldest first."""
+    return _RECORDER.records()
+
+
+def _safe_name(text: str) -> str:
+    return "".join(c if c.isalnum() or c in "-_" else "_" for c in str(text))
+
+
+def dump_flight_record(trigger: str, *, root: Optional[Span] = None,
+                       state: Optional[dict] = None) -> Optional[str]:
+    """Snapshot one query's span tree plus the caller-supplied runtime
+    state (limiter watermarks, queue depths) into a single structured
+    artifact: appended to the in-memory ring always, written as JSON
+    under ``telemetry.flight_recorder_path`` when that is set. Returns
+    the artifact path (referenced from QueryRejected / failure records)
+    or None. Never raises — a failed write only bumps the
+    ``dropped_writes`` counter, matching the JSONL sink's posture."""
+    if not _events.enabled():
+        return None
+    if root is None:
+        root = current_root()
+    tree = root.tree() if isinstance(root, Span) else None
+    artifact = {
+        "kind": "flight_record",
+        "trigger": str(trigger),
+        "ts": time.time(),
+        "session": _events.current_session(),
+        "root": root.id if isinstance(root, Span) else None,
+        "tree": tree,
+        "state": dict(state) if state else {},
+    }
+    _RECORDER.note(artifact)
+    out_dir = str(get_option("telemetry.flight_recorder_path") or "")
+    if not out_dir:
+        return None
+    with _RECORDER._lock:
+        seq = _RECORDER._seq
+    fname = os.path.join(
+        out_dir,
+        f"flight-{seq:06d}-{_safe_name(trigger)}-"
+        f"{artifact['root'] or 'noroot'}.json")
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(fname, "w", encoding="utf-8") as fh:
+            json.dump(artifact, fh, sort_keys=True, default=str)
+    except OSError:
+        REGISTRY.counter("dropped_writes").inc()
+        return None
+    REGISTRY.counter("flight_records").inc()
+    return fname
+
+
+def reset() -> None:
+    """Clear the flight-recorder ring (tests)."""
+    _RECORDER.clear()
+
+
+# ---------------------------------------------------------------------------
+# record-stream analysis: wellformedness, Chrome trace, phase attribution
+# ---------------------------------------------------------------------------
+
+
+def _span_records(records: Iterable[dict]) -> list:
+    return [r for r in records
+            if isinstance(r, dict) and r.get("kind") == "span"
+            and "t0" in r and "t1" in r]
+
+
+def validate(records: Iterable[dict]) -> list:
+    """Wellformedness of the span records in a telemetry stream: every
+    tree has exactly one root, every parent id resolves inside the same
+    tree, and end >= start. Returns a list of problem strings (empty =
+    well-formed) — used by tests and the CI trace smoke."""
+    recs = _span_records(records)
+    problems = []
+    by_id = {}
+    for r in recs:
+        sid = r.get("span")
+        if sid in by_id:
+            problems.append(f"duplicate span id {sid}")
+        by_id[sid] = r
+    roots_of: dict = {}
+    for r in recs:
+        roots_of.setdefault(r.get("root"), []).append(r)
+    for root_id, members in sorted(roots_of.items(), key=lambda kv: str(kv[0])):
+        roots = [r for r in members if r.get("parent") is None]
+        if len(roots) != 1:
+            problems.append(
+                f"tree {root_id}: {len(roots)} parentless spans (want 1)")
+        elif roots[0].get("span") != root_id:
+            problems.append(
+                f"tree {root_id}: root record has span id "
+                f"{roots[0].get('span')}")
+        for r in members:
+            pid = r.get("parent")
+            if pid is not None:
+                parent = by_id.get(pid)
+                if parent is None:
+                    problems.append(
+                        f"span {r.get('span')} ({r.get('op')}): orphan "
+                        f"parent id {pid}")
+                elif parent.get("root") != r.get("root"):
+                    problems.append(
+                        f"span {r.get('span')}: parent {pid} belongs to "
+                        f"tree {parent.get('root')}, not {r.get('root')}")
+            if float(r.get("t1", 0.0)) < float(r.get("t0", 0.0)):
+                problems.append(
+                    f"span {r.get('span')} ({r.get('op')}): end < start")
+            if r.get("status") not in STATUSES:
+                problems.append(
+                    f"span {r.get('span')} ({r.get('op')}): bad status "
+                    f"{r.get('status')!r}")
+    return problems
+
+
+_ARG_KEYS = ("span", "parent", "root", "status", "session")
+
+
+def chrome_trace(records: Iterable[dict]) -> dict:
+    """Lay the span records out as Chrome-trace / Perfetto 'complete'
+    (ph: X) events. Chrome nests events per (pid, tid) by time
+    containment, and our stack discipline only holds per OS thread
+    within one query, so each (query root, OS thread) pair gets its own
+    display track — overlapping decode-pool chunks land side by side
+    instead of corrupting one track's nesting."""
+    recs = sorted(_span_records(records),
+                  key=lambda r: float(r.get("t0", 0.0)))
+    lanes: dict = {}
+    root_labels: dict = {}
+    events = []
+    for r in recs:
+        root = r.get("root", r.get("span"))
+        key = (root, r.get("tid", 0))
+        tid = lanes.setdefault(key, len(lanes) + 1)
+        if r.get("parent") is None:
+            sess = r.get("session", "")
+            root_labels[root] = (f"{r.get('op', '?')}"
+                                 + (f" [{sess}]" if sess else ""))
+        args = {k: r[k] for k in _ARG_KEYS if k in r}
+        for k, v in r.items():
+            if k not in args and k not in ("kind", "op", "t0", "t1",
+                                           "dur_ms", "tid", "ts",
+                                           "platform"):
+                args[k] = v
+        events.append({
+            "name": r.get("op", "?"),
+            "cat": "span",
+            "ph": "X",
+            "ts": round(float(r["t0"]) * 1e6, 3),
+            "dur": max(round((float(r["t1"]) - float(r["t0"])) * 1e6, 3),
+                       0.001),
+            "pid": 1,
+            "tid": tid,
+            "args": args,
+        })
+    # the process name is the reference's, so the two packages' traces
+    # of one record stream are the same document
+    meta = [{"name": "process_name", "ph": "M", "pid": 1,
+             "args": {"name": "spark_rapids_jni_tpu"}}]
+    for (root, os_tid), tid in sorted(lanes.items(),
+                                      key=lambda kv: kv[1]):
+        label = root_labels.get(root, f"tree {root}")
+        meta.append({"name": "thread_name", "ph": "M", "pid": 1,
+                     "tid": tid, "args": {"name": label}})
+        meta.append({"name": "thread_sort_index", "ph": "M", "pid": 1,
+                     "tid": tid, "args": {"sort_index": tid}})
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(records: Iterable[dict], out_path: str) -> int:
+    """Export ``records`` as Chrome-trace JSON; returns the number of
+    span events written."""
+    doc = chrome_trace(records)
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh, sort_keys=True)
+    return sum(1 for e in doc["traceEvents"] if e.get("ph") == "X")
+
+
+# span name -> bench phase. region.* spans also count as compute, and a
+# span nested under an already-attributed ancestor contributes nothing
+# (e.g. the merge region inside outofcore.merge, or per-chunk regions
+# inside pipeline.compute) — each wall-clock second lands in ONE phase.
+_PHASE_OF = {
+    "admission.wait": "admission",
+    "pipeline.decode": "decode",
+    "pipeline.staging": "staging",
+    "pipeline.transfer": "transfer",
+    "pipeline.compute": "compute",
+    "pipeline.merge": "merge",
+    "outofcore.merge": "merge",
+}
+
+PHASES = ("admission", "queue", "decode", "staging", "transfer",
+          "compute", "merge")
+
+
+def phase_breakdown(records: Iterable[dict]) -> dict:
+    """Span-derived per-phase wall attribution for the bench blocks:
+    seconds (and fractions of total root-span wall) spent in admission
+    wait, pre-admission queueing, decode/staging/transfer, compute and
+    merge. Queue time comes from the server's ``admitted`` events
+    (submit-to-grant wait) minus the admission-wait spans nested in it."""
+    records = list(records)
+    recs = _span_records(records)
+    by_id = {r.get("span"): r for r in recs}
+
+    def _phase_of(rec: dict) -> Optional[str]:
+        op = str(rec.get("op", ""))
+        phase = _PHASE_OF.get(op)
+        if phase is None and op.startswith("region."):
+            phase = "compute"
+        return phase
+
+    def _ancestor_attributed(rec: dict) -> bool:
+        hops = 0
+        cur = rec
+        while hops < 64:
+            pid = cur.get("parent")
+            if pid is None:
+                return False
+            cur = by_id.get(pid)
+            if cur is None:
+                return False
+            if _phase_of(cur) is not None:
+                return True
+            hops += 1
+        return False
+
+    roots = [r for r in recs if r.get("parent") is None]
+    total = sum(max(0.0, float(r["t1"]) - float(r["t0"])) for r in roots)
+    phases = {p: 0.0 for p in PHASES}
+    for r in recs:
+        dur = max(0.0, float(r["t1"]) - float(r["t0"]))
+        phase = _phase_of(r)
+        if phase is not None and not _ancestor_attributed(r):
+            phases[phase] += dur
+    queue_s = 0.0
+    for r in records:
+        if (isinstance(r, dict) and r.get("kind") == "server"
+                and r.get("event") == "admitted"):
+            queue_s += float(r.get("wait_ms", 0.0)) / 1e3
+    phases["queue"] = max(0.0, queue_s - phases["admission"])
+    return {
+        "queries": len(roots),
+        "total_s": round(total, 6),
+        "phases_s": {k: round(v, 6) for k, v in phases.items()},
+        "fractions": ({k: (round(v / total, 4) if total else 0.0)
+                       for k, v in phases.items()} if roots else {}),
+    }

@@ -3,8 +3,16 @@
 ``reset_option`` names and the same precedence: a ``set_option`` value,
 then the environment variable ``SPARK_RAPIDS_TPU_<OPTION>`` (dots as
 underscores, upper case), then the default). Only the options that
-ported modules read are here; the rest waits for ROADMAP.md Queue 1
-entry 12.
+ported modules read are here; the fleet's, the cluster's and the
+exchange's wait for ROADMAP.md Queue 1 entries 11 and 12b.
+
+- ``log.level``: the level of the port's loggers (``utils/log.py``).
+- ``telemetry.*``: ``enabled`` turns on the JSONL sink, the span trees
+  and the flight recorder (the port's classified events and counters
+  are recorded in process whether or not it is on); ``path`` the JSONL
+  file; ``flight_recorder_depth`` and ``flight_recorder_path`` the
+  recorder's ring and its artifact directory; ``max_spans_per_tree``
+  the in-memory tree's cap.
 
 - ``regex.force_engine``: ``None`` (or ``""``) lets ``regexp_contains``
   pick the engine (the device DFA when the pattern compiles and the
@@ -27,6 +35,16 @@ entry 12.
 - ``compress.*``: the columnar codec under the integrity seal, one gate
   for each seam the port seals (spill and checkpoint), and the zstd
   final stage's level.
+- ``server.*``: the serving runtime (``runtime/server.py``): in-flight
+  queries, the default budget, admission timeout, per-session queue
+  depth, estimate headroom, default deadline, learned-estimate blend,
+  file and save interval, and the warm-up's signature count.
+- ``cache.*``: the result and subplan cache (``runtime/resultcache.py``):
+  its switch, its LRU capacity in resident bytes, the subplan switch.
+- ``rtfilter.*``: runtime bloom-join filters (``runtime/rtfilter.py``):
+  the planner pass's switch (off), the largest build side, the target
+  false-positive rate, the learned gate's pass fraction and blend, the
+  learned-selectivity file and its save interval.
 """
 
 from __future__ import annotations
@@ -38,6 +56,12 @@ _ENV_PREFIX = "SPARK_RAPIDS_TPU_"
 
 # option name -> (default, allowed values or the type values parse to)
 _OPTIONS: dict[str, tuple[Any, Any]] = {
+    "log.level": ("WARNING", str),
+    "telemetry.enabled": (False, bool),
+    "telemetry.path": ("", str),
+    "telemetry.flight_recorder_depth": (16, int),
+    "telemetry.flight_recorder_path": ("", str),
+    "telemetry.max_spans_per_tree": (2048, int),
     "regex.force_engine": (None, (None, "device", "host")),
     "integrity.enabled": (True, bool),
     "memory.log_level": (0, int),
@@ -58,6 +82,26 @@ _OPTIONS: dict[str, tuple[Any, Any]] = {
     "compress.spill": (True, bool),
     "compress.checkpoint": (True, bool),
     "compress.zstd_level": (3, int),
+    "server.max_inflight": (4, int),
+    "server.hbm_budget_bytes": (1 << 30, int),
+    "server.admission_timeout_s": (30.0, float),
+    "server.queue_depth": (64, int),
+    "server.estimate_headroom": (1.5, float),
+    "server.deadline_ms": (0, int),
+    "server.estimate_alpha": (0.4, float),
+    "server.estimate_path": ("", str),
+    "server.estimate_save_interval_s": (5.0, float),
+    "server.warmup_top_n": (0, int),
+    "cache.enabled": (True, bool),
+    "cache.max_bytes": (256 << 20, int),
+    "cache.subplan_enabled": (True, bool),
+    "rtfilter.enabled": (False, bool),
+    "rtfilter.max_build_rows": (1 << 16, int),
+    "rtfilter.fpp": (0.03, float),
+    "rtfilter.gate_pass_frac": (0.8, float),
+    "rtfilter.alpha": (0.4, float),
+    "rtfilter.path": ("", str),
+    "rtfilter.save_interval_s": (5.0, float),
 }
 _overrides: dict[str, Any] = {}
 

@@ -1799,3 +1799,43 @@ def test_card_out_of_memory_is_resource_exhausted(dev):
     assert resilience.classify(ei.value) is resilience.ResourceExhausted
     assert not resilience.is_transient(ei.value)
     torch.cuda.empty_cache()
+
+
+def test_served_planned_q1_launches_accumulate_once_then_hits(dev):
+    from spark_rapids_jni_tpu_torch.runtime import fusion, server
+
+    li = tpch.lineitem_table(20_000, seed=21)
+    plan = tpch._q1_planned_plan()
+    want = fusion.execute(plan, {"lineitem": li}).table
+    with server.QueryServer(budget_bytes=1 << 28, max_inflight=2) as srv:
+        kernels.reset_counts()
+        first = srv.session("dash").submit(plan, {"lineitem": li})
+        got = first.result(timeout=120)
+        torch.cuda.synchronize()
+        assert kernels.launches(kga.NAME) == 1
+        again = srv.session("dash").submit(plan, {"lineitem": li})
+        hit = again.result(timeout=120)
+        assert kernels.launches(kga.NAME) == 1 and again.queue_wait_s == 0.0
+        assert kernels.launches(khp.NAME) == 0
+        for table in (got.table, hit.table):
+            assert table.equals(want)
+    assert srv.limiter.used == 0
+
+
+def test_server_stages_a_host_chunk_binding_as_directly(dev):
+    from spark_rapids_jni_tpu_torch.runtime import fusion, server
+
+    li = tpch.lineitem_table(50_000, seed=22, device="cpu")
+    source = _pinned_sources([li], dev)[0]
+    direct = source().stage()
+    torch.cuda.synchronize()
+    plan = fusion.Plan("tpch_q6", fusion.Project(
+        fusion.Scan("lineitem"), tpch._q6_reduce, rowwise=False))
+    with server.QueryServer(budget_bytes=1 << 28) as srv:
+        staged = srv._stage_bindings({"lineitem": source()})["lineitem"]
+        assert staged.equals(direct)
+        res = srv.session("etl").submit(plan, {"lineitem": source()}).result(
+            timeout=120)
+        assert res.table.equals(fusion.execute(plan,
+                                               {"lineitem": direct}).table)
+    assert srv.limiter.used == 0

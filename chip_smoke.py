@@ -256,7 +256,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with the same rows; each server's ``limiter.used`` 0 after
    ``close()``; a third server warmed up from the first's learned
    estimates (``warmup(top_n=1)`` replays one plan);
-20. one ``{"kernels": [...]}`` line, the card line, and the final
+20. multiple executors: four executors of one mesh spread round-robin
+   over the visible cards (all four on ``cuda:0`` on a one-card
+   machine); the eight distributed plans at SF10 (``tpch_q1``, ``q3``,
+   planned ``q3``, ``q5``, ``q12``; TPC-DS ``q72``, planned ``q72`` and
+   ``q64`` ``_distributed``) each equal to its single-device plan on
+   the card, A and D launched exactly as counted (A 4 for q5; D 8, 4,
+   12, 4 for q3, q12, q72, q64; none for the rest), each with its
+   seconds beside the single-device plan's (medians of 3), its
+   shuffle's wire bytes and its device peak; a one-rank NCCL world
+   running distributed q1 through the process-group transport, equal
+   to the local mesh's; over a quarter of SF10 lineitem (14,996,513
+   rows) ``hash_shuffle`` alone (every executor gets exactly its
+   partition's rows; bytes and seconds beside a device ``copy_``) and
+   the distributed groupby (by l_suppkey), bounded groupby (A once an
+   executor), percentile, window, collect_set, join (D once an
+   executor) and sort, each equal to its single-device counterpart;
+   an overflowing shuffle classified ``CapacityOverflow`` and the
+   retry ladder's grown capacity giving the same groups;
+21. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -5857,6 +5875,488 @@ def serving_phase(dev, q1_oracle, q1_general, q3_oracle) -> tuple:
     return {"served traffic (phase 19)": launches}, out
 
 
+# ---- phase 20: multiple executors (parallel/) -------------------------------
+
+MESH_EXECUTORS = 4           # executors, spread round-robin over the cards
+# the distributed q72/q64 partial groups an executor may shuffle: every
+# item and the null group (the plans' default, 4,096, is the reference's,
+# sized for 1,000 items)
+DS_GROUP_BUDGET = DS_ITEMS + 1
+PG_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pg"
+
+
+def _executor_mesh():
+    from spark_rapids_jni_tpu_torch.parallel import executor_mesh
+
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", e % count) for e in range(MESH_EXECUTORS)]
+    log(f"executor mesh: {MESH_EXECUTORS} executors on "
+        f"{[str(d) for d in devices]} (torch.cuda.device_count() = {count})")
+    return executor_mesh(MESH_EXECUTORS, devices)
+
+
+def _key_rows(table, keys):
+    """The rows of ``table`` whose key columns are all valid, sorted by
+    those keys (stable)."""
+    from spark_rapids_jni_tpu_torch.ops.sort import gather, sort_order
+
+    keep = table.column(keys[0]).valid_mask()
+    for k in keys[1:]:
+        keep = keep & table.column(k).valid_mask()
+    kept = gather(table, torch.nonzero(keep).flatten())
+    return gather(kept, sort_order(kept, keys))
+
+
+def _require_same_groups(name: str, got, want, keys, float_cols=()) -> int:
+    """Two results hold the same groups: their valid-key rows, sorted by
+    the keys, equal column for column (validity, and data where valid;
+    STRING columns by row bytes; ``float_cols`` to 1e-12 relative, NaN
+    equal). Returns the group count."""
+    got, want = _key_rows(got, keys), _key_rows(want, keys)
+    require(got.num_rows == want.num_rows,
+            f"{name}: {got.num_rows} groups, single device {want.num_rows}")
+    for i, (a, b) in enumerate(zip(got.columns, want.columns)):
+        if i not in float_cols:
+            # null-aware: validity, then data where valid (NaN == NaN)
+            require(a.equals(b), f"{name} column {i} differs")
+            continue
+        va, vb = a.valid_mask(), b.valid_mask()
+        require(torch.equal(va, vb), f"{name} column {i}: validity")
+        x, y = a.data[va], b.data[vb]
+        nan = torch.isnan(y)
+        require(torch.equal(torch.isnan(x), nan)
+                and bool(((x[~nan] - y[~nan]).abs()
+                          <= 1e-12 * y[~nan].abs()).all()),
+                f"{name} column {i}: floats differ")
+    return got.num_rows
+
+
+class _PlanRecorder:
+    """Runs one distributed plan: launches of A and D set to 0 just
+    before it and read just after (exactly ``want``, no fallback), the
+    shuffle's wire bytes and the device peak of the run; then the host
+    median of 3 runs of it and of its single-device twin."""
+
+    def __init__(self):
+        self.launches, self.rows, self.peak = {}, {}, 0.0
+
+    def run(self, name: str, fn, want: dict, single):
+        from spark_rapids_jni_tpu_torch import telemetry
+
+        torch.cuda.reset_peak_memory_stats()
+        wire0 = telemetry.counter("shuffle.wire_bytes")
+        res, self.launches[name] = _run_plan(name, fn, want)
+        wire = telemetry.counter("shuffle.wire_bytes") - wire0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        self.peak = max(self.peak, peak)
+        twin = single()
+        torch.cuda.synchronize()
+        return res, twin, {"launches": self.launches[name],
+                           "wire_bytes": wire, "peak_gib": peak}
+
+    def time(self, name: str, fn, single, row: dict) -> None:
+        row["s"] = host_median_s(fn, warm=False)
+        row["single_s"] = host_median_s(single, warm=False)
+        self.rows[name] = row
+        log(f"{name}: {row['s'] * 1e3:.3f} ms over {MESH_EXECUTORS} "
+            f"executors (single device {row['single_s'] * 1e3:.3f} ms), "
+            f"shuffle_wire_bytes {row['wire_bytes']}, launches "
+            f"{row['launches']}, device peak {row['peak_gib']:.2f} GiB")
+
+
+def _nccl_q1(li, dev) -> dict:
+    """A one-rank NCCL world runs distributed q1 through the
+    process-group transport; equal to the local mesh's result."""
+    import datetime
+    import shutil
+
+    import torch.distributed as tdist
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.parallel import executor_mesh
+
+    shutil.rmtree(PG_DIR, ignore_errors=True)
+    PG_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tdist.init_process_group(
+        "nccl", init_method=f"file://{PG_DIR / 'pg'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        nccl = executor_mesh(devices=[dev], group=tdist.group.WORLD)
+        got, s = _sync_s(lambda: tpch.tpch_q1_distributed(li, nccl))
+        want = tpch.tpch_q1_distributed(li, executor_mesh(1, [dev]))
+        require(got.equals(want), "NCCL q1 differs from the local mesh")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(PG_DIR, ignore_errors=True)
+    log(f"one-rank NCCL world: distributed q1 through the process group "
+        f"{s * 1e3:.3f} ms, equal to the local mesh's; group destroyed "
+        f"({time.perf_counter() - t0:.1f} s with init)")
+    return {"s": s}
+
+
+def _distributed_plans(mesh, dev, rec: _PlanRecorder) -> dict:
+    """The eight distributed plans at SF10, each equal to its
+    single-device plan on the card."""
+    from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+
+    out = {}
+    li = tpch.lineitem_table(ROWS, seed=0)
+    fn = lambda: tpch.tpch_q1_distributed(li, mesh)  # noqa: E731
+    single = lambda: tpch.tpch_q1(li)  # noqa: E731
+    got, want, row = rec.run("tpch_q1_distributed", fn, {}, single)
+    row["groups"] = _require_same_groups("q1", got, want, [0, 1],
+                                         float_cols=(6, 7, 8))
+    rec.time("tpch_q1_distributed", fn, single, row)
+    out["nccl_q1"] = _nccl_q1(li, dev)
+    del li, got, want
+    torch.cuda.empty_cache()
+
+    q3 = q3_tables()
+    for name, fn, want_l, single in (
+            ("tpch_q3_distributed",
+             lambda: tpch.tpch_q3_distributed(*q3, mesh), {"D": 8},
+             lambda: tpch.tpch_q3(*q3).result.compact()),
+            ("tpch_q3_planned_distributed",
+             lambda: tpch.tpch_q3_planned_distributed(*q3, mesh), {},
+             lambda: tpch.tpch_q3_planned(*q3).result.compact())):
+        got, want, row = rec.run(name, fn, want_l, single)
+        row["groups"] = _require_same_groups(name, got, want, [0])
+        del got, want
+        torch.cuda.empty_cache()
+        rec.time(name, fn, single, row)
+    del q3
+    torch.cuda.empty_cache()
+
+    q5 = strings_tables("q5")["args"]
+    fn = lambda: tpch.tpch_q5_distributed(*q5, mesh)  # noqa: E731
+    single = lambda: tpch.tpch_q5(*q5)  # noqa: E731
+    got, want, row = rec.run("tpch_q5_distributed", fn, {"A": 4}, single)
+    require(not bool(got.pk_violation) and not bool(got.domain_miss)
+            and torch.equal(got.present, want.present),
+            "q5: present, PK violation or domain miss")
+    row["groups"] = _require_same_groups(
+        "q5", got.table, want.table, [0])
+    rec.time("tpch_q5_distributed", fn, single, row)
+    del q5, got, want
+    torch.cuda.empty_cache()
+
+    q12 = strings_tables("q12")
+    o12, li12 = q12["o12"], q12["li"]
+    del q12
+    fn = lambda: tpch.tpch_q12_distributed(o12, li12, mesh)  # noqa: E731
+    single = lambda: tpch.tpch_q12(o12, li12).result.compact()  # noqa
+    got, want, row = rec.run("tpch_q12_distributed", fn, {"D": 4}, single)
+    row["groups"] = _require_same_groups("q12", got, want, [0])
+    rec.time("tpch_q12_distributed", fn, single, row)
+    del o12, li12, got, want
+    torch.cuda.empty_cache()
+
+    ds = tpcds_tables()
+    q72, q64 = ds["q72"], ds["q64"]
+    del ds
+    for name, fn, want_l, single, keys in (
+            ("tpcds_q72_distributed",
+             lambda: tpcds.tpcds_q72_distributed(
+                 *q72, mesh, group_budget=DS_GROUP_BUDGET), {"D": 12},
+             lambda: tpcds.tpcds_q72(*q72).compact(), [0, 1]),
+            ("tpcds_q72_planned_distributed",
+             lambda: tpcds.tpcds_q72_planned_distributed(*q72, mesh), {},
+             lambda: tpcds.tpcds_q72_planned(*q72), None),
+            ("tpcds_q64_distributed",
+             lambda: tpcds.tpcds_q64_distributed(
+                 *q64, mesh, group_budget=DS_GROUP_BUDGET), {"D": 4},
+             lambda: tpcds.tpcds_q64(*q64).result.compact(), [0])):
+        got, want, row = rec.run(name, fn, want_l, single)
+        if keys is None:  # planned q72: replicated, the same slot table
+            require(not bool(got.pk_violation)
+                    and torch.equal(got.present, want.present)
+                    and got.table.equals(want.table),
+                    f"{name} differs from tpcds_q72_planned")
+            row["groups"] = int(got.present.sum())
+        else:
+            row["groups"] = _require_same_groups(name, got, want, keys)
+        del got, want
+        torch.cuda.empty_cache()
+        rec.time(name, fn, single, row)
+    del q72, q64
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rowid_values(res_tables, row_valid, rowid_col, values, n):
+    """Scatter per-executor result values (aligned to shuffled rows) back
+    to input-row order through the row id column: (data, validity) of n
+    rows (rows no executor holds stay invalid)."""
+    data, valid = None, torch.zeros(n, dtype=torch.bool,
+                                    device=values[0].device)
+    for tbl, rv, col in zip(res_tables, row_valid, values):
+        ids = tbl.column(rowid_col).data[rv]
+        if data is None:
+            data = torch.zeros((n,), dtype=col.data.dtype,
+                               device=col.device)
+        data[ids] = col.data[rv]
+        valid[ids] = col.valid_mask()[rv]
+    return data, valid
+
+
+def _distributed_operators(mesh, dev, rec: _PlanRecorder) -> dict:
+    """The operators over a quarter of SF10 lineitem, each equal to its
+    single-device counterpart; the overflow and its retry."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+    from spark_rapids_jni_tpu_torch.ops import lists, planner
+    from spark_rapids_jni_tpu_torch.ops.groupby import (
+        groupby_aggregate,
+        groupby_percentile,
+    )
+    from spark_rapids_jni_tpu_torch.ops.hash import partition_hash
+    from spark_rapids_jni_tpu_torch.ops.sort import sort_table
+    from spark_rapids_jni_tpu_torch.ops.window import Window
+    from spark_rapids_jni_tpu_torch.parallel import (
+        distributed as pdist,
+        hash_shuffle,
+        shuffle as pshuffle,
+        shuffle_wire_bytes,
+        sort as psort,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import dispatch, resilience
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    n = OPERATORS_ROWS
+    full, _ = tpch.lineitem_groupby_table(n, Q3_ORDERS, SUPPLIERS)
+    c = full.column
+    # [l_orderkey, l_suppkey, l_shipdate, l_extendedprice, price FLOAT64,
+    #  l_returnflag, l_quantity, row id]
+    tab = Table([c(7), c(8), c(6), c(1), c(9), c(4), c(0),
+                 Column(t.INT64, torch.arange(n, device=dev))])
+    del full, c
+    shards, rv = pdist.shard_table(tab, mesh, return_row_valid=True)
+    out, timed = {}, {}
+
+    # the shuffle alone, by l_suppkey, beside a device copy of its bytes
+    wire0 = telemetry.counter("shuffle.wire_bytes")
+    res = hash_shuffle(mesh, shards, [1], row_valid=rv)
+    wire = telemetry.counter("shuffle.wire_bytes") - wire0
+    cap = res[0].table.num_rows // MESH_EXECUTORS
+    require(wire == MESH_EXECUTORS * shuffle_wire_bytes(
+        shards[0], None, cap, MESH_EXECUTORS)["wire_bytes"],
+        f"shuffle wire bytes {wire}")
+    part = partition_hash(tab, [1], MESH_EXECUTORS)
+    for e, r in enumerate(res):
+        require(not bool(r.overflowed), "shuffle overflowed")
+        got_ids = r.table.column(7).data[r.row_valid]
+        require(torch.equal(got_ids, torch.nonzero(part == e).flatten()),
+                f"executor {e} received other rows than partition_hash's")
+    del res, part
+    s = host_median_s(lambda: hash_shuffle(mesh, shards, [1], row_valid=rv))
+    src = torch.empty(wire, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src), reps=3)
+    del src, dst
+    out["hash_shuffle"] = {"s": s, "wire_bytes": wire, "capacity": cap,
+                           "copy_ms": copy_ms}
+    log(f"hash_shuffle of {n} rows (8 columns) by l_suppkey over "
+        f"{MESH_EXECUTORS} executors: {s * 1e3:.3f} ms, {wire} wire bytes "
+        f"({wire / s / 1e9:.1f} GB/s); a device copy_ of as many bytes "
+        f"{copy_ms:.3f} ms; every executor got exactly its partition's "
+        f"rows in input order")
+
+    def timed_part(name, fn, single, want=None):
+        got, twin, row = rec.run(name, fn, want or {}, single)
+        timed[name] = row
+        return got, twin, row
+
+    aggs = [(3, "sum"), (3, "count"), (6, "min"), (6, "max"), (4, "max")]
+    got, want, row = timed_part(
+        "distributed_groupby_aggregate",
+        lambda: pdist.distributed_groupby_aggregate(shards, [1], aggs, mesh),
+        lambda: groupby_aggregate(tab, [1], aggs))
+    merged = pdist.collect(got.table, got.num_groups, mesh)
+    row["groups"] = _require_same_groups(
+        "groupby by l_suppkey", merged, want.compact(), [0])
+    baseline = merged
+    rec.time("distributed_groupby_aggregate",
+             lambda: pdist.distributed_groupby_aggregate(shards, [1], aggs,
+                                                         mesh),
+             lambda: groupby_aggregate(tab, [1], aggs), row)
+    del got, want
+
+    dom = [planner.scalar_domain([ord("A"), ord("N"), ord("R")])]
+    bagg = [(3, "sum"), (3, "count"), (6, "min"), (6, "max"), (4, "max")]
+    bfn = lambda: pdist.distributed_groupby_bounded(  # noqa: E731
+        shards, [5], bagg, dom, mesh, row_valid=rv)
+    bsingle = lambda: planner.plan_groupby(tab, [5], bagg, dom)  # noqa
+    got, want, row = timed_part("distributed_groupby_bounded", bfn, bsingle,
+                                {"A": MESH_EXECUTORS})
+    require(torch.equal(got.present, want.present)
+            and got.table.equals(want.table)
+            and not bool(got.domain_miss),
+            "distributed bounded groupby differs from plan_groupby")
+    row["groups"] = int(got.present.sum())
+    rec.time("distributed_groupby_bounded", bfn,
+             lambda: planner.plan_groupby(tab, [5], bagg, dom), row)
+    del got, want
+
+    qs = [0.5, 0.9]
+    pfn = lambda: pdist.distributed_groupby_percentile(  # noqa: E731
+        shards, [1], 3, qs, mesh)
+    psingle = lambda: groupby_percentile(tab, [1], 3, qs)  # noqa: E731
+    got, want, row = timed_part("distributed_groupby_percentile", pfn,
+                                psingle)
+    row["groups"] = _require_same_groups(
+        "percentile by l_suppkey",
+        pdist.collect(got.table, got.num_groups, mesh), want.compact(), [0])
+    rec.time("distributed_groupby_percentile", pfn, psingle, row)
+    del got, want
+
+    specs = [("row_number",), ("running_sum", 3)]
+    wfn = lambda: pdist.distributed_window(  # noqa: E731
+        shards, [1], [2], specs, mesh, rv)
+
+    def wsingle():
+        w = Window(tab, [1], [2])
+        return [w.row_number(), w.running_sum(3)]
+
+    got, want, row = timed_part("distributed_window", wfn, wsingle)
+    for i, col in enumerate(want):
+        data, valid = _rowid_values(got.table, got.row_valid, 7,
+                                    [r.column(i) for r in got.results], n)
+        require(torch.equal(valid, col.valid_mask())
+                and torch.equal(data[valid], col.data[valid]),
+                f"window spec {specs[i]} differs from the single Window")
+    rec.time("distributed_window", wfn, wsingle, row)
+    del got, want
+
+    ccap = dispatch.quantize_capacity(
+        math.ceil(shards[0].num_rows / MESH_EXECUTORS) * 2)
+    cfn = lambda: pdist.distributed_groupby_collect(  # noqa: E731
+        shards, [1], 2, mesh, ccap, distinct=True)
+    csingle = lambda: lists.groupby_collect(  # noqa: E731
+        tab, [1], 2, distinct=True)
+    got, want, row = timed_part("distributed_groupby_collect", cfn, csingle)
+    # the groups re-ordered by key on the host, lists compared whole
+    gk, gv = _h(got.table.column(0).data), _hv(got.table.column(0))
+    goff = _h(got.table.column(1).data).astype(np.int64)
+    gch = _h(got.table.column(1).children[0].data)
+    keep = np.flatnonzero(gv)
+    keep = keep[np.argsort(gk[keep], kind="stable")]
+    lens = goff[keep + 1] - goff[keep]
+    starts = np.repeat(goff[keep] - np.r_[0, np.cumsum(lens)[:-1]], lens)
+    k = int(want.num_groups)
+    woff = _h(want.table.column(1).data[:k + 1]).astype(np.int64)
+    require(np.array_equal(gk[keep], _h(want.table.column(0).data[:k]))
+            and np.array_equal(lens, np.diff(woff))
+            and np.array_equal(gch[starts + np.arange(len(starts))],
+                               _h(want.table.column(1).children[0].data)
+                               [:woff[-1]]),
+            "collect_set by l_suppkey differs from groupby_collect")
+    row["groups"] = k
+    rec.time("distributed_groupby_collect", cfn, csingle, row)
+    del got, want
+
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    probe = Table([tab.column(0), tab.column(7)])
+    oshards, orv = pdist.shard_table(orders, mesh, return_row_valid=True)
+    pshards = [Table([s.column(0), s.column(7)]) for s in shards]
+    jcap = n // MESH_EXECUTORS * 2
+    jfn = lambda: pdist.distributed_join(  # noqa: E731
+        pshards, oshards, 0, 0, mesh, jcap, left_row_valid=rv,
+        right_row_valid=orv,
+        left_capacity=jcap, right_capacity=Q3_ORDERS // MESH_EXECUTORS * 2)
+
+    def jsingle():
+        maps = pjoin.join(probe, orders, 0, 0, n)
+        return maps, pjoin.apply_join_maps(probe, orders, maps)
+
+    got, (maps, want), row = timed_part("distributed_join", jfn, jsingle,
+                                        {"D": MESH_EXECUTORS})
+    require(not any(bool(o) for o in got.overflowed)
+            and sum(int(x) for x in got.total) == int(maps.total),
+            "distributed join: overflow or match count")
+    joined = pdist.collect(got.table, got.total, mesh)
+    row["rows"] = _require_same_groups(
+        "join l_orderkey = o_orderkey", joined,
+        pdist.head_table(want, int(maps.total)), [1])
+    rec.time("distributed_join", jfn, jsingle, row)
+    del got, want, maps, joined, orders, oshards, orv, pshards, probe
+
+    sfn = lambda: psort.distributed_sort(  # noqa: E731
+        shards, [0], mesh, row_valid=rv)
+    ssingle = lambda: sort_table(tab, [0])  # noqa: E731
+    got, want, row = timed_part("distributed_sort", sfn, ssingle)
+    srt = pdist.collect(got.table, got.num_rows, mesh)
+    require(srt.num_rows == n and srt.equals(want),
+            "distributed sort by l_orderkey differs from sort_table")
+    rec.time("distributed_sort", sfn, ssingle, row)
+    del got, want, srt
+
+    # overflow: half the most rows one executor sends one destination
+    # drops rows, classified; the retry ladder's doubled capacity holds
+    # them and gives the derived run's groups
+    busiest = max(int(torch.bincount(partition_hash(
+        s, [1], MESH_EXECUTORS), minlength=MESH_EXECUTORS).max())
+        for s in shards)
+    small = busiest // 2
+    res = hash_shuffle(mesh, shards, [1], capacity=small, row_valid=rv)
+    try:
+        pshuffle.report_shuffle_telemetry(res, rows=n, capacity=small,
+                                          raise_on_overflow=True)
+        raise AssertionError("a half-capacity shuffle did not overflow")
+    except resilience.CapacityOverflow as exc:
+        require(resilience.classify(exc) is resilience.CapacityOverflow,
+                "overflow not classified CapacityOverflow")
+        reason = str(exc)
+    del res
+    n_events = len(telemetry.events("resilience"))
+    retried = pdist.distributed_groupby_aggregate(shards, [1], aggs, mesh,
+                                                  capacity=small)
+    events = [e["event"] for e in
+              telemetry.events("resilience")[n_events:]]
+    require(events == ["escalate", "recovered"],
+            f"retry ladder events {events}")
+    _require_same_groups(
+        "groupby after the retry",
+        pdist.collect(retried.table, retried.num_groups, mesh), baseline,
+        [0])
+    out["overflow"] = {"capacity": small, "classified": "CapacityOverflow",
+                       "events": events}
+    log(f"overflow at capacity {small}: {reason[:120]}...; the retry ladder "
+        f"{events} gave the derived capacity's groups")
+    del retried, baseline, shards, rv, tab
+    torch.cuda.empty_cache()
+    out["operators"] = timed
+    return out
+
+
+def multi_executor_phase(dev) -> tuple:
+    """Phase 20: the multiple-executor layer on the card. Four executors
+    (round-robin over the visible cards); the eight distributed TPC-H
+    and TPC-DS plans at SF10 and the distributed operators over a
+    quarter of SF10 lineitem, each equal to its single-device
+    counterpart with A and D launched exactly as counted; the overflow
+    classified and retried; a one-rank NCCL world."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mesh = _executor_mesh()
+    rec = _PlanRecorder()
+    out = _distributed_plans(mesh, dev, rec)
+    out.update(_distributed_operators(mesh, dev, rec))
+    out["plans"] = {k: v for k, v in rec.rows.items()
+                    if k not in out["operators"]}
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = max(rec.peak,
+                          torch.cuda.max_memory_allocated() / 2**30)
+    log(f"phase 20 (multiple executors): {out['s']:.1f} s, device peak "
+        f"{out['peak_gib']:.2f} GiB")
+    return rec.launches, out
+
+
 def _start_native_build():
     """Build the readers' native library on a thread while nvcc builds
     the kernels; the returned call waits for it and raises its error."""
@@ -5973,12 +6473,14 @@ def main() -> int:
         dev, q1_oracle, q1_general, q3_oracle)
     sv_launches, path_times["serving"] = serving_phase(
         dev, q1_oracle, q1_general, q3_oracle)
+    mx_launches, path_times["multiple_executors"] = multi_executor_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
                **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
                                  for p, n in rd_launches.items()},
-               **ex_launches, **oc_launches, **sv_launches}
+               **ex_launches, **oc_launches, **sv_launches,
+               **mx_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

@@ -254,25 +254,17 @@ class Q72PlannedResult(NamedTuple):
     pk_violation: torch.Tensor
 
 
-def tpcds_q72_planned(catalog_sales: Table, date_dim: Table, item: Table,
-                      inventory: Table, year: int = 2000
-                      ) -> Q72PlannedResult:
-    """q72 on planner-declared fast paths: d_date_sk and i_item_sk are
-    dense clustered primary keys (1..N in load order) and the inventory
-    grain is a dense (item, week) grid, so all three joins are arithmetic
-    plus a gather; the GROUP BY item is a dense-id COUNT; only the final
-    ORDER BY sorts, over ``num_items`` rows. ``pk_violation`` reports a
-    declaration the data broke (re-plan on ``tpcds_q72``)."""
-    num_days = date_dim.num_rows
+def _q72_planned_counts(catalog_sales: Table, dd: Table, item: Table,
+                        inventory: Table, num_weeks: int,
+                        row_valid=None) -> tuple:
+    """Planned q72's counts over one set of sales rows: (int64[num_items]
+    short-sale counts per item, 0-d pk violation). ``dd`` is
+    ``_q72_dd_fn``'s year-keyed date build; ``row_valid`` False rows
+    (shard padding) count nowhere."""
     num_items = item.num_rows
-    if inventory.num_rows % num_items:
-        raise ValueError(
-            "inventory is not a dense (item, week) grid — use tpcds_q72")
-    num_weeks = inventory.num_rows // num_items
-
     # join 1: sale -> its date row, the year filter in the build key
-    j1 = dense_pk_join(catalog_sales, _q72_dd_fn(date_dim, year),
-                       CS_SOLD_DATE_SK, 0, 1, num_days, clustered=True)
+    j1 = dense_pk_join(catalog_sales, dd, CS_SOLD_DATE_SK, 0, 1,
+                       dd.num_rows, clustered=True)
     # j1: [cs_item, cs_date, cs_qty, cs_order, d_date_sk, d_week_seq]
     # join 2: sale -> its item row
     j2 = dense_pk_join(j1.table, item, CS_ITEM_SK, I_ITEM_SK, 1, num_items,
@@ -287,6 +279,8 @@ def tpcds_q72_planned(catalog_sales: Table, date_dim: Table, item: Table,
                & week.valid_mask() & (week.data >= 1)
                & (week.data <= num_weeks) & (grid >= 0)
                & (grid < inventory.num_rows))
+    if row_valid is not None:
+        in_grid = in_grid & row_valid
     pos = grid.clamp(0, inventory.num_rows - 1)
     inv_qty = inventory.column(INV_QTY)
     grid_lie = (in_grid & (
@@ -298,20 +292,47 @@ def tpcds_q72_planned(catalog_sales: Table, date_dim: Table, item: Table,
              & (inv_qty.data[pos] < qty.data))
     counts = dense_id_counts(torch.where(short, cs_item.data - 1, num_items),
                              num_items)
-    present = counts > 0
+    return counts, j1.pk_violation | j2.pk_violation | grid_lie
 
-    # static keys, and brands by one clustered gather over the item table
+
+def _q72_planned_table(item: Table, counts: torch.Tensor) -> tuple:
+    """Planned q72's output from the per-item counts: static item keys,
+    brands by one clustered gather, ORDER BY count desc, item asc.
+    Returns (table, present)."""
+    present = counts > 0
     brand = item.column(I_BRAND_ID)
     out = Table([
-        Column(t.INT64, torch.arange(1, num_items + 1, dtype=torch.int64,
+        Column(t.INT64, torch.arange(1, item.num_rows + 1, dtype=torch.int64,
                                      device=counts.device), present),
         Column(brand.dtype, brand.data, brand.valid_mask() & present),
         Column(t.INT64, counts, present),
     ])
-    srt = sort_table(out, [2, 0], ascending=[False, True],
-                     nulls_first=[False, False])
-    return Q72PlannedResult(srt, present,
-                            j1.pk_violation | j2.pk_violation | grid_lie)
+    return sort_table(out, [2, 0], ascending=[False, True],
+                      nulls_first=[False, False]), present
+
+
+def _q72_grid_weeks(item: Table, inventory: Table) -> int:
+    if inventory.num_rows % item.num_rows:
+        raise ValueError(
+            "inventory is not a dense (item, week) grid — use tpcds_q72")
+    return inventory.num_rows // item.num_rows
+
+
+def tpcds_q72_planned(catalog_sales: Table, date_dim: Table, item: Table,
+                      inventory: Table, year: int = 2000
+                      ) -> Q72PlannedResult:
+    """q72 on planner-declared fast paths: d_date_sk and i_item_sk are
+    dense clustered primary keys (1..N in load order) and the inventory
+    grain is a dense (item, week) grid, so all three joins are arithmetic
+    plus a gather; the GROUP BY item is a dense-id COUNT; only the final
+    ORDER BY sorts, over ``num_items`` rows. ``pk_violation`` reports a
+    declaration the data broke (re-plan on ``tpcds_q72``)."""
+    num_weeks = _q72_grid_weeks(item, inventory)
+    counts, viol = _q72_planned_counts(
+        catalog_sales, _q72_dd_fn(date_dim, year), item, inventory,
+        num_weeks)
+    srt, present = _q72_planned_table(item, counts)
+    return Q72PlannedResult(srt, present, viol)
 
 
 def _host(tbl: Table, i: int) -> np.ndarray:
@@ -579,6 +600,160 @@ def tpcds_q64_oracle(store_sales: Table, year1: int = 2000,
     (items,), counts = _group_rows([item[y1][hit]], c2[hit])
     order = np.lexsort((items, -counts))
     return {"item_sk": items[order], "count": counts[order]}
+
+
+# ---- distributed q72 and q64 (multiple executors, ``parallel/``) ------------
+#
+# The reference runs each step inside ``jax.shard_map``; the port's take
+# the executor mesh and run bulk-synchronously over the executors
+# (``parallel/distributed.py``), with whole tables given in one process.
+
+# padded groupby outputs shuffle under a static per-executor group
+# budget; the item dimension bounds distinct (item, brand) groups
+_Q72_GROUP_BUDGET = 4096
+
+
+def _compact_valid_keys(result: Table, num_key_cols: int,
+                        order_keys, ascending) -> Table:
+    """Drop the shuffle's phantom null-key group(s) from a collected
+    result and apply the final ORDER BY — the shared tail of the
+    distributed q72 and q64 plans."""
+    keys_valid = result.column(0).valid_mask()
+    for k in range(1, num_key_cols):
+        keys_valid = keys_valid & result.column(k).valid_mask()
+    cols = [Column(c.dtype, c.data[keys_valid], c.valid_mask()[keys_valid])
+            for c in result.columns]
+    return sort_table(Table(cols), order_keys, ascending=ascending,
+                      nulls_first=[False] * len(order_keys))
+
+
+def _merged_partials(mesh, partials: list, keys: list, group_budget: int,
+                     what: str) -> Table:
+    """The two-phase aggregation's second half: each executor's padded
+    partial counts (a ``GroupByResult``) truncated to the group budget,
+    shuffled by key hash, sum-merged, and collected. Raises when an
+    executor held more groups than the budget."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        any_executor,
+        collect,
+        head_table,
+    )
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import hash_shuffle
+
+    if any_executor(mesh, [p.num_groups > group_budget for p in partials]):
+        raise ValueError(
+            f"per-device {what} group count exceeded the shuffle budget "
+            f"({group_budget}); pass a larger group_budget")
+    pts = [head_table(p.table, min(group_budget, p.table.num_rows))
+           for p in partials]
+    shuffled = hash_shuffle(mesh, pts, keys, capacity=pts[0].num_rows)
+    merged = [groupby_aggregate(sh.table, keys, [(len(keys), "sum")])
+              for sh in shuffled]
+    return collect([m.table for m in merged],
+                   [m.num_groups for m in merged], mesh)
+
+
+def tpcds_q72_distributed(catalog_sales: Table, date_dim: Table,
+                          item: Table, inventory: Table, mesh,
+                          year: int = 2000, out_factor: int = 2,
+                          group_budget: int = _Q72_GROUP_BUDGET) -> Table:
+    """Multiple-executor q72 with Spark's broadcast-join plan: the fact
+    table shards row-wise over the mesh, the three dimension tables
+    replicate to every executor, each runs the whole join chain (kernel D
+    three times per executor on the card) and the partial group count
+    locally, and the partial counts merge through the shuffle as
+    distributed q1's do. Returns the compacted global (item, brand,
+    count) table, count desc, item asc."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        shard_table,
+        table_to,
+    )
+
+    partials = []
+    for local in shard_table(catalog_sales, mesh):
+        dev = local.columns[0].device
+        # padding rows carry null join keys (shard_table nulls their
+        # validity), so they fall out of the first join
+        partials.append(tpcds_q72(
+            local, table_to(date_dim, dev), table_to(item, dev),
+            table_to(inventory, dev), year=year, out_factor=out_factor))
+    result = _merged_partials(mesh, partials, [0, 1], group_budget, "q72")
+    return _compact_valid_keys(result, 2, [2, 0], [False, True])
+
+
+def tpcds_q72_planned_distributed(catalog_sales: Table, date_dim: Table,
+                                  item: Table, inventory: Table, mesh,
+                                  year: int = 2000) -> Q72PlannedResult:
+    """Multiple-executor planned q72 with ZERO shuffles: catalog_sales
+    shards row-wise, the three dimension tables replicate, every
+    executor runs the dense-PK and grid lookups and the dense-id COUNT
+    on its shard (no kernel), and the global merge is one sum over the
+    num_items count vector. Same schema as ``tpcds_q72_planned``; the
+    result is replicated."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        shard_table,
+        table_to,
+    )
+
+    num_weeks = _q72_grid_weeks(item, inventory)
+    dd = _q72_dd_fn(date_dim, year)
+    sharded, rv = shard_table(catalog_sales, mesh, return_row_valid=True)
+    counts, viols = [], []
+    for local, local_rv in zip(sharded, rv):
+        dev = local.columns[0].device
+        c, v = _q72_planned_counts(local, table_to(dd, dev),
+                                   table_to(item, dev),
+                                   table_to(inventory, dev), num_weeks,
+                                   row_valid=local_rv)
+        counts.append(c)
+        viols.append(v.to(torch.int32).reshape(1))
+    total = mesh.psum(counts)[0]
+    viol = mesh.psum(viols)[0][0] > 0
+    srt, present = _q72_planned_table(
+        table_to(item, total.device), total)
+    return Q72PlannedResult(srt, present, viol)
+
+
+def tpcds_q64_distributed(store_sales: Table, mesh, year1: int = 2000,
+                          year2: int = 2001, num_days_per_year: int = 365,
+                          base_year: int = 2000, out_factor: int = 4,
+                          group_budget: int = _Q72_GROUP_BUDGET) -> Table:
+    """Multiple-executor q64: the cross-year self-join is big x big, so
+    it takes the repartitioned plan: both year slices exchange rows by
+    composite-key hash (``distributed_join``, kernel D once per executor
+    on the card), each executor joins and partial-counts locally, and
+    the partial counts merge through a second shuffle. Returns the
+    compacted global (item, count) table, count desc, item asc."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        any_executor,
+        distributed_join,
+        shard_table,
+    )
+
+    n = store_sales.num_rows
+    left = _q64_left_fn(store_sales, year1, num_days_per_year, base_year)
+    right = _q64_right_fn(store_sales, year2, num_days_per_year, base_year)
+    sl, lrv = shard_table(left, mesh, return_row_valid=True)
+    sr, rrv = shard_table(right, mesh, return_row_valid=True)
+    d = mesh.size
+    out_cap = max(1, n * out_factor // max(d // 2, 1))
+    res = distributed_join(
+        sl, sr, 0, 0, mesh, out_size_per_device=out_cap,
+        left_capacity=max(1, n // d * 2), right_capacity=max(1, n // d * 2),
+        left_row_valid=lrv, right_row_valid=rrv)
+    if any_executor(mesh, res.overflowed):
+        raise ValueError("q64 join shuffle overflowed; raise capacities")
+    if any_executor(mesh, [tot > out_cap for tot in res.total]):
+        raise ValueError(
+            "q64 device-local join output exceeded out_size_per_device "
+            f"({out_cap}); raise out_factor (counts would silently "
+            "truncate)")
+    del sl, sr, lrv, rrv
+    partials = [groupby_aggregate(_q64_keyed_fn(j), [0], [(1, "count")])
+                for j in res.table]
+    del res
+    result = _merged_partials(mesh, partials, [0], group_budget, "q64")
+    return _compact_valid_keys(result, 1, [1, 0], [False, True])
 
 
 # ---- TPC-DS q3 (brand revenue by year) -------------------------------------

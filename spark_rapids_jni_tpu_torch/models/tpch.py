@@ -2430,6 +2430,344 @@ def tpch_q10_oracle(customer: Table, orders: Table, lineitem: Table,
             "revenue": sums[order]}
 
 
+# ---- distributed plans (multiple executors, ``parallel/``) ----------------
+#
+# The reference runs each step inside ``jax.shard_map``; the port's steps
+# take the executor mesh and the per-executor tables and run
+# bulk-synchronously (``parallel/distributed.py``). Each plan takes whole
+# tables in one process; ``tpch_q1_distributed`` also runs in a process
+# group, where each rank passes its own lineitem rows.
+
+_Q12_GROUP_BUDGET = 16  # |shipmode domain| = 7 plus the null pseudo-group
+
+
+def q1_distributed_step(mesh, local: list):
+    """The executors' q1 step: local partial groupby (truncated to the
+    group budget) -> all-to-all shuffle by (returnflag, linestatus) ->
+    merge groupby; afterward each executor owns a disjoint slice of the
+    key space. Both halves are the out-of-core path's plans. The port's
+    step takes the mesh and the executors' lineitem shards, where the
+    reference's takes one device's shard inside ``shard_map``; returns
+    (per-executor merged tables, per-executor group counts)."""
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import hash_shuffle
+
+    budget = min(_Q1_GROUP_BUDGET, local[0].num_rows)
+    partials, reals = [], []
+    for shard in local:
+        # the budget-bounded partial IS the head truncation: padded to
+        # exactly ``budget`` rows, real groups first
+        res = fusion.execute(_q1_partial_plan(), {"chunk": shard})
+        partials.append(res.table)
+        # only the real groups cross the wire: budget padding would all
+        # hash to the null-key receiver
+        ng = res.meta["partial.num_groups"]
+        reals.append(torch.arange(budget, device=ng.device) < ng)
+    shuffled = hash_shuffle(mesh, partials, [0, 1], capacity=budget,
+                            row_valid=reals)
+    # merge with max_groups=None: m = the shuffle buffer size, which can
+    # never overflow
+    merged = [fusion.execute(_q1_merge_plan(), {"partials": sh.table})
+              for sh in shuffled]
+    return ([m.table for m in merged],
+            [m.meta["merge.num_groups"] for m in merged])
+
+
+def tpch_q1_distributed(lineitem: Table, mesh) -> Table:
+    """Multiple-executor q1: shard rows over the mesh, run the
+    shuffle-backed step across it, then collect and sort the (tiny)
+    result — the driver-side collect of the Spark job. In a process group
+    ``lineitem`` is this rank's rows and every rank gets the result."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        collect,
+        shard_table,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import dispatch
+
+    sharded = shard_table(lineitem, mesh)
+    per_dev, num_groups = dispatch.sharded_call(
+        "tpch_q1_distributed.step", lambda: q1_distributed_step,
+        (mesh, sharded))
+    result = collect(per_dev, num_groups, mesh)
+    return sort_table(result, [0, 1], nulls_first=[False, False])
+
+
+def _q3_inputs(customer: Table, orders: Table, lineitem: Table,
+               segment: int, cutoff: int):
+    """q3's filtered inputs shared by its distributed plans: the
+    segment-filtered customer keys, the date-filtered orders and the
+    shipdate-filtered lineitem probe with its revenue lane. Returns
+    (cust, ord_t, probe)."""
+    return (_q3_cust_fn(customer, segment), _q3_orders_fn(orders, cutoff),
+            _q3_probe_fn(lineitem, cutoff))
+
+
+def _q3_group_plan() -> fusion.Plan:
+    """An executor's q3 tail (exchange 2's output -> keyed groupby)."""
+    return fusion.Plan("tpch_q3_group", fusion.GroupBy(
+        fusion.Project(fusion.Scan("joined"), _q3_keyed_fn), (0, 1, 2),
+        ((3, "sum"),), label="groupby"))
+
+
+def _q3_group_step(j: Table):
+    """One executor's q3 group step over its joined rows: (table, group
+    count)."""
+    res = fusion.execute(_q3_group_plan(), {"joined": j})
+    return res.table, res.meta["groupby.num_groups"]
+
+
+def _valid_key_rows(srt: Table) -> Table:
+    """The rows of a collected, sorted result whose key is valid (null
+    keys sort last): the unmatched and padding pseudo-groups dropped."""
+    return trim_table(srt, int(srt.column(0).valid_mask().sum()))
+
+
+def tpch_q3_distributed(customer: Table, orders: Table, lineitem: Table,
+                        mesh, segment: int = 0,
+                        cutoff: int = _Q3_CUTOFF_DAYS,
+                        out_factor: int = 4) -> Table:
+    """Multiple-executor q3, the repartitioned two-exchange plan:
+    exchange 1 co-locates orders and customers by custkey hash, exchange
+    2 the qualifying orders with lineitem by orderkey hash (kernel D once
+    per executor at each join). After exchange 2 every orderkey lives on
+    one executor, so the per-executor groupbys partition the global
+    answer; collect, one sort and the valid-key rows finish."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        any_executor,
+        collect,
+        distributed_join,
+        shard_table,
+    )
+
+    d = mesh.size
+    n_ord, n_li = orders.num_rows, lineitem.num_rows
+    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
+                                    cutoff)
+    so, orv = shard_table(ord_t, mesh, return_row_valid=True)
+    sc, crv = shard_table(cust, mesh, return_row_valid=True)
+    res1 = distributed_join(
+        so, sc, 0, 0, mesh,
+        out_size_per_device=max(1, n_ord // max(d // 2, 1)),
+        left_capacity=max(1, n_ord // d * 2),
+        right_capacity=max(1, customer.num_rows // d * 2),
+        left_row_valid=orv, right_row_valid=crv)
+    if any_executor(mesh, res1.overflowed):
+        raise ValueError("q3 exchange 1 overflowed; raise capacities")
+    del so, sc, orv, crv
+    # oc: [o_custkey, o_orderkey, o_orderdate, o_shippriority, c_custkey]
+    build = [Table([
+        Column(oc.column(1).dtype, oc.column(1).data,
+               oc.column(1).valid_mask() & oc.column(4).valid_mask()),
+        oc.column(2), oc.column(3)]) for oc in res1.table]
+    del res1
+    sp, prv = shard_table(probe, mesh, return_row_valid=True)
+    # inner join: null-key build rows never match, so key validity
+    # doubles as the row mask (no capacity spent on exchange-1 padding)
+    res2 = distributed_join(
+        sp, build, 0, 0, mesh,
+        out_size_per_device=max(1, n_li * out_factor // max(d // 2, 1)),
+        left_capacity=max(1, n_li // d * 2),
+        right_capacity=max(1, build[0].num_rows // d * 2),
+        left_row_valid=prv,
+        right_row_valid=[b.column(0).valid_mask() for b in build])
+    if any_executor(mesh, res2.overflowed):
+        raise ValueError("q3 exchange 2 overflowed; raise capacities")
+    del sp, prv, build
+    joined = res2.table
+    del res2
+    grouped = []
+    for e in range(len(joined)):
+        grouped.append(_q3_group_step(joined[e]))
+        joined[e] = None  # each executor's join output freed once grouped
+    result = collect([g for g, _ in grouped], [n for _, n in grouped], mesh)
+    return _valid_key_rows(sort_table(
+        result, [3, 1], ascending=[False, True], nulls_first=[False, False]))
+
+
+def tpch_q3_planned_distributed(customer: Table, orders: Table,
+                                lineitem: Table, mesh, segment: int = 0,
+                                cutoff: int = _Q3_CUTOFF_DAYS) -> Table:
+    """Multiple-executor planned q3, the broadcast plan the dense-PK
+    declarations unlock: customer and orders replicate to every executor,
+    each runs both clustered-PK lookups on its lineitem shard (no join
+    exchange, no kernel) and partial-aggregates revenue by orderkey; the
+    only exchange is the partial-aggregate shuffle. Same contract as
+    :func:`tpch_q3_distributed`. The replicated orders x customer lookup
+    runs once per distinct device (executors sharing a device share it)."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        any_executor,
+        collect,
+        shard_table,
+        table_to,
+    )
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import hash_shuffle
+
+    cust, ord_t, probe = _q3_inputs(customer, orders, lineitem, segment,
+                                    cutoff)
+    sp, prv = shard_table(probe, mesh, return_row_valid=True)
+    n_cust, n_ord = customer.num_rows, orders.num_rows
+    builds = {}
+    partials, reals, viols = [], [], []
+    for local, rv in zip(sp, prv):
+        dev = local.columns[0].device
+        if dev not in builds:
+            j1 = dense_pk_join(table_to(ord_t, dev), table_to(cust, dev),
+                               0, 0, 1, n_cust, clustered=True)
+            builds[dev] = (Table([
+                _null_where(j1.table.column(1), ~j1.matched),
+                j1.table.column(2), j1.table.column(3)]), j1.pk_violation)
+        build2, viol1 = builds[dev]
+        j2 = dense_pk_join(local, build2, 0, 0, 1, n_ord, clustered=True)
+        jt = j2.table
+        matched = j2.matched & rv
+        keyed = Table([
+            _null_where(jt.column(0), ~matched), jt.column(3), jt.column(4),
+            Column(jt.column(1).dtype, jt.column(1).data,
+                   jt.column(1).valid_mask() & matched)])
+        local_n = keyed.num_rows
+        partial = groupby_aggregate(keyed, [0, 1, 2], [(3, "sum")],
+                                    max_groups=local_n)
+        partials.append(partial.table)
+        reals.append(torch.arange(local_n, device=dev) < partial.num_groups)
+        viols.append(viol1 | j2.pk_violation)
+    del builds
+    # a sender holds <= local_n real partial rows in all, so the lane
+    # capacity local_n can never overflow
+    shuffled = hash_shuffle(mesh, partials, [0], capacity=local_n,
+                            row_valid=reals)
+    del partials
+    merged = [groupby_aggregate(sh.table, [0, 1, 2], [(3, "sum")])
+              for sh in shuffled]
+    if any_executor(mesh, viols):
+        raise ValueError(
+            "dense-PK declaration violated — re-plan with "
+            "tpch_q3_distributed")
+    result = collect([m.table for m in merged],
+                     [m.num_groups for m in merged], mesh)
+    return _valid_key_rows(sort_table(
+        result, [3, 1], ascending=[False, True], nulls_first=[False, False]))
+
+
+def tpch_q5_distributed(customer: Table, orders: Table, lineitem: Table,
+                        supplier: Table, nation: Table, mesh,
+                        region_of_interest: int = 1,
+                        year_start: int = _Q5_YEAR_START,
+                        year_end: int = _Q5_YEAR_END) -> Q5Result:
+    """Multiple-executor q5 with ZERO shuffles: lineitem shards row-wise,
+    the four dimension tables replicate, each executor runs the
+    dense-PK lookups and the 25-slot bounded nation groupby on its shard
+    (kernel A once per executor on the card), and the global merge is
+    one sum over the 26-slot partials. The result is replicated; the
+    schema is ``tpch_q5``'s."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        shard_table,
+        table_to,
+    )
+
+    sl, rv = shard_table(lineitem, mesh, return_row_valid=True)
+    gs, viols = [], []
+    for local, lrv in zip(sl, rv):
+        dev = local.columns[0].device
+        keyed, viol = _q5_keyed(
+            table_to(customer, dev), table_to(orders, dev), local,
+            table_to(supplier, dev), table_to(nation, dev),
+            region_of_interest, year_start, year_end)
+        gs.append(plan_groupby(keyed, [0], _Q5_AGGS, _q5_domains(),
+                               row_valid=lrv))
+        viols.append(viol)
+    if any(g.lowered != "bounded" for g in gs):
+        raise AssertionError("q5's nation domain must lower to the "
+                             "bounded plan")
+
+    def flag(xs):
+        return mesh.psum([x.to(torch.int32).reshape(-1) for x in xs])[0] > 0
+
+    sums = mesh.psum([torch.where(g.table.column(1).valid_mask(),
+                                  g.table.column(1).data, 0) for g in gs])[0]
+    valid_g = flag([g.table.column(1).valid_mask() for g in gs])
+    viol = flag(viols)[0]
+    miss = flag([g.domain_miss for g in gs])[0]
+    keys = gs[0].table.column(0).data
+    lens, mat = static_strings(
+        list(_Q5_NATIONS) + [None] * (keys.shape[0] - len(_Q5_NATIONS)),
+        keys.device)
+    out = Table([Column(t.INT64, keys, valid_g),
+                 Column(t.decimal64(-4), sums, valid_g),
+                 Column(t.STRING, lens, valid_g, chars=mat)])
+    srt = sort_table(out, [1], ascending=[False], nulls_first=[False])
+    return Q5Result(srt, srt.column(0).valid_mask(), viol, miss)
+
+
+def tpch_q12_distributed(orders: Table, lineitem: Table, mesh,
+                         modes: tuple = ("MAIL", "SHIP"),
+                         year_start: int = _Q12_YEAR_START,
+                         year_end: int = _Q12_YEAR_END) -> Table:
+    """Multiple-executor q12: the repartitioned orderkey join (kernel D
+    once per executor), then the two-phase aggregation — per-executor
+    partial groupby on the shipmode domain, partial rows shuffled by key
+    hash, merged, collected and shipmode-sorted."""
+    from spark_rapids_jni_tpu_torch.parallel.distributed import (
+        any_executor,
+        collect,
+        distributed_join,
+        shard_table,
+    )
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import hash_shuffle
+
+    if len(modes) + 1 > _Q12_GROUP_BUDGET:
+        raise ValueError(
+            f"q12 mode domain {len(modes)} exceeds the partial-groupby "
+            f"budget {_Q12_GROUP_BUDGET}")
+    # WHERE -> nulled join key (the single-device plan's predicate)
+    mode_c = pad_strings(lineitem.column(L12_SHIPMODE))
+    keep = _q12_keep(lineitem, mode_c, modes, year_start, year_end)
+    probe = Table([_null_where(lineitem.column(L12_ORDERKEY), ~keep),
+                   mode_c])
+    build = Table([orders.column(O12_ORDERKEY),
+                   pad_strings(orders.column(O12_ORDERPRIORITY))])
+    sl, lrv = shard_table(probe, mesh, return_row_valid=True)
+    sr, rrv = shard_table(build, mesh, return_row_valid=True)
+    nl = probe.num_rows
+    d = mesh.size
+    # per-executor capacities (the q3 sizing): 2x skew headroom; overflow
+    # is checked below and is the caller's retry signal
+    res = distributed_join(
+        sl, sr, [0], [0], mesh,
+        out_size_per_device=max(1, nl // d * 2),
+        left_capacity=max(1, nl // d * 2),
+        right_capacity=max(1, orders.num_rows // d * 2),
+        left_row_valid=lrv, right_row_valid=rrv)
+    if any_executor(mesh, res.overflowed):
+        raise ValueError(
+            "q12 join exchange overflowed its per-device capacity "
+            "(key skew); retry with a larger capacity factor")
+    del sl, sr, lrv, rrv
+    partials, reals = [], []
+    for j in res.table:
+        # j: [l_orderkey, l_shipmode, o_orderkey, o_orderpriority]
+        matched = j.column(2).valid_mask()
+        high, low = _q12_priority_lanes(j.column(3), matched)
+        mode_j = j.column(1)
+        keyed = Table([
+            Column(mode_j.dtype, torch.where(matched, mode_j.data, 0),
+                   matched,
+                   chars=mode_j.chars.masked_fill(~matched[:, None], 0)),
+            high, low])
+        budget = min(_Q12_GROUP_BUDGET, keyed.num_rows)
+        partial = groupby_aggregate(keyed, [0], _Q12_AGGS,
+                                    max_groups=budget)
+        partials.append(partial.table)
+        reals.append(torch.arange(budget, device=matched.device)
+                     < partial.num_groups)
+    del res
+    shuffled = hash_shuffle(mesh, partials, [0], capacity=budget,
+                            row_valid=reals)
+    merged = [groupby_aggregate(sh.table, [0], _Q12_AGGS)
+              for sh in shuffled]
+    result = collect([m.table for m in merged],
+                     [m.num_groups for m in merged], mesh)
+    return _valid_key_rows(sort_table(result, [0], nulls_first=[False]))
+
+
 # ---- TPC-H q13 (customer distribution), the single-pass reference --------
 
 def tpch_q13_reference(orders: Table) -> Table:

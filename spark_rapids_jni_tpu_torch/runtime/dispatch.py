@@ -11,20 +11,23 @@ compilation cache, no ``call``/``rowwise`` wrapper. An op runs its
 function directly, which is the reference's inline path (``_inline``),
 bit-identical to its bucketed one by contract. Capturing a region as a
 CUDA graph (or ``torch.compile`` of it) would be this layer's job; no
-caller asks for it yet. ``sharded_call`` waits for ROADMAP.md Queue 1
-entry 11 (multiple GPUs).
+caller asks for it yet. ``sharded_call`` runs its closure directly: the
+reference memoizes a compiled ``shard_map`` executable there, and the
+port's distributed steps (``parallel/``) are bulk-synchronous Python over
+the executors, with nothing to compile.
 
 What stays is the bucket schedule as pure arithmetic (``bucket_for``,
 ``quantize_capacity``) with the reference's defaults (``dispatch.*``
-options on, 16 rows, waste 1.0): the shuffle and exchange capacities of
-Queue 1 entries 11-12 are sized by ``quantize_capacity``, and those
-capacities change outputs.
+options on, 16 rows, waste 1.0): the shuffle's capacities
+(``parallel/shuffle.py``) and the exchange's (ROADMAP.md Queue 1 entry
+12b) are sized by ``quantize_capacity``, and those capacities change
+outputs.
 """
 
 from __future__ import annotations
 
 __all__ = ["BUCKET_BASE", "MAX_WASTE_FRAC", "bucket_for",
-           "quantize_capacity"]
+           "quantize_capacity", "sharded_call"]
 
 BUCKET_BASE = 16       # the reference's dispatch.bucket_base default
 MAX_WASTE_FRAC = 1.0   # the reference's dispatch.max_waste_frac default
@@ -57,3 +60,10 @@ def quantize_capacity(capacity: int, base: int = BUCKET_BASE,
     per-device slot count): growing a capacity is always safe, extra
     slots are padding."""
     return bucket_for(int(capacity), base, max_waste_frac)
+
+
+def sharded_call(op: str, build, args: tuple, statics: tuple = ()):
+    """``build()(*args)``: the reference's signature, whose executable
+    memoization keys on ``op`` and ``statics``; the port has no
+    executable to cache, so the closure runs directly."""
+    return build()(*args)

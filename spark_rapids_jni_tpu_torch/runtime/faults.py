@@ -15,9 +15,10 @@ random chaos), which may also corrupt payloads through a
 and ``faults.injected.<seam>``; mutations ``faults.corrupted`` and
 ``faults.corrupted.<seam>``.
 
-The seams are the reference's that the port fires; the dispatch,
-transport, exchange and fleet seams come with ROADMAP.md Queue 1
-entries 11 and 12b.
+The seams are the reference's that the port fires. The dispatch seams
+(``dispatch.*``) have no counterpart: the port compiles nothing at
+dispatch. ``dcn.transport`` and the exchange and fleet seams come with
+ROADMAP.md Queue 1 entry 12b.
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ SEAMS: Tuple[str, ...] = (
     "pipeline.transfer",
     "pipeline.compute",
     "pipeline.merge",
+    # the shuffle's exchange (parallel/distributed.py)
+    "shuffle.transport",
     # a plan's walk (runtime/fusion.py)
     "fusion.region",
     # the serving runtime (runtime/server.py)

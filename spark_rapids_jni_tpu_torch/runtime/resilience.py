@@ -20,11 +20,13 @@ Where the port differs from the reference:
   ``RuntimeError``, not a ``MemoryError``) classifies as
   :class:`ResourceExhausted`, as the reference classifies XLA's HBM
   exhaustion and the limiter's ``MemoryLimitExceeded``.
-- The transport and fleet seams (``shuffle.transport``,
-  ``dcn.transport``, ``fleet.*``) and ``classify_worker_exit`` come with
-  ROADMAP.md Queue 1 entries 11-12; until then a socket error is
-  foreign (fatal, not retried) and a :class:`CorruptDataError` is never
-  transient, as the reference treats both away from those seams.
+- The transport seam is ``shuffle.transport`` (``parallel/``): there a
+  socket error is a :class:`TransportError` and is retried, and a
+  :class:`CorruptDataError` is refetchable, as in the reference. The
+  ``dcn.transport`` and fleet seams (``fleet.*``) and
+  ``classify_worker_exit`` come with ROADMAP.md Queue 1 entry 12b; away
+  from the transport seam a socket error is foreign (fatal, not
+  retried) and a :class:`CorruptDataError` is never transient.
 
 Every retry, recovery, escalation and dead end is recorded through
 ``telemetry.record_resilience`` with its attempt and ladder rung.
@@ -111,7 +113,7 @@ class ResourceExhausted(ResilienceError):
 
 
 class TransportError(ResilienceError):
-    """Transport loss between processes or hosts (entries 11-12)."""
+    """Transport loss between executors, processes or hosts."""
 
     transient = True
 
@@ -209,6 +211,9 @@ class CancelToken:
 # Message markers of transient device conditions (XLA's status names in
 # the reference; kept for errors that carry them).
 _TRANSIENT_MARKERS = ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "DEADLINE_EXCEEDED")
+# Transport seams: a socket-layer failure there is a TransportError and
+# retry is a protocol concern (``dcn.transport`` comes with entry 12b).
+_TRANSPORT_SEAMS = ("shuffle.transport",)
 
 
 def classify(exc: BaseException, *, seam: str = "") -> type:
@@ -218,25 +223,36 @@ def classify(exc: BaseException, *, seam: str = "") -> type:
     limiter's ``MemoryLimitExceeded``) and the caching allocator's
     ``torch.OutOfMemoryError`` are :class:`ResourceExhausted`; a message
     with a transient status marker is :class:`TransientDeviceError`;
+    a socket-layer error at a transport seam is :class:`TransportError`;
     anything else is :class:`FatalExecutionError`. The exception itself
     is never converted: a caller that gives up re-raises the original.
-    ``seam`` is accepted for the reference's signature; the seams that
-    read it come with entries 11-12."""
+    The fleet seams that also read ``seam`` come with entry 12b."""
     if isinstance(exc, ResilienceError):
         return type(exc)
     if isinstance(exc, (MemoryError, torch.OutOfMemoryError)):
         return ResourceExhausted
+    if seam in _TRANSPORT_SEAMS and isinstance(
+            exc, (ConnectionError, TimeoutError, OSError)):
+        return TransportError
     if any(marker in str(exc) for marker in _TRANSIENT_MARKERS):
         return TransientDeviceError
     return FatalExecutionError
 
 
 def is_transient(exc: BaseException, *, seam: str = "") -> bool:
-    """Retry eligibility: only taxonomy exceptions whose class is
-    transient. A foreign exception that merely looks transient is not
-    retried, so resilience changes no propagation it does not own."""
+    """Retry eligibility: taxonomy exceptions whose class is transient,
+    and foreign socket errors at a transport seam, where retry is a
+    protocol concern. A corrupt frame is refetchable at a transport seam
+    (the peer still holds a pristine copy) and nowhere else. A foreign
+    exception that merely looks transient is not retried, so resilience
+    changes no propagation it does not own."""
+    if isinstance(exc, CorruptDataError):
+        return seam in _TRANSPORT_SEAMS
     if isinstance(exc, ResilienceError):
         return exc.transient
+    if seam in _TRANSPORT_SEAMS and isinstance(
+            exc, (ConnectionError, TimeoutError)):
+        return True
     return False
 
 

@@ -3,8 +3,9 @@
 ``reset_option`` names and the same precedence: a ``set_option`` value,
 then the environment variable ``SPARK_RAPIDS_TPU_<OPTION>`` (dots as
 underscores, upper case), then the default). Only the options that
-ported modules read are here; the fleet's, the cluster's and the
-exchange's wait for ROADMAP.md Queue 1 entries 11 and 12b.
+ported modules read are here (the multi-executor layer, ``parallel/``,
+reads none of its own); the fleet's, the cluster's and the exchange's
+wait for ROADMAP.md Queue 1 entry 12b.
 
 - ``log.level``: the level of the port's loggers (``utils/log.py``).
 - ``telemetry.*``: ``enabled`` turns on the JSONL sink, the span trees

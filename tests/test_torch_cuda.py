@@ -1839,3 +1839,102 @@ def test_server_stages_a_host_chunk_binding_as_directly(dev):
         assert res.table.equals(fusion.execute(plan,
                                                {"lineitem": direct}).table)
     assert srv.limiter.used == 0
+
+
+# ---- the multiple-executor layer (parallel/) ------------------------------
+
+
+def _mesh_table(n: int, seed: int) -> Table:
+    """int64 keys with nulls, int32 values, a STRING column (CPU)."""
+    rng = np.random.default_rng(seed)
+    words = ["", "a", "executor", "mesh", "SF10"]
+    strings = [words[i] for i in rng.integers(0, len(words), n)]
+    offsets, chars, svalid = arrow_strings(strings, rng.random(n) > 0.2)
+    return table_from_numpy([
+        (int(t.TypeId.INT64), 0, rng.integers(0, 53, n).astype(np.int64),
+         rng.random(n) > 0.1),
+        (int(t.TypeId.INT32), 0, rng.integers(-99, 99, n).astype(np.int32),
+         None),
+        (int(t.TypeId.STRING), 0, (offsets, chars), svalid),
+    ], device="cpu")
+
+
+def _same_tables_cpu(got: Table, want: Table) -> None:
+    from spark_rapids_jni_tpu_torch.parallel.distributed import table_to
+
+    assert table_to(got, "cpu").equals(want)
+
+
+@pytest.mark.parametrize("n", [1, 257, 2049])
+def test_four_executor_shuffle_on_the_card_matches_cpu(dev, n):
+    from spark_rapids_jni_tpu_torch.parallel import executor_mesh, hash_shuffle
+    from spark_rapids_jni_tpu_torch.parallel import distributed as pdist
+
+    tab = _mesh_table(n, n)
+    out = {}
+    for where, devices in (("cpu", ["cpu"] * 4), ("card", [dev] * 4)):
+        mesh = executor_mesh(4, devices)
+        shards, rv = pdist.shard_table(pdist.table_to(tab, devices[0]),
+                                       mesh, return_row_valid=True)
+        out[where] = hash_shuffle(mesh, shards, [0, 2], row_valid=rv)
+    for g, w in zip(out["card"], out["cpu"]):
+        _same_tables_cpu(g.table, w.table)
+        assert torch.equal(g.row_valid.cpu(), w.row_valid)
+        assert bool(g.overflowed) == bool(w.overflowed)
+
+
+def test_distributed_join_launches_probe_once_per_executor(dev):
+    from spark_rapids_jni_tpu_torch.parallel import executor_mesh
+    from spark_rapids_jni_tpu_torch.parallel import distributed as pdist
+
+    left, right = _mesh_table(2049, 5), _mesh_table(300, 6)
+    out = {}
+    for where, devices in (("cpu", ["cpu"] * 4), ("card", [dev] * 4)):
+        mesh = executor_mesh(4, devices)
+        ls, lrv = pdist.shard_table(pdist.table_to(left, devices[0]), mesh,
+                                    return_row_valid=True)
+        rs, rrv = pdist.shard_table(pdist.table_to(right, devices[0]), mesh,
+                                    return_row_valid=True)
+        kernels.reset_counts()
+        out[where] = pdist.distributed_join(
+            ls, rs, 0, 0, mesh, 4096, how="left", left_row_valid=lrv,
+            right_row_valid=rrv)
+        torch.cuda.synchronize()
+        assert kernels.launches(khp.NAME) == (4 if where == "card" else 0)
+    assert not kernels.fallbacks()
+    for g, w in zip(out["card"].table, out["cpu"].table):
+        _same_tables_cpu(g, w)
+    assert [int(x) for x in out["card"].total] == [
+        int(x) for x in out["cpu"].total]
+
+
+def test_one_rank_nccl_collectives_equal_local(dev, tmp_path):
+    import datetime
+
+    import torch.distributed as tdist
+
+    from spark_rapids_jni_tpu_torch.parallel import executor_mesh
+
+    tdist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        nccl = executor_mesh(devices=[dev], group=tdist.group.WORLD)
+        local = executor_mesh(1, [dev])
+        assert nccl.executors == (0,)
+        rng = np.random.default_rng(3)
+        x = torch.from_numpy(rng.integers(-9, 9, (64, 3))).to(dev)
+        mask = torch.from_numpy(rng.random(64) > 0.5).to(dev)
+        u = torch.from_numpy(rng.integers(0, 2**63, 16, dtype=np.int64)
+                             ).to(dev).view(torch.uint64)
+        f = torch.from_numpy(rng.standard_normal(16)).to(dev)
+        for a, b in ((nccl.all_to_all([x]), local.all_to_all([x])),
+                     (nccl.all_to_all([mask]), local.all_to_all([mask])),
+                     (nccl.all_gather([x]), local.all_gather([x])),
+                     (nccl.psum([x]), local.psum([x])),
+                     (nccl.pmin([x]), local.pmin([x])),
+                     (nccl.pmax([u]), local.pmax([u])),
+                     (nccl.pmax([f]), local.pmax([f]))):
+            assert a[0].dtype == b[0].dtype and torch.equal(a[0], b[0])
+    finally:
+        tdist.destroy_process_group()

@@ -96,6 +96,12 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.runtime.outofcore, "
             "spark_rapids_jni_tpu_torch.runtime.pipeline, "
             "spark_rapids_jni_tpu_torch.runtime.degrade, "
+            "spark_rapids_jni_tpu_torch.parallel, "
+            "spark_rapids_jni_tpu_torch.parallel.mesh, "
+            "spark_rapids_jni_tpu_torch.parallel.wire, "
+            "spark_rapids_jni_tpu_torch.parallel.shuffle, "
+            "spark_rapids_jni_tpu_torch.parallel.distributed, "
+            "spark_rapids_jni_tpu_torch.parallel.sort, "
             "spark_rapids_jni_tpu_torch.errors, "
             "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

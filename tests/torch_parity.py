@@ -6,6 +6,7 @@ tests, which run where JAX is absent, can import this module."""
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 
 import numpy as np
@@ -49,6 +50,27 @@ def jax_table(columns):
         return JColumn(dtype, jnp.asarray(data), validity)
 
     return JTable([column(*c) for c in columns])
+
+
+@contextlib.contextmanager
+def quick_reference_compiles():
+    """Compile the JAX package's programs at XLA's lowest optimisation
+    level inside the block, and drop every compiled program at its end,
+    so that nothing compiled here runs in a later test module. For tests
+    whose reference compiles some hundreds of small programs (eager
+    ``shard_map`` steps), each run once on a few hundred rows: there the
+    compiles take most of the time. The values are the same; the tests
+    that use this hold them to the port exactly, or float lanes to their
+    stated tolerance."""
+    import jax
+
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
+        jax.clear_caches()
 
 
 def traced_reference(fn, *args):

@@ -135,7 +135,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its byte bound, and the phase's peak device memory (under 40 GiB);
 14. the rest of the general groupby, the planner's general lowering and
    month buckets, the DECIMAL128 reductions and the table operations
-   over half of SF10 lineitem (29,993,026 rows with q5's l_orderkey and
+   over a quarter of SF10 lineitem (14,996,513 rows with q5's l_orderkey and
    l_suppkey, seeded nulls in l_quantity and the flags, a FLOAT64 price
    with NaN rows, Spark's xxhash64 of l_orderkey as UINT64, and
    l_extendedprice x 10^20 as DECIMAL128 with negative rows), each
@@ -193,7 +193,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the process's peak host memory; then the embedded-interpreter
    self test (a C program that owns ``Py_Initialize``) on the card
    where the interpreter has a shared libpython;
-17. the remaining operators over a quarter of SF10 lineitem (14,996,513
+17. the remaining operators over an eighth of SF10 lineitem (7,498,256
    rows of ``tpch.lineitem_groupby_table``: the q1 columns with seeded nulls,
    q5's l_orderkey and l_suppkey, a FLOAT64 price with NaN rows, a
    DECIMAL128 column) and bench.py's log lines, none of which launches
@@ -224,7 +224,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    oracle, none launching A-D, each with its seconds and rows/s on the
    host clock, the pipeline's counters and the limiter's peak (within
    the budget, nothing left reserved), and the card's busy share from a
-   profiled run just before each fault-free one; q3's SF10 lineitem written the
+   profiled run just before the 8-thread one; q3's SF10 lineitem written the
    same way and ``tpch_q3_outofcore`` with customer and orders resident
    and the partials under a 16 MiB spill budget, once on the pinned host
    tier, once through the codec (and zstd where installed), once on a
@@ -274,7 +274,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    executor) and sort, each equal to its single-device counterpart;
    an overflowing shuffle classified ``CapacityOverflow`` and the
    retry ladder's grown capacity giving the same groups;
-21. one ``{"kernels": [...]}`` line, the card line, and the final
+21. across processes: SF10 orders through the DCN wire
+   (``serialize_table``/``deserialize_table`` with the codec on and off,
+   then a sealed loopback ``SliceLink``), each equal to the input; a
+   ``QueryCluster`` of two host workers on the card (no supervisor memo,
+   no worker result cache, so repeats run) with SF10 catalog_sales and
+   orders registered: ``tpcds_q72_cluster`` with the runtime filter off
+   and on, and q13's exchange direct, routed and as one plan, each
+   bit-identical to the single-process result on the card (q13 also to
+   its numpy oracle as a set of rows), D launched by the workers exactly
+   3 a host a q72 run and never for q13, with seconds (median of 3),
+   registration seconds, link and direct-flight bytes and the card's
+   used bytes across processes; h0 held before its q72 partial and
+   SIGKILLed: the shard re-homed, the result bit-identical, a classified
+   host death and a restart, no leaked bytes, the dead host's memory
+   given back; a ``QueryFleet`` of two replicas serving planned q1 and
+   q6 over a quarter of SF10 lineitem to two sessions, bit-identical to
+   ``fusion.execute``, the repeats memo-served, A launched once across
+   the workers; ``exchange_local``, ``partitioned_groupby``,
+   ``partitioned_join`` (D once a partition) and the one-plan q13 in
+   this process, each equal to its single-device counterpart;
+22. one ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
@@ -293,12 +313,15 @@ import torch
 
 SF10_ROWS = 59_986_052     # TPC-H SF10 lineitem
 ROWS = SF10_ROWS
-# phase 14 runs over half of SF10 lineitem (its host oracles are most of
-# its time), which keeps the whole script near 700 s
-GROUPBY_ROWS = SF10_ROWS // 2
-# phase 17 runs over a quarter of SF10 lineitem (half until the serving
-# phase came), for the same reason
-OPERATORS_ROWS = SF10_ROWS // 4
+# phase 14 runs over a quarter of SF10 lineitem (half until phase 21
+# came; its host oracles are most of its time), which keeps the whole
+# script under 800 s
+GROUPBY_ROWS = SF10_ROWS // 4
+# phase 17 runs over an eighth of SF10 lineitem (a quarter until phase 21
+# came, half until the serving phase), for the same reason
+OPERATORS_ROWS = SF10_ROWS // 8
+# phases 20 and 21 run their operators over a quarter of SF10 lineitem
+EXECUTOR_ROWS = SF10_ROWS // 4
 Q3_CUSTOMERS = 1_500_000   # TPC-H SF10 customer
 Q3_ORDERS = 15_000_000     # TPC-H SF10 orders
 DS_STORE_SALES = 28_800_991    # TPC-DS SF10 store_sales
@@ -2838,7 +2861,7 @@ def _rollup_oracle(host) -> dict:
 def groupby_phase(dev) -> tuple:
     """Phase 14: the rest of the general groupby, the planner's general
     lowering and month buckets, the DECIMAL128 reductions and the table
-    operations over half of SF10 lineitem (``GROUPBY_ROWS``), each held
+    operations over a quarter of SF10 lineitem (``GROUPBY_ROWS``), each held
     to a numpy or Python-int oracle (the table:
     ``tpch.lineitem_groupby_table``): (a) the planned monthly rollup,
     bounded, through kernel A (one launch, no fallback), with A at its
@@ -4338,7 +4361,7 @@ def _window_oracle(host, part_key, bits):
 
 
 def _window_part(tab, host, dev, out) -> dict:
-    """The supplier window (100,000 partitions of ~600 rows) and the
+    """The supplier window (100,000 partitions of ~75 rows) and the
     order window (15,000,000 partitions of 1-18 rows) against numpy; the
     float functions bit-equal to the CPU's over a 1,000,000-row slice.
     The oracles live in sort order: each result is gathered into it on
@@ -4896,8 +4919,8 @@ def _struct_part(tab, host, dev, out) -> None:
 
 
 def operators_phase(dev) -> dict:
-    """Phase 17: the remaining operators over a quarter of SF10 lineitem
-    (``OPERATORS_ROWS``, 14,996,513 rows of
+    """Phase 17: the remaining operators over an eighth of SF10 lineitem
+    (``OPERATORS_ROWS``, 7,498,256 rows of
     ``tpch.lineitem_groupby_table``, the SF10 widths): elementwise,
     window, lists and STRUCT, each against numpy, none launching a
     kernel of A-D."""
@@ -5081,8 +5104,10 @@ def _ooc_q1_part(path, q1_oracle, q1_general) -> dict:
                         else None, prefetch_depth=depth,
                         pipeline=depth > 0, limiter=limiter)
 
+            # one profiled run: the 8-thread one's (the others' were cut
+            # for the script's time when phase 21 came)
             res, row = _ooc_run(f"out-of-core q1 ({what})", run, limiter,
-                                profiled=not recovery)
+                                profiled=what.endswith("8 decode threads"))
             check(f"out-of-core q1 ({what})", res)
             if recovery:
                 kind = "integrity" if "corrupt" in inject else "resilience"
@@ -5186,7 +5211,8 @@ def _ooc_q3_part(dev, path, q3_oracle) -> dict:
                         path, customer, orders, budget_bytes=OOC_BUDGET,
                         chunk_read_limit=CHUNK_READ_LIMIT, pipeline=True,
                         prefetch_depth=8, spill_budget_bytes=OOC_SPILL_BUDGET,
-                        limiter=limiter, **kw), limiter)
+                        limiter=limiter, **kw), limiter,
+                    profiled=what == "host tier")
             finally:
                 for k in options:
                     config.reset_option(k)
@@ -6128,7 +6154,7 @@ def _distributed_operators(mesh, dev, rec: _PlanRecorder) -> dict:
     from spark_rapids_jni_tpu_torch.runtime import dispatch, resilience
     from spark_rapids_jni_tpu_torch.utils.timing import median_ms
 
-    n = OPERATORS_ROWS
+    n = EXECUTOR_ROWS
     full, _ = tpch.lineitem_groupby_table(n, Q3_ORDERS, SUPPLIERS)
     c = full.column
     # [l_orderkey, l_suppkey, l_shipdate, l_extendedprice, price FLOAT64,
@@ -6357,6 +6383,531 @@ def multi_executor_phase(dev) -> tuple:
     return rec.launches, out
 
 
+# ---- phase 21: across processes (the DCN wire, QueryCluster, QueryFleet,
+# the exchange) --------------------------------------------------------------
+
+PROC_BOOT_S = 180.0  # seconds a fleet or cluster may take to boot
+PROC_WAIT_S = 600.0  # seconds a query across processes may take
+PROC_PARTS = 4       # destinations of the local exchange's operators
+HOSTS = ("h0", "h1")      # the cluster's workers
+REPLICAS = ("r0", "r1")   # the fleet's workers
+KILLED_FREES = 256 << 20  # bytes a killed worker's exit frees at least
+# each worker's QueryServer budget (server.hbm_budget_bytes, as phase 19's
+# server): the default 1 GiB refuses an SF10 q72 partial (~1.9 GB)
+PROC_WORKER_ENV = {"SPARK_RAPIDS_TPU_SERVER_HBM_BUDGET_BYTES":
+                   str(SERVE_BUDGET)}
+
+
+def _card_used() -> int:
+    """Bytes in use on card 0 by every process (``mem_get_info``)."""
+    free, total = torch.cuda.mem_get_info(0)
+    return int(total - free)
+
+
+def _worker_launches(fleet_or_cluster, workers) -> dict:
+    """Each worker's kernel launches since its boot, from a report every
+    one of ``workers`` (and no other) sent after this call:
+    {worker: {"A": n, "D": n}}."""
+    from spark_rapids_jni_tpu_torch.ops.kernels import (
+        groupby_accumulate as kga,
+        hash_probe as khp,
+    )
+
+    loads = fleet_or_cluster.fresh_loads()
+    require(set(loads) == set(workers),
+            f"launch reports from {sorted(loads)}, not {sorted(workers)}")
+    return {rid: {"A": int(ld.get("launches", {}).get(kga.NAME, 0)),
+                  "D": int(ld.get("launches", {}).get(khp.NAME, 0))}
+            for rid, ld in loads.items()}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    require(set(before) == set(after),
+            f"launch reports from {sorted(before)}, then {sorted(after)}")
+    return {rid: {k: after[rid][k] - before[rid][k] for k in ("A", "D")}
+            for rid in after}
+
+
+def _wire_part(dev) -> dict:
+    """SF10 orders through ``serialize_table`` / ``deserialize_table``
+    with the codec on and off, then over a loopback ``SliceLink``; each
+    result equal to the input."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.parallel import dcn
+    from spark_rapids_jni_tpu_torch.runtime import compress
+    from spark_rapids_jni_tpu_torch.runtime.memory import table_nbytes
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    torch.cuda.synchronize()
+    raw = table_nbytes(orders)
+    zstd = compress.zstd_available()
+    # without zstandard the legacy framing's level must be 0 (raw)
+    level = 3 if zstd else 0
+    out = {"rows": orders.num_rows, "raw_bytes": raw, "zstd": zstd}
+    try:
+        for codec in (True, False):
+            config.set_option("compress.wire", codec)
+            t0 = time.perf_counter()
+            blob = dcn.serialize_table(orders, compress_level=level)
+            ser = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = dcn.deserialize_table(blob, device=dev)
+            torch.cuda.synchronize()
+            de = time.perf_counter() - t0
+            require(back.equals(orders), f"wire round trip (codec {codec})")
+            del back
+            name = ("codec frames (flag 2)" + ("" if zstd else
+                                               ", no zstd stage")
+                    if codec else ("whole-buffer zstd (flag 1)" if zstd
+                                   else "raw buffers (flag 0)"))
+            out["codec" if codec else "plain"] = row = {
+                "framing": name, "wire_bytes": len(blob),
+                "serialize_s": ser, "deserialize_s": de,
+                "serialize_gb_s": raw / ser / 1e9,
+                "deserialize_gb_s": raw / de / 1e9}
+            log(f"wire, {name}: {raw} bytes -> {len(blob)} on the wire; "
+                f"serialize {ser:.3f} s ({row['serialize_gb_s']:.3f} GB/s), "
+                f"deserialize onto the card {de:.3f} s "
+                f"({row['deserialize_gb_s']:.3f} GB/s); equal")
+            del blob
+    finally:
+        config.reset_option("compress.wire")
+    srv = dcn.SliceServer()
+    got, errors = {}, []
+
+    def receive():
+        try:
+            link = srv.accept_link(timeout=PROC_WAIT_S, device=dev)
+            try:
+                got["t"] = link.recv_table()
+            finally:
+                link.close()
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+
+    th = threading.Thread(target=receive)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        link = dcn.SliceLink.connect(srv.port, retries=50, delay_s=0.05,
+                                     device=dev)
+        try:
+            sent = link.send_table(orders, compress_level=level)
+        finally:
+            link.close()
+        th.join(PROC_WAIT_S)
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    link_s = time.perf_counter() - t0
+    require(not errors and not th.is_alive(), f"SliceLink: {errors}")
+    require(got["t"].equals(orders), "SliceLink loopback changed the table")
+    out["slice_link"] = {"frame_bytes": sent, "s": link_s,
+                         "gb_s": raw / link_s / 1e9}
+    log(f"wire, loopback SliceLink (sealed, acknowledged): {sent} bytes "
+        f"in {link_s:.3f} s ({raw / link_s / 1e9:.3f} GB/s of table); "
+        "equal")
+    return out
+
+
+def _q72_want(q72):
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+
+    r = tpcds.tpcds_q72(*q72)
+    return tpcds._compact_valid_keys(trim_table(r.table, int(r.num_groups)),
+                                     2, [2, 0], [False, True])
+
+
+def _timed_across(name: str, c, fn, want_fp, want_d: int, out: dict) -> None:
+    """Three runs of ``fn``, the first checked (bit-identical to
+    ``want_fp``, each worker's launches of D read from the workers around
+    it: exactly ``want_d`` on each host); their median, the cluster's
+    link and exchange bytes of the first, the card's used bytes across
+    processes."""
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.runtime import resultcache
+
+    before = _worker_launches(c, HOSTS)
+    link0 = telemetry.counter("fleet.link_bytes")
+    direct0 = telemetry.counter("exchange.bytes_direct")
+    t0 = time.perf_counter()
+    res = fn()
+    first = time.perf_counter() - t0
+    got = _launch_delta(before, _worker_launches(c, HOSTS))
+    require(resultcache.table_fingerprint(res) == want_fp,
+            f"{name}: not bit-identical to the single-process result")
+    require(all(n == {"A": 0, "D": want_d} for n in got.values()),
+            f"{name}: workers launched {got}, not D {want_d} each")
+    row = {"worker_launches": got,
+           "link_bytes": telemetry.counter("fleet.link_bytes") - link0,
+           "bytes_direct": telemetry.counter("exchange.bytes_direct")
+           - direct0,
+           "card_used_gib": _card_used() / 2**30}
+    times = [first]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    row["s"] = statistics.median(times)
+    out[name] = row
+    log(f"{name}: {row['s']:.3f} s (median of 3: "
+        + ", ".join(f"{x:.3f}" for x in times)
+        + f"), link {row['link_bytes']} bytes, exchange direct "
+        f"{row['bytes_direct']} bytes, worker launches {got}, card used "
+        f"{row['card_used_gib']:.2f} GiB across processes; bit-identical")
+
+
+def _failover_drill(c, q72, want_fp, hold, out: dict) -> None:
+    """h0 held before it serves its q72 partial and SIGKILLed: the shard
+    re-homed, the result bit-identical, a classified host death and a
+    restart, no leaked bytes, and the card's memory given back."""
+    import signal
+    import threading
+
+    from spark_rapids_jni_tpu_torch import telemetry
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.parallel import dcn
+    from spark_rapids_jni_tpu_torch.runtime import resultcache
+    from spark_rapids_jni_tpu_torch.runtime.memory import table_nbytes
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    shard0 = table_nbytes(dcn.partition_for_slices(q72[0], [0], 2)[0])
+    deaths0 = len(telemetry.events("fleet"))
+    # a slow restart: the dead host's memory is read before its
+    # successor boots
+    config.set_option("fleet.restart_backoff_s", 5.0)
+    result, errors = {}, []
+
+    def run():
+        try:
+            result["t"] = tpcds.tpcds_q72_cluster(
+                c, "failover", *q72[1:], merge_timeout_s=PROC_WAIT_S)
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+
+    h0 = c._host("h0")
+    hold.touch()
+    th = threading.Thread(target=run)
+    try:
+        t0 = time.perf_counter()
+        th.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not h0.inflight:
+            time.sleep(0.01)
+        require(bool(h0.inflight), "h0 never took its partial")
+        time.sleep(0.5)  # inside h0's hold: mid-partial
+        torch.cuda.synchronize()
+        before = _card_used()
+        h0.proc.send_signal(signal.SIGKILL)
+        hold.unlink()
+        t_kill = time.perf_counter()
+        low = before
+        while time.perf_counter() - t_kill < 4.0:
+            low = min(low, _card_used())
+            time.sleep(0.02)
+        # the dead process's memory comes back to the card (its shard and its
+        # cached blocks), whatever h1 takes for the re-homed shard
+        require(before - low >= max(KILLED_FREES, shard0),
+                f"the dead host's memory stayed: {before} -> {low} bytes")
+        th.join(PROC_WAIT_S)
+        require(not errors and not th.is_alive(), f"failover: {errors}")
+        took = time.perf_counter() - t0
+        require(resultcache.table_fingerprint(result["t"]) == want_fp,
+                "the failed-over q72 is not bit-identical")
+        require(c._tables["catalog_sales"].owners[0] == "h1",
+                f"shard 0 not re-homed: {c._tables['catalog_sales'].owners}")
+        deaths = [r for r in telemetry.events("fleet")[deaths0:]
+                  if r.get("event") in ("host_death", "replica_death")]
+        require(len(deaths) == 2 and all(
+            r["host"] == "h0" and r["error_kind"] == "ReplicaDeadError"
+            for r in deaths), f"host death not classified: {deaths}")
+        # the classified death's cause= field ("signal:SIGKILL")
+        cause = [r["cause"] for r in deaths if "cause" in r][0]
+        cause = cause.split("cause=", 1)[-1].split(",", 1)[0]
+        require(c.wait_live(timeout=PROC_BOOT_S) == 2, "h0 did not restart")
+        c.fresh_loads()
+        require(c.leaked_bytes() == 0, f"leaked {c.leaked_bytes()} bytes")
+        after = _card_used()
+        # the shard moved to h1 (into its cached blocks, or beside them)
+        # and h0 came back with a fresh context, its working memory gone
+        require(after <= before + shard0,
+                f"card used {before} before the kill, {after} after")
+    finally:
+        if hold.exists():
+            hold.unlink()
+        config.reset_option("fleet.restart_backoff_s")
+    out["failover"] = {
+        "s": took, "cause": cause,
+        "used_before_kill_gib": before / 2**30,
+        "used_low_after_kill_gib": low / 2**30,
+        "used_after_restart_gib": after / 2**30, "shard0_gib": shard0 / 2**30}
+    log(f"failover: h0 SIGKILLed mid-partial ({cause}), shard 0 re-homed "
+        f"to h1, q72 bit-identical in {took:.1f} s; card used "
+        f"{before / 2**30:.2f} GiB before the kill, {low / 2**30:.2f} "
+        f"after, {after / 2**30:.2f} with h0 restarted; leaked 0")
+
+
+def _cluster_part(dev, out: dict) -> dict:
+    """SF10 catalog_sales and orders registered on a 2-host cluster on
+    the card; q72 with the runtime filter off and on, q13's exchange
+    direct, routed and as one plan, each bit-identical to the
+    single-process result; then the failover drill."""
+    from spark_rapids_jni_tpu_torch.models import tpcds, tpch
+    from spark_rapids_jni_tpu_torch.runtime import cluster, fleet, resultcache
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    fp = resultcache.table_fingerprint
+    cs = tpcds.catalog_sales_table(DS_CATALOG_SALES, num_items=DS_ITEMS)
+    q72 = (cs, tpcds.date_dim_table(), tpcds.item_table(DS_ITEMS),
+           tpcds.inventory_table(num_items=DS_ITEMS))
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    q72_fp = fp(_q72_want(q72))
+    q13_local = tpch.tpch_q13_local(orders, 2)
+    q13_fp = fp(q13_local)
+    oracle = tpch.tpch_q13_oracle(orders)
+    keys, counts = (x.cpu().numpy() for x in (q13_local.column(0).data,
+                                              q13_local.column(1).data))
+    order = keys.argsort()
+    require((keys[order] == oracle["custkey"]).all()
+            and (counts[order] == oracle["count"]).all(),
+            "q13 differs from the numpy oracle as a set of rows")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0 = _card_used()
+    t0 = time.perf_counter()
+    # repeats really run: no supervisor memo, no worker result cache
+    config.set_option("fleet.result_memo_entries", 0)
+    hold = DATA_DIR / "h0.hold"
+    hold.parent.mkdir(parents=True, exist_ok=True)
+    if hold.exists():
+        hold.unlink()
+    c = cluster.QueryCluster(
+        len(HOSTS), device=dev, worker_env={**PROC_WORKER_ENV,
+                                   "SPARK_RAPIDS_TPU_CACHE_ENABLED": "0"},
+        per_replica_env={"h0": {fleet._ENV_SERVE_HOLD_FILE: str(hold)}})
+    try:
+        require(c.wait_live(timeout=PROC_BOOT_S) == len(HOSTS),
+                "cluster boot")
+        out["boot_s"] = time.perf_counter() - t0
+        booted = _card_used()
+        log(f"cluster of 2 hosts on {dev}: booted in {out['boot_s']:.1f} s; "
+            f"card used {used0 / 2**30:.2f} -> {booted / 2**30:.2f} GiB "
+            "(the two workers' contexts)")
+        reg = {}
+        for name, table, key in (("catalog_sales", cs, (0,)),
+                                 ("orders", orders, (tpch.O_ORDERKEY,))):
+            t0 = time.perf_counter()
+            info = c.register_table(name, table, keys=key)
+            reg[name] = {"s": time.perf_counter() - t0, **info}
+            log(f"registered {name}: {info['rows']} rows as {info['parts']} "
+                f"shards on {info['owners']} in {reg[name]['s']:.2f} s")
+        out["register"] = reg
+        start = _worker_launches(c, HOSTS)
+        for rtf in (False, True):
+            config.set_option("rtfilter.enabled", rtf)
+            try:
+                _timed_across(
+                    f"q72 cluster (runtime filter {'on' if rtf else 'off'})",
+                    c, lambda: tpcds.tpcds_q72_cluster(c, "q72", *q72[1:]),
+                    q72_fp, 3, out)
+            finally:
+                config.reset_option("rtfilter.enabled")
+        pack, merge = tpch.q13_exchange_plans(2)
+        for mode, direct in (("direct", True), ("routed", False)):
+            def run(direct=direct):
+                return c.submit_exchange(
+                    "q13", pack, merge, table="orders", binding="orders",
+                    merge_binding="partials",
+                    merge_valid_meta="merge.num_groups",
+                    direct=direct).result(timeout=PROC_WAIT_S)
+
+            _timed_across(f"q13 exchange ({mode})", c, run, q13_fp, 0, out)
+        # flights a source packs: the routed form's partials carry them
+        tickets = [c.submit_to_shard("q13", pack, table="orders",
+                                     binding="orders", part=p)
+                   for p in range(2)]
+        out["q13_flights"] = [int(t.result(timeout=PROC_WAIT_S).meta[
+            "exchange.flights"]) for t in tickets]
+        log(f"q13 exchange flights per source: {out['q13_flights']} "
+            f"(exchange.max_capacity_rows 65536: chunked flights)")
+        _timed_across(
+            "q13 exchange (one plan, q13_midplan_plan(0))", c,
+            lambda: c.submit_exchange(
+                "q13", tpch.q13_midplan_plan(0), table="orders",
+                binding="orders").result(timeout=PROC_WAIT_S),
+            q13_fp, 0, out)
+        total = _launch_delta(start, _worker_launches(c, HOSTS))
+        # q72: 3 probes a host a run (its three joins), 3 runs in each of
+        # 2 modes; q13 and its flights none
+        require(total == {h: {"A": 0, "D": 3 * 3 * 2} for h in HOSTS},
+                f"cluster workers launched {total}")
+        out["worker_launches"] = total
+        require(c.leaked_bytes() == 0, f"leaked {c.leaked_bytes()} bytes")
+        _failover_drill(c, q72, q72_fp, hold, out)
+    finally:
+        c.close()
+        config.reset_option("fleet.result_memo_entries")
+    out["card_used_after_close_gib"] = _card_used() / 2**30
+    return {"A": 0, "D": sum(n["D"] for n in total.values())}
+
+
+def _fleet_part(dev, out: dict) -> dict:
+    """Planned q1 and q6 over a quarter of SF10 lineitem served by a
+    2-replica fleet on the card to two sessions; each bit-identical to
+    the in-process ``fusion.execute``, the repeats memo-served, kernel A
+    launched once across the workers."""
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.runtime import fleet, fusion, resultcache
+
+    fp = resultcache.table_fingerprint
+    li = tpch.lineitem_table(EXECUTOR_ROWS, seed=0)
+    q1p = tpch._q1_planned_plan()
+    q6 = fusion.Plan("tpch_q6", fusion.Project(
+        fusion.Scan("lineitem"), tpch._q6_reduce, rowwise=False))
+    b = {"lineitem": li}
+    wants = {p.name: fp(fusion.execute(p, b).table) for p in (q1p, q6)}
+    t0 = time.perf_counter()
+    f = fleet.QueryFleet(len(REPLICAS), device=dev,
+                         worker_env=PROC_WORKER_ENV)
+    try:
+        require(f.wait_live(timeout=PROC_BOOT_S) == len(REPLICAS),
+                "fleet boot")
+        out["fleet_boot_s"] = time.perf_counter() - t0
+        before = _worker_launches(f, REPLICAS)
+        served = {}
+        for session in ("dashboard", "analyst"):
+            for plan in (q1p, q6):
+                t0 = time.perf_counter()
+                tk = f.submit(session, plan, b)
+                res = tk.result(timeout=PROC_WAIT_S)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                require(fp(res.table) == wants[plan.name],
+                        f"fleet {plan.name} for {session} not bit-identical")
+                served[f"{session} {plan.name}"] = {"s": s,
+                                                    "replica": tk.replica}
+        got = _launch_delta(before, _worker_launches(f, REPLICAS))
+        require(sum(n["A"] for n in got.values()) == 1
+                and sum(n["D"] for n in got.values()) == 0,
+                f"fleet workers launched {got}, not A once")
+        require([v["replica"] for k, v in served.items()
+                 if k.startswith("analyst")] == ["supervisor"] * 2,
+                f"the repeats were not memo-served: {served}")
+        require(f.leaked_bytes() == 0, "the fleet leaked")
+        out["fleet"] = {"served": served, "worker_launches": got}
+        log(f"fleet of 2 replicas on {dev} (booted in "
+            f"{out['fleet_boot_s']:.1f} s): " + ", ".join(
+                f"{k} {v['s']:.3f} s on {v['replica']}"
+                for k, v in served.items())
+            + f"; worker launches {got}; bit-identical")
+    finally:
+        f.close()
+    return {"A": 1, "D": 0}
+
+
+def _local_exchange_part(dev, out: dict) -> dict:
+    """The exchange in one process over a quarter of SF10 lineitem and
+    SF10 orders, each equal to its single-device counterpart."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops.groupby import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.ops.hash import partition_hash
+    from spark_rapids_jni_tpu_torch.ops.join import join_auto
+    from spark_rapids_jni_tpu_torch.ops.sort import gather, sort_table
+    from spark_rapids_jni_tpu_torch.ops.table_ops import trim_table
+    from spark_rapids_jni_tpu_torch.runtime import exchange as xch
+    from spark_rapids_jni_tpu_torch.runtime import fusion, resultcache
+
+    fp = resultcache.table_fingerprint
+    n = EXECUTOR_ROWS
+    full, _ = tpch.lineitem_groupby_table(n, Q3_ORDERS, SUPPLIERS)
+    c = full.column
+    # [l_orderkey, l_suppkey, l_quantity, row id]
+    tab = Table([c(7), c(8), c(0),
+                 Column(t.INT64, torch.arange(n, device=dev))])
+    del full, c
+    rows = {}
+
+    def timed(name, fn, want):
+        res, _ = _run_plan(name, fn, want)
+        rows[name] = {"s": host_median_s(fn, warm=False)}
+        return res
+
+    dests = timed("exchange_local", lambda: xch.exchange_local(
+        tab, [1], PROC_PARTS), {})
+    part = partition_hash(tab, [1], PROC_PARTS)
+    for p, d in enumerate(dests):
+        idx = torch.nonzero(part == p).flatten()
+        # the source's rows (column 3 is the row id), in its order
+        require(torch.equal(d.column(3).data, idx),
+                f"exchange_local destination {p}: rows or their order")
+        _require_same_groups(f"exchange_local destination {p}", d,
+                             gather(tab, idx), [3])
+    aggs = [(2, "sum"), (2, "count")]
+    got = timed("partitioned_groupby", lambda: xch.partitioned_groupby(
+        tab, [1], aggs, parts=PROC_PARTS), {})
+    g = groupby_aggregate(tab, [1], aggs, max_groups=None)
+    want = trim_table(g.table, int(g.num_groups))
+    _require_same_groups("partitioned_groupby", got, want, [0])
+    orders = tpch.orders_table(Q3_ORDERS, Q3_CUSTOMERS)
+    left = Table([tab.column(0), tab.column(3)])
+    got = timed("partitioned_join", lambda: xch.partitioned_join(
+        left, orders, 0, 0, parts=PROC_PARTS), {"D": PROC_PARTS})
+    maps, joined = join_auto(left, orders, 0, 0)
+    want = trim_table(joined, int(maps.total))
+    _same_tables("partitioned_join", sort_table(got, [1]),
+                 sort_table(want, [1]))
+    got = timed("q13 one plan (4 parts)", lambda: fusion.execute(
+        tpch.q13_midplan_plan(PROC_PARTS), {"orders": orders}), {})
+    require(fp(got.table) == fp(tpch.tpch_q13_local(orders, PROC_PARTS)),
+            "q13_midplan_plan differs from tpch_q13_local")
+    ref = tpch.tpch_q13_reference(orders)
+    _require_same_groups("q13_midplan_plan", got.table, ref, [0])
+    out["local_exchange"] = rows
+    log("local exchange: " + ", ".join(
+        f"{k} {v['s'] * 1e3:.1f} ms" for k, v in rows.items())
+        + f" (median of 3; {PROC_PARTS} parts); each equal to its "
+        "single-device counterpart; D once a partition in the join")
+    return {"A": 0, "D": PROC_PARTS}
+
+
+def across_processes_phase(dev) -> tuple:
+    """Phase 21: the serving stack across processes on the card. The DCN
+    wire over SF10 orders; a 2-host ``QueryCluster`` serving SF10 TPC-DS
+    q72 (runtime filter off and on) and q13's exchange (direct, routed,
+    one plan); a SIGKILLed host failing over; a 2-replica ``QueryFleet``
+    serving planned q1 and q6; the exchange in one process. Every
+    result bit-identical to its single-process result on the card, the
+    workers' launches of A and D exactly as counted."""
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"wire": _wire_part(dev)}
+    torch.cuda.empty_cache()
+    # a pong every 0.1 s: the workers' launch reports come sooner
+    config.set_option("fleet.heartbeat_interval_s", 0.1)
+    try:
+        launches = {"cluster q72 (workers)": _cluster_part(dev, out)}
+        torch.cuda.empty_cache()
+        launches["fleet planned q1 (workers)"] = _fleet_part(dev, out)
+    finally:
+        config.reset_option("fleet.heartbeat_interval_s")
+    torch.cuda.empty_cache()
+    launches["partitioned_join"] = _local_exchange_part(dev, out)
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 21 (across processes): {out['s']:.1f} s, the supervisor's "
+        f"device peak {out['peak_gib']:.2f} GiB")
+    return launches, out
+
+
 def _start_native_build():
     """Build the readers' native library on a thread while nvcc builds
     the kernels; the returned call waits for it and raises its error."""
@@ -6474,13 +7025,14 @@ def main() -> int:
     sv_launches, path_times["serving"] = serving_phase(
         dev, q1_oracle, q1_general, q3_oracle)
     mx_launches, path_times["multiple_executors"] = multi_executor_phase(dev)
+    xp_launches, path_times["across_processes"] = across_processes_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
                **gb_launches, **{p: {"A": n.get("A", 0), "D": n.get("D", 0)}
                                  for p, n in rd_launches.items()},
                **ex_launches, **oc_launches, **sv_launches,
-               **mx_launches}
+               **mx_launches, **xp_launches}
     kernel_rows["A"]["launches_by_path"] = {
         "tpch_q1_planned": launches[kernel_rows["A"]["name"]],
         **{p: n["A"] for p, n in by_plan.items() if n["A"]}}

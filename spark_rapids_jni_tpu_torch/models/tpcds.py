@@ -714,6 +714,84 @@ def tpcds_q72_planned_distributed(catalog_sales: Table, date_dim: Table,
     return Q72PlannedResult(srt, present, viol)
 
 
+# ---- cluster q72 (cross-process fan-out with runtime-filter pushdown) ----
+
+
+def _q72_partial_plan(year: int, out_factor: int,
+                      rtf=None) -> fusion.Plan:
+    """A shard's q72 partial: the join chain and the count per (item,
+    brand) over one catalog_sales shard, no final sort (the router
+    merges and orders). ``rtf`` = ``(num_bits, num_hashes)`` wraps the
+    fact scan in a ``BloomProbe`` against the packed bits the router
+    ships inline as the ``rtf_bits`` binding (built from join 1's
+    date_dim keys), so each host prunes its own shard first; the
+    partial is bit-identical with the filter on or off."""
+    cs = fusion.Scan("catalog_sales")
+    if rtf is not None:
+        cs = fusion.BloomProbe(
+            cs, fusion.Scan("rtf_bits", bucket=False), CS_SOLD_DATE_SK,
+            int(rtf[0]), int(rtf[1]), packed=True, label="rtf_join1")
+    dd = fusion.Project(fusion.Scan("date_dim"), _q72_dd_fn, (year,))
+    j1 = fusion.Join(cs, dd, (CS_SOLD_DATE_SK,), (0,),
+                     fusion.rows_of("catalog_sales"), label="join1")
+    j2 = fusion.Join(j1, fusion.Scan("item"), (0,), (I_ITEM_SK,),
+                     fusion.rows_of("catalog_sales"), label="join2")
+    probe = fusion.Project(j2, _q72_probe_fn)
+    inv = fusion.Project(fusion.Scan("inventory"), _q72_inv_fn)
+    j3 = fusion.Join(probe, inv, (0,), (0,),
+                     fusion.rows_of("catalog_sales", out_factor),
+                     label="join3")
+    g = fusion.GroupBy(fusion.Project(j3, _q72_keyed_fn), (0, 1),
+                       ((2, "count"),), label="partial")
+    return fusion.Plan("tpcds_q72_partial", g)
+
+
+def tpcds_q72_cluster(c, session_id: str, date_dim: Table, item: Table,
+                      inventory: Table, year: int = 2000,
+                      out_factor: int = 2, deadline_ms=None,
+                      merge_timeout_s: float = 300.0) -> Table:
+    """q72 over a ``QueryCluster``: catalog_sales registered and
+    hash-sharded across the hosts (``c.register_table``), the three
+    dimension tables shipped inline with each shard's submit, each host
+    running :func:`_q72_partial_plan` over its shard, and the router
+    merging (concatenate, regroup-sum, compact, order).
+
+    With ``rtfilter.decide`` on join 1, the router builds the bloom
+    filter of the in-year date keys once, ships it packed as
+    ``rtf_bits``, and each host prunes its shard before the joins."""
+    from spark_rapids_jni_tpu_torch.ops.table_ops import (
+        concatenate,
+        trim_table,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import rtfilter
+
+    decision = rtfilter.decide("tpcds_q72_cluster", "join1",
+                               date_dim.num_rows)
+    bindings = {"date_dim": date_dim, "item": item, "inventory": inventory}
+    rtf = None
+    if decision.apply:
+        dk = _q72_dd_fn(date_dim, year).column(0)
+        bf = rtfilter.build_filter(dk.data, dk.valid_mask(),
+                                   expected_items=date_dim.num_rows)
+        bindings["rtf_bits"] = rtfilter.packed_table(bf)
+        rtf = (bf.num_bits, bf.num_hashes)
+
+    def merge_fn(partials):
+        parts = [trim_table(p.table, int(p.meta["partial.num_groups"]))
+                 for p in partials]
+        merged = groupby_aggregate(concatenate(parts), keys=[0, 1],
+                                   aggs=[(2, "sum")])
+        out = trim_table(merged.table, int(merged.num_groups))
+        return _compact_valid_keys(out, 2, [2, 0], [False, True])
+
+    mt = c.submit_merge(session_id,
+                        _q72_partial_plan(year, out_factor, rtf=rtf),
+                        merge_fn, table="catalog_sales",
+                        binding="catalog_sales", bindings=bindings,
+                        deadline_ms=deadline_ms)
+    return mt.result(timeout=merge_timeout_s)
+
+
 def tpcds_q64_distributed(store_sales: Table, mesh, year1: int = 2000,
                           year2: int = 2001, num_days_per_year: int = 365,
                           base_year: int = 2000, out_factor: int = 4,

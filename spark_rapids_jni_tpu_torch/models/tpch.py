@@ -2768,12 +2768,102 @@ def tpch_q12_distributed(orders: Table, lineitem: Table, mesh,
     return _valid_key_rows(sort_table(result, [0], nulls_first=[False]))
 
 
-# ---- TPC-H q13 (customer distribution), the single-pass reference --------
+# ---- TPC-H q13 (customer distribution) over the exchange -----------------
+#
+#   SELECT o_custkey, count(o_orderkey) FROM orders GROUP BY o_custkey
+#
+# q13's inner aggregation: order counts per customer key, a key space no
+# slot table covers. The distributed form is partial counts per shard ->
+# the hash-partitioned exchange by custkey (runtime/exchange.py) -> a sum
+# per destination; the merge is re-applicable (a sum of counts), so the
+# exchange's chunked spill merge composes with it.
+
+
+def q13_partial_plan() -> fusion.Plan:
+    """A shard's q13 partial: order counts per customer key, unbounded
+    (``max_groups=None`` pads to the shard's rows and cannot
+    overflow)."""
+    return fusion.Plan("tpch_q13_partial", fusion.GroupBy(
+        fusion.Scan("orders"), (O_CUSTKEY,), ((O_ORDERKEY, "count"),),
+        max_groups=None, label="partial"))
+
+
+def q13_merge_plan() -> fusion.Plan:
+    """A destination's q13 merge: the partial counts summed per customer
+    key (``merge(merge(a) + merge(b)) == merge(a + b)``)."""
+    return fusion.Plan("tpch_q13_merge", fusion.GroupBy(
+        fusion.Scan("partials"), (0,), ((1, "sum"),),
+        max_groups=None, label="merge"))
+
+
+def q13_exchange_plans(parts: int):
+    """The (pack, merge) pair of the distributed q13: the pack plan roots
+    an ``Exchange`` over the partial (key: the custkey output column;
+    ``valid_meta`` trims the groupby's padding before the wire), the
+    merge plan scans ``partials``. Drive it through
+    ``QueryCluster.submit_exchange``, or :func:`tpch_q13_local`."""
+    pack = fusion.Plan("tpch_q13_pack", fusion.Exchange(
+        q13_partial_plan().root, keys=(0,), parts=int(parts),
+        valid_meta="partial.num_groups", label="exchange"))
+    return pack, q13_merge_plan()
+
+
+def q13_midplan_plan(parts: int) -> fusion.Plan:
+    """q13 as ONE plan with an interior ``Exchange`` (partial groupby ->
+    exchange by custkey -> sum), which ``fusion.split_at_exchange``
+    breaks into the pair of :func:`q13_exchange_plans`. ``parts=0``
+    leaves the count to the learned-selectivity store."""
+    return fusion.Plan("tpch_q13_midplan", fusion.GroupBy(
+        fusion.Exchange(
+            q13_partial_plan().root, keys=(0,), parts=int(parts),
+            valid_meta="partial.num_groups", label="exchange"),
+        (0,), ((1, "sum"),), max_groups=None, label="merge"))
+
+
+def tpch_q13_local(orders: Table, parts: int = 1, *,
+                   shard_keys=(O_ORDERKEY,)) -> Table:
+    """The distributed q13 in one process, its bit-identity oracle: the
+    same plans over the same shard split (``shard_keys`` must be the
+    cluster's ``register_table`` keys) and the same source-then-flight
+    regroup order as ``submit_exchange(...).result()``."""
+    from spark_rapids_jni_tpu_torch.ops.table_ops import (
+        _slice_rows,
+        concatenate,
+    )
+    from spark_rapids_jni_tpu_torch.parallel import dcn
+    from spark_rapids_jni_tpu_torch.runtime import exchange as xch
+
+    parts = int(parts)
+    pack, merge = q13_exchange_plans(parts)
+    shards = (dcn.partition_for_slices(orders, list(shard_keys), parts)
+              if parts > 1 else [orders])
+    per_dest: list = [[] for _ in range(parts)]
+    empty = None
+    for shard in shards:
+        fused = fusion.execute(pack, {"orders": shard})
+        empty = _slice_rows(fused.table, 0, 0)
+        for p, fls in enumerate(xch.split_wire(
+                fused.table, fused.meta["exchange.row_counts"], parts)):
+            per_dest[p].extend(fls)
+    outs = []
+    for flights in per_dest:
+        if not flights:
+            continue
+        dest_in = flights[0] if len(flights) == 1 else concatenate(flights)
+        res = fusion.execute(merge, {"partials": dest_in})
+        outs.append(_slice_rows(res.table, 0,
+                                int(res.meta["merge.num_groups"])))
+    if not outs:
+        res = fusion.execute(merge, {"partials": empty})
+        return _slice_rows(res.table, 0, 0)
+    return outs[0] if len(outs) == 1 else concatenate(outs)
+
 
 def tpch_q13_reference(orders: Table) -> Table:
     """q13's order count per customer as one general groupby of orders on
     ``o_custkey`` (every group kept), trimmed to its groups, in key
-    order. The local and exchange plans are not ported yet."""
+    order: the same groups and counts as :func:`tpch_q13_local` up to
+    row order."""
     g = groupby_aggregate(orders, [O_CUSTKEY], [(O_ORDERKEY, "count")],
                           max_groups=None)
     return trim_table(g.table, int(g.num_groups))

@@ -8,9 +8,9 @@ capacity)`` send buffers, and post-shuffle operators (groupby merge,
 join, window, sort) run on the key ranges each executor owns afterward.
 The collectives run on copies between the executors' devices in one
 process, or through a ``torch.distributed`` process group (NCCL on the
-card, gloo on the CPU). The host byte transport between processes
-(the reference's ``parallel/dcn.py``) comes with ROADMAP.md Queue 1
-entry 12b.
+card, gloo on the CPU). Between processes that share no group (fleet
+replicas, cluster hosts, slices) tables travel as host bytes through
+``dcn`` (the wire format, the framed sockets, the signed peer flights).
 """
 
 from spark_rapids_jni_tpu_torch.parallel.mesh import EXEC_AXIS, executor_mesh
@@ -26,11 +26,13 @@ from spark_rapids_jni_tpu_torch.parallel.distributed import (
 )
 from spark_rapids_jni_tpu_torch.parallel.sort import distributed_sort
 from spark_rapids_jni_tpu_torch.parallel.wire import BitPack, shuffle_wire_bytes
+from spark_rapids_jni_tpu_torch.parallel import dcn
 
 __all__ = [
     "BitPack",
     "EXEC_AXIS",
     "ShuffleResult",
+    "dcn",
     "distributed_groupby_aggregate",
     "distributed_join",
     "distributed_sort",

@@ -18,8 +18,8 @@ order at every seam is compress, then seal, on write; verify, then
 decompress, then a length and shape check, on read: an inconsistent
 frame behind a valid seal raises the classified
 :class:`CorruptDataError`. ``compress.enabled`` gates everything,
-``compress.spill`` / ``compress.checkpoint`` one seam each; any other
-seam stays uncompressed.
+``compress.spill`` / ``compress.wire`` / ``compress.checkpoint`` one
+seam each; any other seam stays uncompressed.
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ PACK_TAG = "tpcc"
 # integrity seam -> the per-seam config option that gates the codec there
 SEAM_OPTIONS = {
     "integrity.spill": "compress.spill",
+    "integrity.wire": "compress.wire",
     "integrity.checkpoint": "compress.checkpoint",
 }
 
@@ -247,6 +248,27 @@ def _encode_bitpack(flat: np.ndarray) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+def _unique_inverse(flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``np.unique(flat, return_inverse=True)``: for an integer buffer
+    whose value range is at most twice its length (or 65,536), one
+    bincount over the range and a lookup instead of the O(n log n) sort;
+    the same sorted values and the same indices either way."""
+    if flat.dtype.kind in "iu" and flat.size:
+        lo, hi = int(flat.min()), int(flat.max())
+        span = hi - lo + 1
+        if span <= max(1 << 16, 2 * flat.size):
+            # hi - lo fits: the subtraction cannot wrap
+            shifted = (flat - flat.dtype.type(lo)).astype(np.intp)
+            present = np.flatnonzero(np.bincount(shifted, minlength=span))
+            lut = np.zeros(span, dtype=np.intp)
+            lut[present] = np.arange(present.size, dtype=np.intp)
+            # added in the buffer's own type: a Python int at or past
+            # 2**63 (a uint64 range up there) does not fit intp
+            values = present.astype(flat.dtype) + flat.dtype.type(lo)
+            return values, lut[shifted]
+    return np.unique(flat, return_inverse=True)
+
+
 def _choose_scheme(flat: np.ndarray) -> Tuple[int, bytes]:
     """Pick the cheapest scheme for one flattened buffer. The decision
     runs on a strided ~1k-element sample (one cheap scan); only schemes
@@ -273,16 +295,12 @@ def _choose_scheme(flat: np.ndarray) -> Tuple[int, bytes]:
     uniq = np.unique(sample)
     if uniq.size <= 0xFFFF and uniq.size <= max(2, sample.size // 4):
         if item == 1 and flat.dtype.kind in "iu":
-            # 1-byte columns (the TPC-H flag/status targets) skip the
-            # O(n log n) unique sort: 256-bucket bincount + LUT gather
-            u8 = flat.view(np.uint8)
-            present = np.flatnonzero(np.bincount(u8, minlength=256))
-            values = present.astype(np.uint8).view(flat.dtype)
-            lut = np.zeros(256, dtype=np.uint16)
-            lut[present] = np.arange(present.size, dtype=np.uint16)
-            indices = lut[u8]
+            # 1-byte columns (the TPC-H flag/status targets): values in
+            # unsigned byte order, as the reference's frames hold them
+            values, indices = _unique_inverse(flat.view(np.uint8))
+            values = values.view(flat.dtype)
         else:
-            values, indices = np.unique(flat, return_inverse=True)
+            values, indices = _unique_inverse(flat)
         if values.size <= 0xFFFF:
             bits = _index_bits(values.size)
             est = (values.size * item

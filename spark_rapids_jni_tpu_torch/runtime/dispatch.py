@@ -19,8 +19,8 @@ the executors, with nothing to compile.
 What stays is the bucket schedule as pure arithmetic (``bucket_for``,
 ``quantize_capacity``) with the reference's defaults (``dispatch.*``
 options on, 16 rows, waste 1.0): the shuffle's capacities
-(``parallel/shuffle.py``) and the exchange's (ROADMAP.md Queue 1 entry
-12b) are sized by ``quantize_capacity``, and those capacities change
+(``parallel/shuffle.py``) and the exchange's (``runtime/exchange.py``)
+are sized by ``quantize_capacity``, and those capacities change
 outputs.
 """
 

@@ -17,8 +17,7 @@ and ``faults.injected.<seam>``; mutations ``faults.corrupted`` and
 
 The seams are the reference's that the port fires. The dispatch seams
 (``dispatch.*``) have no counterpart: the port compiles nothing at
-dispatch. ``dcn.transport`` and the exchange and fleet seams come with
-ROADMAP.md Queue 1 entry 12b.
+dispatch.
 """
 
 from __future__ import annotations
@@ -55,8 +54,10 @@ SEAMS: Tuple[str, ...] = (
     "pipeline.transfer",
     "pipeline.compute",
     "pipeline.merge",
-    # the shuffle's exchange (parallel/distributed.py)
+    # the shuffle's exchange (parallel/distributed.py) and the host byte
+    # transport between processes (parallel/dcn.py)
     "shuffle.transport",
+    "dcn.transport",
     # a plan's walk (runtime/fusion.py)
     "fusion.region",
     # the serving runtime (runtime/server.py)
@@ -70,9 +71,20 @@ SEAMS: Tuple[str, ...] = (
     "memory.pressure",
     # payload-corruption seams, fired through fire_corrupt()
     "integrity.spill",
+    "integrity.wire",
     "integrity.checkpoint",
     "integrity.ingest",
+    # the exchange (runtime/exchange.py): a raise at exchange.pack drills
+    # the overflow ladder; exchange.wire corrupts a sealed flight frame in
+    # transit, which the receiver NAKs and refetches
+    "exchange.pack",
+    "exchange.wire",
     "integrity.cache",
+    # the serving fleet (runtime/fleet.py): a submit's send, the liveness
+    # ping, and the reaping of a worker's exit status
+    "fleet.dispatch",
+    "fleet.heartbeat",
+    "fleet.worker_exit",
 )
 
 _SEAM_SET = frozenset(SEAMS)

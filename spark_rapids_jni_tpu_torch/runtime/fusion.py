@@ -7,7 +7,8 @@ runtime bloom filter's build and probe, and the exchange boundary),
 named by a ``Plan``. The models build their queries as plans and run
 them through ``execute``, as the reference's models do; the out-of-core
 runtime (``runtime/outofcore.py``, ``runtime/degrade.py``) and the
-serving stack (ROADMAP.md Queue 1 entry 12) consume the same plans.
+serving stack (``runtime/server.py``, ``fleet.py``, ``cluster.py``)
+consume the same plans.
 
 The reference traces a plan's region into ONE XLA executable through
 ``dispatch.call``, over bucket-padded inputs with a ``row_valid`` mask
@@ -30,9 +31,14 @@ kernel; joins: the probe kernel). So:
   (or the failure is not transient) the final exception is raised,
   memory pressure or not, and the degradation ladder
   (``runtime/degrade.py``) takes a pressure failure from there.
-- An ``Exchange`` (as the root or mid-plan) raises
-  ``NotImplementedError`` until entries 11 and 12b port the exchange.
-  ``split_at_exchange`` is pure IR and is here.
+- An ``Exchange`` is a host boundary and never runs inside the walk. As
+  the root, the child region runs and ``runtime/exchange.py`` packs its
+  result into the wire form (``execute_exchange_root``). Mid-plan, the
+  plan splits at the deepest interior Exchange
+  (``split_at_exchange``) and runs as region -> exchange -> region: the
+  pack half as an Exchange root, the remainder once per non-empty
+  destination over its rows, the results concatenated in part order
+  (counter ``fusion.midplan_exchanges``).
 - With ``rtfilter.enabled`` the runtime-filter pass
   (``inject_runtime_filters``, the gate in ``runtime/rtfilter.py``)
   places a ``BloomBuild``/``BloomProbe`` pair at each join it decides to
@@ -46,7 +52,7 @@ kernel; joins: the probe kernel). So:
   them. With the pass off there is none.
 
 Telemetry: ``fusion.regions`` and ``fusion.nodes_fused`` (``stats()``),
-and the counter ``fusion.host_reads``.
+and the counters ``fusion.host_reads`` and ``fusion.midplan_exchanges``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ import torch
 from spark_rapids_jni_tpu_torch import telemetry
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.runtime import faults, resilience
+from spark_rapids_jni_tpu_torch.telemetry import spans
 from spark_rapids_jni_tpu_torch.utils.config import get_option
 from spark_rapids_jni_tpu_torch.utils.tracing import trace_range
 
@@ -249,10 +256,15 @@ class Limit(NamedTuple):
 
 
 class Exchange(NamedTuple):
-    """Hash repartition of the child's output by ``keys`` into ``parts``
-    destinations: the distributed-exchange boundary. Executing one waits
-    for ROADMAP.md Queue 1 entries 11-12; ``split_at_exchange`` breaks a
-    plan at one."""
+    """Hash repartition of the child's output by ``keys`` (column
+    indices, Spark's ``partition_hash``) into ``parts`` destinations, or
+    ``parts=0`` for a count chosen at execute time from the
+    learned-selectivity store (``exchange.choose_parts``): the exchange
+    boundary (``runtime/exchange.py``). ``capacity`` is the
+    per-destination slot count (an int, a ``rows_of`` spec, or None for
+    the escalation ladder's start); ``valid_meta`` names a child meta
+    key holding the child's true row count (an unbounded groupby's
+    ``<label>.num_groups``), so padding never rides the wire."""
 
     child: Any
     keys: tuple
@@ -580,7 +592,7 @@ def _eval_node(node, kids: list, tables: dict, resolved: dict,
             None if node.nulls_first is None else list(node.nulls_first))
     if isinstance(node, Limit):
         return trim_table(kids[0], resolved[id(node)])
-    # an Exchange never reaches the walk (execute refuses it)
+    # an Exchange never reaches the walk (execute splits the plan there)
     raise TypeError(f"not a plan node: {type(node).__name__}")
 
 
@@ -739,19 +751,98 @@ def split_at_exchange(plan: Plan):
     return pack, merge, binding, x
 
 
+def _trim_region_result(res: FusedResult, root) -> Table:
+    """The true rows of one destination's merge-region result: an
+    unbounded groupby root pads to its input's rows, and only its
+    ``<label>.num_groups`` are real (one host read)."""
+    from spark_rapids_jni_tpu_torch.ops.table_ops import _slice_rows
+
+    if isinstance(root, GroupBy) and root.max_groups is None:
+        return _slice_rows(res.table, 0,
+                           int(res.meta[f"{root.label}.num_groups"]))
+    return res.table
+
+
+def _execute_midplan_exchange(plan: Plan, bindings: dict, *,
+                              cancel_token) -> FusedResult:
+    """A plan with an interior Exchange as region -> exchange -> region:
+    the pack half (an Exchange-rooted plan), the wire table regrouped by
+    destination, the remainder once per non-empty destination with the
+    exchange output bound as its scan, the results concatenated in part
+    order. Destination key spaces are disjoint, so the concatenation is
+    the plan's result, bit-identical to the hand-split (pack, merge)
+    pair and to the ``exchange_local`` oracle."""
+    from spark_rapids_jni_tpu_torch.ops.table_ops import (
+        _slice_rows,
+        concatenate,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import exchange as _exchange
+
+    pack_plan, merge_plan, binding, x = split_at_exchange(plan)
+    pb, pe = _scan_names(_topo(x))
+    pack_bindings = {n: bindings[n] for n in pb + pe if n in bindings}
+    x = _exchange.resolve_auto_parts(pack_plan.name, x, pack_bindings)
+    pack_plan = Plan(pack_plan.name, x)
+    mb, me = _scan_names(_topo(merge_plan.root))
+    merge_scans = (set(mb) | set(me)) - {binding}
+    telemetry.count("fusion.midplan_exchanges")
+    label, parts = x.label, int(x.parts)
+    with spans.child(f"midplan.{plan.name}", label=label, parts=parts):
+        fused = execute(pack_plan, pack_bindings, cancel_token=cancel_token)
+        per_dest = _exchange.split_wire(
+            fused.table, fused.meta[f"{label}.row_counts"], parts)
+        merge_base = {n: bindings[n] for n in merge_scans if n in bindings}
+        outs: list = []
+        for flights in per_dest:
+            if not flights:
+                continue
+            dest_in = (flights[0] if len(flights) == 1
+                       else concatenate(flights))
+            res = execute(merge_plan, {**merge_base, binding: dest_in},
+                          cancel_token=cancel_token)
+            outs.append(_trim_region_result(res, merge_plan.root))
+        if outs:
+            tbl = outs[0] if len(outs) == 1 else concatenate(outs)
+        else:
+            res = execute(merge_plan,
+                          {**merge_base,
+                           binding: _slice_rows(fused.table, 0, 0)},
+                          cancel_token=cancel_token)
+            tbl = _slice_rows(res.table, 0, 0)
+    meta = {
+        f"{label}.parts": parts,
+        f"{label}.rows": int(fused.meta[f"{label}.rows"]),
+        f"{label}.dests": len(outs),
+    }
+    root = merge_plan.root
+    if isinstance(root, GroupBy) and root.max_groups is None:
+        # the concatenation is already trimmed: every row is real
+        meta[f"{root.label}.num_groups"] = int(tbl.num_rows)
+    return FusedResult(tbl, meta)
+
+
 def execute(plan: Plan, bindings: dict, *,
             cancel_token=None) -> FusedResult:
     """Run one plan over ``bindings`` (Scan name -> Table).
 
     The node walk runs each node's operator on the bound tables as they
-    are, after the ``fusion.region`` seam, under the retry policy. ``cancel_token`` (any object with
-    ``check(where)``) is checked once before any compute."""
+    are, after the ``fusion.region`` seam, under the retry policy. A
+    root ``Exchange`` runs through ``exchange.execute_exchange_root``
+    and an interior one as region -> exchange -> region.
+    ``cancel_token`` (any object with ``check(where)``) is checked once
+    before any compute."""
     if cancel_token is not None:
         cancel_token.check(f"fusion.{plan.name}")
-    if any(isinstance(n, Exchange) for n in _topo(plan.root)):
-        raise NotImplementedError(  # as the root or mid-plan
-            f"plan {plan.name!r}: executing an Exchange (the distributed "
-            "exchange) waits for ROADMAP.md Queue 1 entries 11-12")
+    if isinstance(plan.root, Exchange):
+        # a host boundary: the pack and the wire form run outside the
+        # walk, on the child region's result
+        from spark_rapids_jni_tpu_torch.runtime import exchange as _exchange
+
+        return _exchange.execute_exchange_root(plan, bindings,
+                                               cancel_token=cancel_token)
+    if split_at_exchange(plan) is not None:
+        return _execute_midplan_exchange(plan, bindings,
+                                         cancel_token=cancel_token)
     if get_option("rtfilter.enabled"):
         plan = inject_runtime_filters(plan, bindings)
     nodes = _topo(plan.root)

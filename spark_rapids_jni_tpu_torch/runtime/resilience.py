@@ -20,13 +20,15 @@ Where the port differs from the reference:
   ``RuntimeError``, not a ``MemoryError``) classifies as
   :class:`ResourceExhausted`, as the reference classifies XLA's HBM
   exhaustion and the limiter's ``MemoryLimitExceeded``.
-- The transport seam is ``shuffle.transport`` (``parallel/``): there a
-  socket error is a :class:`TransportError` and is retried, and a
-  :class:`CorruptDataError` is refetchable, as in the reference. The
-  ``dcn.transport`` and fleet seams (``fleet.*``) and
-  ``classify_worker_exit`` come with ROADMAP.md Queue 1 entry 12b; away
-  from the transport seam a socket error is foreign (fatal, not
-  retried) and a :class:`CorruptDataError` is never transient.
+- The transport seams are ``shuffle.transport`` (``parallel/``) and
+  ``dcn.transport`` (``parallel/dcn.py``): there a socket error is a
+  :class:`TransportError` and is retried, and a
+  :class:`CorruptDataError` is refetchable, as in the reference. At the
+  fleet seams (``fleet.dispatch``, ``fleet.heartbeat``,
+  ``fleet.worker_exit``) a socket error is the replica's death
+  (:class:`ReplicaDeadError`), recoverable at ``fleet.dispatch`` only;
+  :func:`classify_worker_exit` turns a reaped worker's exit status into
+  one.
 
 Every retry, recovery, escalation and dead end is recorded through
 ``telemetry.record_resilience`` with its attempt and ladder rung.
@@ -36,6 +38,7 @@ every call site takes its verbatim pre-resilience path.
 
 from __future__ import annotations
 
+import signal
 import threading
 import time
 from typing import Any, Callable, Optional, Tuple, TypeVar
@@ -149,7 +152,15 @@ class QueryCancelled(ResilienceError):
 
 
 class ReplicaDeadError(ResilienceError):
-    """A serving-fleet replica died (entry 12). Not transient."""
+    """A serving-fleet replica subprocess died: it missed its liveness
+    deadline, exited nonzero, was killed by a signal, or dropped its
+    control socket mid-frame. Not transient in the blind-replay sense
+    (pinging a dead process again reproduces the silence); the recovery
+    is structural and lives at one seam, ``fleet.dispatch``, where the
+    supervisor re-places the dead replica's queries on a healthy one
+    under the bounded failover budget (:func:`is_transient`). Everywhere
+    else it propagates, classified, so the caller restarts or
+    quarantines the replica."""
 
     transient = False
 
@@ -212,8 +223,12 @@ class CancelToken:
 # the reference; kept for errors that carry them).
 _TRANSIENT_MARKERS = ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "DEADLINE_EXCEEDED")
 # Transport seams: a socket-layer failure there is a TransportError and
-# retry is a protocol concern (``dcn.transport`` comes with entry 12b).
-_TRANSPORT_SEAMS = ("shuffle.transport",)
+# retry is a protocol concern.
+_TRANSPORT_SEAMS = ("shuffle.transport", "dcn.transport")
+# Fleet control-plane seams: the peer of a replica's control socket is a
+# supervised child process, so a socket-layer failure there is the
+# replica's death (ReplicaDeadError), not a transport blip.
+_FLEET_SEAMS = ("fleet.dispatch", "fleet.heartbeat", "fleet.worker_exit")
 
 
 def classify(exc: BaseException, *, seam: str = "") -> type:
@@ -223,10 +238,10 @@ def classify(exc: BaseException, *, seam: str = "") -> type:
     limiter's ``MemoryLimitExceeded``) and the caching allocator's
     ``torch.OutOfMemoryError`` are :class:`ResourceExhausted`; a message
     with a transient status marker is :class:`TransientDeviceError`;
-    a socket-layer error at a transport seam is :class:`TransportError`;
-    anything else is :class:`FatalExecutionError`. The exception itself
-    is never converted: a caller that gives up re-raises the original.
-    The fleet seams that also read ``seam`` come with entry 12b."""
+    a socket-layer error at a transport seam is :class:`TransportError`,
+    and at a fleet seam (EOF too) :class:`ReplicaDeadError`; anything
+    else is :class:`FatalExecutionError`. The exception itself is never
+    converted: a caller that gives up re-raises the original."""
     if isinstance(exc, ResilienceError):
         return type(exc)
     if isinstance(exc, (MemoryError, torch.OutOfMemoryError)):
@@ -234,6 +249,9 @@ def classify(exc: BaseException, *, seam: str = "") -> type:
     if seam in _TRANSPORT_SEAMS and isinstance(
             exc, (ConnectionError, TimeoutError, OSError)):
         return TransportError
+    if seam in _FLEET_SEAMS and isinstance(
+            exc, (EOFError, ConnectionError, TimeoutError, OSError)):
+        return ReplicaDeadError
     if any(marker in str(exc) for marker in _TRANSIENT_MARKERS):
         return TransientDeviceError
     return FatalExecutionError
@@ -243,11 +261,15 @@ def is_transient(exc: BaseException, *, seam: str = "") -> bool:
     """Retry eligibility: taxonomy exceptions whose class is transient,
     and foreign socket errors at a transport seam, where retry is a
     protocol concern. A corrupt frame is refetchable at a transport seam
-    (the peer still holds a pristine copy) and nowhere else. A foreign
-    exception that merely looks transient is not retried, so resilience
-    changes no propagation it does not own."""
+    (the peer still holds a pristine copy) and nowhere else; a dead
+    replica is recoverable at ``fleet.dispatch`` only, by re-placing the
+    query on another replica. A foreign exception that merely looks
+    transient is not retried, so resilience changes no propagation it
+    does not own."""
     if isinstance(exc, CorruptDataError):
         return seam in _TRANSPORT_SEAMS
+    if isinstance(exc, ReplicaDeadError):
+        return seam == "fleet.dispatch"
     if isinstance(exc, ResilienceError):
         return exc.transient
     if seam in _TRANSPORT_SEAMS and isinstance(
@@ -256,12 +278,32 @@ def is_transient(exc: BaseException, *, seam: str = "") -> bool:
     return False
 
 
-def classify_worker_exit(returncode: Optional[int], **context: Any):
-    """A reaped fleet worker's exit as a classified error: the serving
-    fleet is ROADMAP.md Queue 1 entry 12."""
-    raise NotImplementedError(
-        "classify_worker_exit belongs to the serving fleet, which waits "
-        "for ROADMAP.md Queue 1 entries 11-12")
+def classify_worker_exit(returncode: Optional[int], *, replica: str = "",
+                         seam: str = "fleet.worker_exit",
+                         **context: Any) -> ReplicaDeadError:
+    """A reaped fleet worker's exit status as a classified
+    :class:`ReplicaDeadError` (returned, never raised): a negative code
+    is a signal (``-9`` -> ``signal:SIGKILL``), a positive one a nonzero
+    exit (``exit:N``), None a process still running but unresponsive
+    (a missed liveness deadline or a control socket dropped
+    mid-frame)."""
+    if returncode is None:
+        cause = "unresponsive"
+    elif returncode < 0:
+        try:
+            cause = f"signal:{signal.Signals(-int(returncode)).name}"
+        except ValueError:
+            cause = f"signal:{-int(returncode)}"
+    elif returncode != 0:
+        cause = f"exit:{int(returncode)}"
+    else:
+        cause = "exit:0"
+    ctx = dict(context)
+    if replica:
+        ctx["replica"] = replica
+    return ReplicaDeadError(
+        f"replica worker died ({cause})", cause=cause, seam=seam,
+        returncode=-1 if returncode is None else int(returncode), **ctx)
 
 
 # ---------------------------------------------------------------------------

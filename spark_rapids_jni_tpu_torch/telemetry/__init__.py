@@ -33,7 +33,9 @@ from spark_rapids_jni_tpu_torch.telemetry.events import (
     record_compile_cache,
     record_degrade,
     record_dispatch,
+    record_exchange,
     record_fallback,
+    record_fleet,
     record_integrity,
     record_resilience,
     record_rtfilter,
@@ -73,7 +75,9 @@ __all__ = [
     "record_compile_cache",
     "record_degrade",
     "record_dispatch",
+    "record_exchange",
     "record_fallback",
+    "record_fleet",
     "record_integrity",
     "record_resilience",
     "record_rtfilter",

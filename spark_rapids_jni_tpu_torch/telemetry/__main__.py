@@ -8,7 +8,10 @@
   argument the input is the ``telemetry.path`` option's file.
 - ``top [<snapshot.json>]``: the in-flight queries, from a saved
   ``QueryServer.inspect()`` snapshot (or a list of them), or live from
-  this process.
+  this process. Saved or live ``QueryFleet.inspect()`` snapshots
+  (``"fleet": true``) render as the per-replica table, and
+  ``QueryCluster.inspect()`` ones (``"cluster": true``) as the per-host
+  table with the partition map.
 """
 
 from __future__ import annotations
@@ -104,9 +107,30 @@ def _top(argv: list[str]) -> int:
         except (OSError, json.JSONDecodeError) as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 1
-        print(top.render_top(snapshots))
+        # fleet snapshots carry "fleet": true, cluster ones also
+        # "cluster": true: each renders through its own view
+        items = snapshots if isinstance(snapshots, list) else [snapshots]
+        clusters = [s for s in items
+                    if isinstance(s, dict) and s.get("cluster")]
+        fleets = [s for s in items if isinstance(s, dict)
+                  and s.get("fleet") and s not in clusters]
+        servers = [s for s in items if s not in fleets and s not in clusters]
+        out = []
+        if servers or not (fleets or clusters):
+            out.append(top.render_top(servers))
+        if fleets:
+            out.append("fleet:\n" + top.render_fleet(fleets))
+        if clusters:
+            out.append("cluster:\n" + top.render_cluster(clusters))
+        print("\n\n".join(out))
         return 0
     print(top.render_top(top.collect()))
+    fleets = top.collect_fleet()
+    if fleets:
+        print("\nfleet:\n" + top.render_fleet(fleets))
+    clusters = top.collect_cluster()
+    if clusters:
+        print("\ncluster:\n" + top.render_cluster(clusters))
     return 0
 
 

@@ -7,10 +7,15 @@ Record kinds: ``dispatch`` (an op timed by ``trace_range(record=True)``),
 mandatory), ``compile_cache`` (a pattern-compile cache hit or miss),
 ``spill``, ``resilience``, ``degrade``, ``integrity`` (the memory and
 out-of-core runtime), ``server``, ``cache`` and ``rtfilter`` (the
-serving stack), and ``span`` (``telemetry/spans.py``). Each record is
-stamped with ``ts`` (epoch seconds), ``platform`` (``cuda`` once the
-process has initialised CUDA, else ``cpu``) and, inside
-``session_scope(sid)``, ``session``. A mandatory field left empty raises
+serving stack), ``fleet`` and ``exchange`` (the serving fleet, the
+cluster and the exchange across processes), and ``span``
+(``telemetry/spans.py``). Each record is stamped with ``ts`` (epoch
+seconds), ``platform`` (``cuda`` once the process has initialised CUDA,
+else ``cpu``), inside ``session_scope(sid)`` with ``session``, and in a
+fleet or cluster worker with ``replica`` and ``host`` (the
+``telemetry.replica`` and ``telemetry.host`` options its supervisor sets
+in the worker's environment), so a JSONL sink that several processes
+share attributes every line. A mandatory field left empty raises
 ``ValueError`` at the call site, whatever the options: an unaccountable
 fallback, recovery, corruption, step, serving event or filter decision
 is a bug.
@@ -26,9 +31,9 @@ on what costs more: the JSONL sink under ``telemetry.path`` (one
 
 ``record_compile_cache`` counts ``compile_cache.<cache>.hit|miss`` and
 ``fallbacks()`` returns the fallbacks per ``(op, reason)`` with their
-row counts, as the port did before its telemetry became a package; the
-fleet's, the exchange's and the benchmark's records wait for ROADMAP.md
-Queue 1 entry 12b.
+row counts, as the port did before its telemetry became a package. The
+reference's benchmark record (``record_bench_stale``) has no counterpart:
+the port has no benchmark harness yet.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ __all__ = [
     "record_integrity",
     "record_rtfilter",
     "record_cache",
+    "record_fleet",
+    "record_exchange",
     "session_scope",
     "current_session",
     "events",
@@ -115,12 +122,29 @@ def _platform() -> str:
     return "cpu"
 
 
+def _replica() -> str:
+    """The replica identity this process stamps on its records ("" in a
+    process that is no fleet worker)."""
+    return str(get_option("telemetry.replica") or "")
+
+
+def _host() -> str:
+    """The cluster host identity stamped beside the replica's."""
+    return str(get_option("telemetry.host") or "")
+
+
 def _emit(rec: Dict[str, Any]) -> Dict[str, Any]:
     rec.setdefault("ts", time.time())
     rec.setdefault("platform", _platform())
     sid = current_session()
     if sid is not None:
         rec.setdefault("session", sid)
+    rid = _replica()
+    if rid:
+        rec.setdefault("replica", rid)
+    hid = _host()
+    if hid:
+        rec.setdefault("host", hid)
     with _ring_lock:
         _ring.append(rec)
     REGISTRY.counter("events_total").inc()
@@ -331,6 +355,37 @@ def record_cache(op: str, event: str, *, key: str,
     rec["key"] = str(key)
     if nbytes is not None:
         rec["nbytes"] = int(nbytes)
+    _emit(rec)
+    return True
+
+
+def record_fleet(op: str, event: str, *, replica: str,
+                 **extra: Any) -> bool:
+    """A supervision event of the serving fleet or the cluster (boot,
+    live, served, replica_death, failover, duplicate_drop, memo_hit,
+    restart, quarantine, drain, identity_mismatch, and the cluster's
+    routing and exchange events). ``replica`` names the replica or host
+    the event is about ("supervisor" for the router's own). The fleet
+    counts its own ``fleet.*`` and ``cluster.*`` counters."""
+    _required("fleet", op, replica=replica)
+    _unreserved("fleet", op, extra)
+    rec = _base("fleet", op, None, None, extra)
+    rec["event"] = str(event)
+    rec["replica"] = str(replica)
+    _emit(rec)
+    return True
+
+
+def record_exchange(op: str, event: str, *, rows: Optional[int] = None,
+                    **extra: Any) -> bool:
+    """An exchange event (pack, flight, overflow_escalate,
+    chunked_flights, spill_demote, merge, parts_decision); byte and
+    flight context rides in ``extra``. ``runtime/exchange.py`` counts
+    its own ``exchange.*`` counters."""
+    _required("exchange", op, event=event)
+    _unreserved("exchange", op, extra)
+    rec = _base("exchange", op, rows, None, extra)
+    rec["event"] = str(event)
     _emit(rec)
     return True
 

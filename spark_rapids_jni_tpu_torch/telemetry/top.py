@@ -11,9 +11,13 @@ Two sources feed one renderer: :func:`collect` snapshots every open
 ``QueryServer`` of this process through ``runtime.server.live_servers()``
 (looked up in ``sys.modules``, never imported: no server module loaded
 means no servers), and the CLI's optional path argument reads a JSON
-snapshot saved from ``inspect()``. The fleet's and the cluster's views
-wait for ROADMAP.md Queue 1 entry 12b. Rendering never raises on a
-missing key.
+snapshot saved from ``inspect()``. :func:`collect_fleet` and
+:func:`collect_cluster` snapshot the open ``QueryFleet`` and
+``QueryCluster`` supervisors the same way (``runtime.fleet`` and
+``runtime.cluster``), rendered as the per-replica table
+(:func:`render_fleet`) and, for a cluster, the per-host table with the
+partition map and routing counters (:func:`render_cluster`). Rendering
+never raises on a missing key.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from __future__ import annotations
 import sys
 from typing import Any, Dict, List, Optional
 
-__all__ = ["collect", "render_top"]
+__all__ = ["collect", "collect_fleet", "collect_cluster", "render_top",
+           "render_fleet", "render_cluster"]
 
 
 def collect() -> List[Dict[str, Any]]:
@@ -30,6 +35,29 @@ def collect() -> List[Dict[str, Any]]:
     if mod is None:
         return []
     return [srv.inspect() for srv in mod.live_servers()]
+
+
+def collect_fleet() -> List[Dict[str, Any]]:
+    """Snapshot every open QueryFleet supervisor in this process (may be
+    []). Same ``sys.modules`` posture as :func:`collect` — no fleet
+    module loaded means no fleets. Mesh clusters subclass the fleet and
+    register in the same live set; they render through the cluster view
+    (:func:`collect_cluster`) instead, so they are skipped here."""
+    mod = sys.modules.get("spark_rapids_jni_tpu_torch.runtime.fleet")
+    if mod is None:
+        return []
+    return [f.inspect() for f in mod.live_fleets()
+            if not getattr(f, "is_cluster", False)]
+
+
+def collect_cluster() -> List[Dict[str, Any]]:
+    """Snapshot every open QueryCluster mesh supervisor in this process
+    (may be []). Same ``sys.modules`` posture — no cluster module loaded
+    means no clusters."""
+    mod = sys.modules.get("spark_rapids_jni_tpu_torch.runtime.cluster")
+    if mod is None:
+        return []
+    return [c.inspect() for c in mod.live_clusters()]
 
 
 def _fmt_bytes(n: Optional[int]) -> str:
@@ -92,6 +120,105 @@ def _render_one(snap: Dict[str, Any]) -> List[str]:
         lines.append("  ".join(c.ljust(widths[i])
                                for i, c in enumerate(r)).rstrip())
     return lines
+
+
+def _render_fleet_one(snap: Dict[str, Any]) -> List[str]:
+    lines: List[str] = []
+    counters = snap.get("counters") or {}
+    lines.append(
+        f"pending={snap.get('pending_queries', 0)}  "
+        f"memo={snap.get('memo_entries', 0)}  "
+        f"learned={snap.get('learned_signatures', 0)}  "
+        f"served={counters.get('fleet.served', 0)}  "
+        f"failovers={counters.get('fleet.failovers', 0)}  "
+        f"deaths={counters.get('fleet.replica_deaths', 0)}  "
+        f"quarantines={counters.get('fleet.quarantines', 0)}")
+    headers = ("replica", "state", "pid", "gen", "inflight", "served",
+               "crashes", "pong_age_s", "restart_in_s", "queued", "leaked")
+    rows = []
+    for r in snap.get("replicas") or []:
+        pong = r.get("last_pong_age_s")
+        restart = r.get("restart_in_s")
+        load = r.get("load") or {}
+        rows.append((
+            str(r.get("replica", "?")),
+            str(r.get("state", "?")),
+            str(r.get("pid") or "-"),
+            str(r.get("generation", "-")),
+            str(r.get("inflight", 0)),
+            str(r.get("served", 0)),
+            str(r.get("crashes", 0)),
+            "-" if pong is None else f"{pong:.2f}",
+            "-" if restart is None else f"{restart:.2f}",
+            str(load.get("queued", "-")),
+            _fmt_bytes(load.get("leaked")) if "leaked" in load else "-",
+        ))
+    if not rows:
+        lines.append("(no replicas)")
+        return lines
+    widths = [max(len(headers[i]), max(len(r[i]) for r in rows))
+              for i in range(len(headers))]
+    lines.append("  ".join(h.ljust(widths[i])
+                           for i, h in enumerate(headers)).rstrip())
+    lines.append("  ".join("-" * w for w in widths))
+    for r in rows:
+        lines.append("  ".join(c.ljust(widths[i])
+                               for i, c in enumerate(r)).rstrip())
+    return lines
+
+
+def render_fleet(snapshots: Any) -> str:
+    """Text view of one :meth:`QueryFleet.inspect` snapshot or a list."""
+    if isinstance(snapshots, dict):
+        snapshots = [snapshots]
+    if not snapshots:
+        return "no live query fleets in this process"
+    blocks = []
+    for i, snap in enumerate(snapshots):
+        lines = _render_fleet_one(snap)
+        if len(snapshots) > 1:
+            lines.insert(0, f"fleet {i}:")
+        blocks.append("\n".join(lines))
+    return "\n\n".join(blocks)
+
+
+def _render_cluster_one(snap: Dict[str, Any]) -> List[str]:
+    # the host table IS the replica table (one worker per simulated
+    # host), rendered by the shared fleet renderer; the cluster adds its
+    # partition map and routing counters on top
+    lines = _render_fleet_one(snap)
+    counters = snap.get("counters") or {}
+    lines.insert(1, (
+        f"routing: local={counters.get('cluster.route_local', 0)}  "
+        f"rehomed={counters.get('cluster.route_rehomed', 0)}  "
+        f"fanouts={counters.get('cluster.fanouts', 0)}  "
+        f"merges={counters.get('cluster.merges', 0)}  "
+        f"host_deaths={counters.get('cluster.host_deaths', 0)}"))
+    tables = snap.get("tables") or {}
+    for name in sorted(tables):
+        t = tables[name]
+        owners = t.get("owners") or []
+        parts = "  ".join(f"p{i}->{o or '?'}" for i, o in enumerate(owners))
+        lines.append(
+            f"table {name}: parts={t.get('parts', len(owners))} "
+            f"keys={t.get('keys')} rows={t.get('rows', '-')}  [{parts}]")
+    return lines
+
+
+def render_cluster(snapshots: Any) -> str:
+    """Text view of one :meth:`QueryCluster.inspect` snapshot or a
+    list: per-host worker table + partition map + routing counters."""
+    if isinstance(snapshots, dict):
+        snapshots = [snapshots]
+    if not snapshots:
+        return "no live query clusters in this process"
+    blocks = []
+    for i, snap in enumerate(snapshots):
+        lines = _render_cluster_one(snap)
+        if len(snapshots) > 1:
+            lines.insert(0, f"cluster {i}:")
+        blocks.append("\n".join(lines))
+    return "\n\n".join(blocks)
 
 
 def render_top(snapshots: Any) -> str:

@@ -4,8 +4,7 @@
 then the environment variable ``SPARK_RAPIDS_TPU_<OPTION>`` (dots as
 underscores, upper case), then the default). Only the options that
 ported modules read are here (the multi-executor layer, ``parallel/``,
-reads none of its own); the fleet's, the cluster's and the exchange's
-wait for ROADMAP.md Queue 1 entry 12b.
+reads none of its own).
 
 - ``log.level``: the level of the port's loggers (``utils/log.py``).
 - ``telemetry.*``: ``enabled`` turns on the JSONL sink, the span trees
@@ -13,7 +12,10 @@ wait for ROADMAP.md Queue 1 entry 12b.
   are recorded in process whether or not it is on); ``path`` the JSONL
   file; ``flight_recorder_depth`` and ``flight_recorder_path`` the
   recorder's ring and its artifact directory; ``max_spans_per_tree``
-  the in-memory tree's cap.
+  the in-memory tree's cap; ``replica`` and ``host`` the identity a
+  fleet or cluster worker stamps on every record and span ("" leaves
+  records unstamped; the supervisors set them in each worker's
+  environment).
 
 - ``regex.force_engine``: ``None`` (or ``""``) lets ``regexp_contains``
   pick the engine (the device DFA when the pattern compiles and the
@@ -34,8 +36,8 @@ wait for ROADMAP.md Queue 1 entry 12b.
 - ``degrade.*``: the degradation ladder's switch, step bound, parked
   wait and first out-of-core chunk size.
 - ``compress.*``: the columnar codec under the integrity seal, one gate
-  for each seam the port seals (spill and checkpoint), and the zstd
-  final stage's level.
+  for each seam the port seals (spill, the DCN wire and checkpoint),
+  and the zstd final stage's level.
 - ``server.*``: the serving runtime (``runtime/server.py``): in-flight
   queries, the default budget, admission timeout, per-session queue
   depth, estimate headroom, default deadline, learned-estimate blend,
@@ -46,6 +48,19 @@ wait for ROADMAP.md Queue 1 entry 12b.
   the planner pass's switch (off), the largest build side, the target
   false-positive rate, the learned gate's pass fraction and blend, the
   learned-selectivity file and its save interval.
+- ``fleet.*``: the serving fleet (``runtime/fleet.py``): replica count,
+  heartbeat cadence and timeout, failover budget, restart backoff and
+  its multiplier, the crash count that quarantines a replica, the
+  result memo's entries, the worker boot timeout and the dispatch
+  timeout.
+- ``dcn.bind_host``: the interface DCN listeners bind and dials target.
+- ``cluster.*``: the host count of ``runtime/cluster.py`` and the shard
+  registration timeout.
+- ``exchange.*``: the exchange's (``runtime/exchange.py``) largest send
+  capacity before chunked flights, the receive-side merge budget, the
+  direct host-to-host flights' switch, peer dial retries and delay and
+  their timeout, and the auto-parts sizing (target rows per part, most
+  parts).
 """
 
 from __future__ import annotations
@@ -63,6 +78,8 @@ _OPTIONS: dict[str, tuple[Any, Any]] = {
     "telemetry.flight_recorder_depth": (16, int),
     "telemetry.flight_recorder_path": ("", str),
     "telemetry.max_spans_per_tree": (2048, int),
+    "telemetry.replica": ("", str),
+    "telemetry.host": ("", str),
     "regex.force_engine": (None, (None, "device", "host")),
     "integrity.enabled": (True, bool),
     "memory.log_level": (0, int),
@@ -81,6 +98,7 @@ _OPTIONS: dict[str, tuple[Any, Any]] = {
     "degrade.chunk_rows": (65536, int),
     "compress.enabled": (True, bool),
     "compress.spill": (True, bool),
+    "compress.wire": (True, bool),
     "compress.checkpoint": (True, bool),
     "compress.zstd_level": (3, int),
     "server.max_inflight": (4, int),
@@ -103,6 +121,27 @@ _OPTIONS: dict[str, tuple[Any, Any]] = {
     "rtfilter.alpha": (0.4, float),
     "rtfilter.path": ("", str),
     "rtfilter.save_interval_s": (5.0, float),
+    "fleet.replicas": (2, int),
+    "fleet.heartbeat_interval_s": (0.5, float),
+    "fleet.heartbeat_timeout_s": (5.0, float),
+    "fleet.failover_budget": (2, int),
+    "fleet.restart_backoff_s": (0.25, float),
+    "fleet.restart_backoff_multiplier": (2.0, float),
+    "fleet.quarantine_after": (3, int),
+    "fleet.result_memo_entries": (64, int),
+    "fleet.worker_boot_timeout_s": (60.0, float),
+    "fleet.dispatch_timeout_s": (30.0, float),
+    "dcn.bind_host": ("127.0.0.1", str),
+    "cluster.hosts": (2, int),
+    "cluster.register_timeout_s": (60.0, float),
+    "exchange.max_capacity_rows": (1 << 16, int),
+    "exchange.merge_budget_bytes": (64 << 20, int),
+    "exchange.direct_enabled": (True, bool),
+    "exchange.peer_dial_retries": (8, int),
+    "exchange.peer_dial_delay_s": (0.05, float),
+    "exchange.direct_timeout_s": (30.0, float),
+    "exchange.target_rows_per_part": (4096, int),
+    "exchange.max_parts": (64, int),
 }
 _overrides: dict[str, Any] = {}
 

@@ -52,6 +52,27 @@ _CASES = [
     ("tiny", lambda rng: np.arange(3, dtype=np.int64), compress.SCHEME_RAW),
     ("empty", lambda rng: np.empty(0, dtype=np.float32),
      compress.SCHEME_RAW),
+    # narrow ranges at the integer edges: dictionary values past 2**63
+    ("narrow_uint64_top", lambda rng: (np.uint64(2**64 - 40) + rng.integers(
+        0, 40, 20_000).astype(np.uint64)), compress.SCHEME_DICT),
+    ("narrow_int64_bottom", lambda rng: (np.int64(-2**63) + rng.integers(
+        0, 40, 20_000)), compress.SCHEME_DICT),
+]
+
+# buffers for the bincount path of the dictionary and its sort fallback
+_UNIQUE_CASES = [
+    ("uint64_top", lambda rng: np.uint64(2**64 - 300) + rng.integers(
+        0, 300, 5_000).astype(np.uint64)),
+    ("uint64_straddling_2_63", lambda rng: np.uint64(2**63 - 50)
+     + rng.integers(0, 100, 5_000).astype(np.uint64)),
+    ("int64_bottom", lambda rng: np.int64(-2**63) + rng.integers(
+        0, 300, 5_000)),
+    ("int64_top", lambda rng: np.int64(2**63 - 300) + rng.integers(
+        0, 300, 5_000)),
+    ("int32_signed", lambda rng: rng.integers(-70, 70, 5_000).astype(
+        np.int32)),
+    ("uint8_full", lambda rng: rng.integers(0, 256, 5_000).astype(np.uint8)),
+    ("int64_wide", lambda rng: rng.integers(-2**62, 2**62, 5_000)),
 ]
 
 
@@ -79,6 +100,18 @@ def test_frames_equal_the_reference(name, mk, scheme, level):
         assert got.dtype == arr.dtype and got.shape == arr.shape
         assert got.tobytes() == arr.tobytes()
     assert telemetry.counter("compress.bytes_in") == arr.nbytes
+
+
+@pytest.mark.parametrize("name,mk", _UNIQUE_CASES,
+                         ids=[c[0] for c in _UNIQUE_CASES])
+def test_unique_inverse_equals_numpy_unique(name, mk):
+    arr = mk(np.random.default_rng(len(name)))
+    values, indices = compress._unique_inverse(arr)
+    want_values, want_indices = np.unique(arr, return_inverse=True)
+    assert values.dtype == arr.dtype
+    assert values.tobytes() == want_values.tobytes()
+    assert np.array_equal(indices.reshape(-1), want_indices.reshape(-1))
+    assert compress.encode_array(arr) == jcompress.encode_array(arr)
 
 
 @pytest.mark.parametrize("name,mk", [(c[0], c[1]) for c in _CASES[::3]],

@@ -1938,3 +1938,74 @@ def test_one_rank_nccl_collectives_equal_local(dev, tmp_path):
             assert a[0].dtype == b[0].dtype and torch.equal(a[0], b[0])
     finally:
         tdist.destroy_process_group()
+
+
+def test_cuda_table_round_trips_the_wire_onto_the_card(dev):
+    from spark_rapids_jni_tpu_torch.parallel import dcn
+
+    li = tpch.lineitem_table(30_000, seed=23, device=dev)
+    back = dcn.deserialize_table(dcn.serialize_table(li), device=dev)
+    assert all(c.data.device.type == "cuda" for c in back.columns)
+    assert back.equals(li)
+    # the frame of the card's table is the frame of its host copy
+    host = tpch.lineitem_table(30_000, seed=23, device="cpu")
+    assert dcn.serialize_table(li) == dcn.serialize_table(host)
+
+
+def test_fleet_on_the_card_serves_planned_q1_bit_identical(dev):
+    from spark_rapids_jni_tpu_torch.runtime import fleet, fusion
+
+    li = tpch.lineitem_table(20_000, seed=24)
+    plan = tpch._q1_planned_plan()
+    want = fusion.execute(plan, {"lineitem": li}).table
+    with fleet.QueryFleet(1, device=dev) as f:
+        assert f.wait_live(timeout=120) == 1
+        r0 = f._find("r0")
+        # the worker booted on a CUDA device of its own process
+        assert r0.boot_info["device"].startswith("cuda")
+        assert r0.boot_info["device_name"] == torch.cuda.get_device_name(0)
+        res = f.submit("s0", plan, {"lineitem": li}).result(timeout=120)
+        assert res.table.columns[0].data.device.type == "cuda"
+        assert res.table.equals(want)
+        # the worker counted its own launches of kernel A: one query
+        assert f.fresh_loads()["r0"]["launches"] == {kga.NAME: 1}
+        assert f.leaked_bytes() == 0
+
+
+def test_general_float_groupby_sum_varies_only_in_rounding(
+        dev, record_property):
+    """The general groupby's float64 sums add each group's rows with
+    ``index_add_`` (atomic adds, in an order the card picks): the same
+    input may give other low bits from run to run, so a fleet's
+    bit-identity check must not serve such a plan (it serves integer and
+    decimal plans; ROADMAP.md Queue 3). Eight runs: the counts are
+    bit-identical, each sum lies within float64's reordering bound of
+    the exact sum, and the number of distinct bit patterns of the sums
+    is recorded (``distinct_sum_bits``, printed with ``-s``): more than
+    one shows the finding, one that the sums came out deterministic."""
+    import math
+
+    rng = np.random.default_rng(31)
+    n = 4_000_000
+    keys = rng.integers(0, 4, n).astype(np.int64)
+    vals = rng.normal(size=n) * 1e6
+    tab = Table([Column.from_numpy(keys, device=dev),
+                 Column.from_numpy(vals, device=dev)])
+    exact = [math.fsum(vals[keys == k]) for k in range(4)]
+    # |sum in any order - exact| <= (m - 1) * eps * sum |x| for m rows
+    bound = [(np.count_nonzero(keys == k) - 1) * np.finfo(np.float64).eps
+             * float(np.abs(vals[keys == k]).sum()) for k in range(4)]
+    bits, counts = set(), set()
+    for _ in range(8):
+        g = groupby_aggregate(tab, [0], [(1, "sum"), (1, "count")],
+                              max_groups=None)
+        order = g.table.column(0).data[:4].cpu().numpy()
+        assert sorted(order.tolist()) == [0, 1, 2, 3]
+        sums = g.table.column(1).data[:4]
+        bits.add(sums.view(torch.int64).cpu().numpy().tobytes())
+        counts.add(g.table.column(2).data[:4].cpu().numpy().tobytes())
+        for k, s in zip(order, sums.cpu().numpy()):
+            assert abs(float(s) - exact[k]) <= bound[k]
+    assert len(counts) == 1
+    record_property("distinct_sum_bits", len(bits))
+    print(f"distinct_sum_bits {len(bits)} of 8 runs")

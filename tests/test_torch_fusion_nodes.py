@@ -13,9 +13,8 @@ package's over TPC-DS q72 and q64 and over hand-built plans.
   functions of this file (``*_port`` / ``*_ref`` pairs); their tables,
   meta, fingerprints and ``estimate_hbm_bytes`` equal the reference's.
 - ``split_at_exchange`` and ``replace_node`` equal the reference's, and
-  an Exchange (root or mid-plan) raises ``NotImplementedError`` naming
-  its ROADMAP entries (the runtime-filter pass is not in the port until
-  entry 12)."""
+  an Exchange (the root's wire form and meta, and a mid-plan one run as
+  region -> exchange -> region) executes to the reference's result."""
 
 from __future__ import annotations
 
@@ -216,7 +215,19 @@ def test_split_at_exchange_and_replace_node_match_reference():
 
 
 def test_exchange_and_runtime_filters_name_their_roadmap_entries():
-    port_tabs, _ = _node_tables(50, seed=2)
-    for plan in _exchange_plans(fusion):
-        with pytest.raises(NotImplementedError, match="entries 11-12"):
-            fusion.execute(plan, port_tabs)
+    """An Exchange executes as the reference's does: the root's wire
+    table and routing meta, and the mid-plan plan's result."""
+    port_tabs, ref_tabs = _node_tables(50, seed=2)
+    (root, mid), (jroot, jmid) = (_exchange_plans(fusion),
+                                  _exchange_plans(jfusion))
+    got, want = (fusion.execute(root, port_tabs),
+                 jfusion.execute(jroot, ref_tabs))
+    for key in ("parts", "capacity", "flights", "row_counts", "rows"):
+        assert got.meta[f"exchange.{key}"] == want.meta[f"exchange.{key}"]
+    assert_same_valid_table(got.table, want.table)
+    got, want = (fusion.execute(mid, port_tabs),
+                 jfusion.execute(jmid, ref_tabs))
+    assert got.meta["exchange.dests"] == want.meta["exchange.dests"]
+    assert_same_valid_table(got.table, want.table)
+
+

@@ -102,6 +102,10 @@ def test_import_leaves_jax_unloaded():
             "spark_rapids_jni_tpu_torch.parallel.shuffle, "
             "spark_rapids_jni_tpu_torch.parallel.distributed, "
             "spark_rapids_jni_tpu_torch.parallel.sort, "
+            "spark_rapids_jni_tpu_torch.parallel.dcn, "
+            "spark_rapids_jni_tpu_torch.runtime.exchange, "
+            "spark_rapids_jni_tpu_torch.runtime.fleet, "
+            "spark_rapids_jni_tpu_torch.runtime.cluster, "
             "spark_rapids_jni_tpu_torch.errors, "
             "chip_smoke_writers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -110,6 +114,22 @@ def test_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_booted_workers_hold_no_jax():
+    """A fleet replica and a cluster host, booted on the CPU, report
+    their loaded modules: neither JAX nor the JAX package is among
+    them."""
+    from spark_rapids_jni_tpu_torch.runtime import cluster, fleet
+
+    with fleet.QueryFleet(1, device="cpu") as f, \
+            cluster.QueryCluster(1, device="cpu") as c:
+        assert f.wait_live(timeout=120) == 1 and c.wait_live(timeout=120) == 1
+        for w in (f._find("r0"), c._host("h0")):
+            mods = set(w.boot_info["modules"])
+            assert "torch" in mods and "spark_rapids_jni_tpu_torch" in mods
+            assert not mods & set(FORBIDDEN), sorted(mods & set(FORBIDDEN))
+            assert w.boot_info["device"] == "cpu"
 
 
 # the modules whose functions may import pyarrow: the Arrow interchange,

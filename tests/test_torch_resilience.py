@@ -100,8 +100,12 @@ def test_malformed_input_is_the_taxonomy_class():
 
 
 def test_worker_exit_waits_for_the_fleet():
-    with pytest.raises(NotImplementedError, match="entries 11-12"):
-        resilience.classify_worker_exit(-9)
+    """A reaped worker's exit classifies as the reference's does."""
+    for rc in (-9, 1, None):
+        got = resilience.classify_worker_exit(rc, replica="r1")
+        want = jres.classify_worker_exit(rc, replica="r1")
+        assert isinstance(got, resilience.ReplicaDeadError)
+        assert (str(got), got.context) == (str(want), want.context)
 
 
 def _flaky(pkg, fails: int):

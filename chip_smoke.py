@@ -294,8 +294,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the workers; ``exchange_local``, ``partitioned_groupby``,
    ``partitioned_join`` (D once a partition) and the one-plan q13 in
    this process, each equal to its single-device counterpart;
-22. one ``{"kernels": [...]}`` line, the card line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+22. what the card once refused, at full width: ``plan_groupby_auto``
+   over SF10 lineitem (59,986,052 rows) by l_suppkey with the DDL
+   domain of 100,000 supplier keys from a budget of 4,096 (TPC-H q15's
+   revenue-by-supplier aggregate: sum and count of l_quantity and
+   l_extendedprice, their min and max), lowered to the bounded plan at
+   m = 100,001 with kernel A launched exactly ``launches(m, L)`` times
+   (windows of groups), equal to the same call with no domain (the
+   general plan) and to ``np.bincount``, and A alone at this shape
+   against its plain version; ``convert_to_rows(enforce_row_limit=
+   False)`` over 200 INT64 columns x 2,000,000 rows (1,632-byte rows)
+   and 8,000 x 20,000 (65,000-byte rows), ~10 % nulls, kernel C once
+   each, equal byte for byte to its plain version, the round trip
+   through ``convert_from_rows`` exact, C's time beside its byte bound;
+   the general groupby by l_suppkey of a FLOAT64 sum over a quarter of
+   SF10 lineitem three times, kernel E once a run, the same bits each
+   run, within 1e-12 * sum|x| of the plain version and (count - 1) *
+   eps * sum|x| of the exact sum, and E alone at this shape against its
+   plain version; no fallback anywhere in the phase;
+23. one ``{"kernels": [...]}`` line (A-D and E, the general groupby's
+   float sums), the card line, and the final ``{"ok": true, "device":
+   {...}}`` line.
 
 A JSON copy of the report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -386,6 +405,25 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# kernel E's launches (the general groupby's float sums, wherever a path
+# runs them), by the path whose counts were read
+E_BY_PATH: dict = {}
+
+
+def _launches_but_e(path: str) -> dict:
+    """The launches since the last reset of every kernel but E, whose
+    launches are recorded under ``path`` for its row of the kernels
+    line: the paths' checks of A-D stay as they were."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
+
+    got = dict(kernels.launches())
+    e = got.pop(kss.NAME, 0)
+    if e:
+        E_BY_PATH[path] = E_BY_PATH.get(path, 0) + e
+    return got
 
 
 def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
@@ -770,6 +808,7 @@ def _run_plan(name: str, fn, want: dict):
     res = fn()
     torch.cuda.synchronize()
     got = {"A": kernels.launches(kga.NAME), "D": kernels.launches(khp.NAME)}
+    _launches_but_e(name)
     require(got == {"A": want.get("A", 0), "D": want.get("D", 0)},
             f"{name} launched {got}, not {want}")
     require(not kernels.fallbacks(),
@@ -1653,9 +1692,9 @@ def _no_launch(name: str, fn):
     kernels.reset_counts()
     res = fn()
     torch.cuda.synchronize()
-    require(kernels.launches() == {} and not kernels.fallbacks(),
-            f"{name}: launches {kernels.launches()}, fallbacks "
-            f"{kernels.fallbacks()}")
+    got = _launches_but_e(name)
+    require(got == {} and not kernels.fallbacks(),
+            f"{name}: launches {got}, fallbacks {kernels.fallbacks()}")
     return res
 
 
@@ -3426,14 +3465,14 @@ def _same_tables(what: str, got, want) -> None:
 
 def _launched_only(what: str, fn, want: dict):
     """``fn()`` with the counts reset just before it and read just after:
-    the kernels launched are exactly ``want`` (``{name: n}``), and no
-    kernel fell back."""
+    the kernels launched but E (recorded apart) are exactly ``want``
+    (``{name: n}``), and no kernel fell back."""
     from spark_rapids_jni_tpu_torch.ops import kernels
 
     kernels.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    got = kernels.launches()
+    got = _launches_but_e(what)
     require({k: v for k, v in got.items() if v} == want,
             f"{what} launched {got}, not {want}")
     require(not kernels.fallbacks(), f"{what} fell back: "
@@ -4233,8 +4272,9 @@ class _Part:
 
         torch.cuda.synchronize()
         s = time.perf_counter() - self.t0
-        require(kernels.launches() == {} and not kernels.fallbacks(),
-                f"{self.name}: launches {kernels.launches()}, fallbacks "
+        got = _launches_but_e(f"operators part {self.name}")
+        require(got == {} and not kernels.fallbacks(),
+                f"{self.name}: launches {got}, fallbacks "
                 f"{kernels.fallbacks()}")
         self.parts[self.name] = s
         log(f"operators part {self.name}: {s:.1f} s, no launch of A-D")
@@ -5779,8 +5819,9 @@ def _refusals(li) -> dict:
             f"ladder: fired {script.fired}, meta {res.meta}")
         require(telemetry.counter("degrade.step") - steps == 1,
                 "the ladder did not step exactly once")
-        require(not any(kernels.launches().values()),
-                f"the out-of-core tier launched {kernels.launches()}")
+        got = _launches_but_e("served ladder, out-of-core tier")
+        require(not any(got.values()),
+                f"the out-of-core tier launched {got}")
         _q1_rows("served ladder", res.table, fusion.execute(q1p, lb).table)
         out["ladder_s"] = ladder.latency_s
     finally:
@@ -6907,6 +6948,304 @@ def across_processes_phase(dev) -> tuple:
         f"device peak {out['peak_gib']:.2f} GiB")
     return launches, out
 
+# ---- phase 22: what the card refused ----------------------------------------
+
+# (INT64 columns, rows): 1,632-byte rows x 2,000,000 (3.26 GB of rows) and
+# 65,000-byte rows x 20,000 (1.3 GB)
+WIDE_ROWS = ((200, 2_000_000), (8_000, 20_000))
+FLOAT_SUM_RUNS = 3
+# TPC-H q15's revenue-by-supplier aggregate: sum and count of l_quantity
+# and l_extendedprice, and their min and max
+SUPPLIER_AGGS = [(1, "sum"), (1, "count"), (2, "sum"), (2, "count"),
+                 (1, "min"), (1, "max"), (2, "min"), (2, "max")]
+
+
+def _bounded_suppliers_part(gtab, dev, out: dict) -> int:
+    """(a) ``plan_groupby_auto`` over SF10 lineitem by l_suppkey with the
+    DDL domain of 100,000 supplier keys from a budget of 4,096: the
+    bounded plan at m = 100,001, kernel A launched ``launches(m, L)``
+    times (windows of groups), equal to the same call with no domain
+    (the general plan) and to ``np.bincount``; then A alone at this shape
+    against its plain version. Returns A's launches."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.ops.groupby import bounded_lanes
+    from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        bounded_accumulate_inputs,
+        plan_groupby_auto,
+        scalar_domain,
+    )
+
+    m = SUPPLIERS + 1
+    domains = [scalar_domain(range(1, SUPPLIERS + 1))]
+    num_lanes = len(bounded_lanes(gtab, SUPPLIER_AGGS).lanes)
+    want_a = kga.launches(m, num_lanes)
+    windows, per = kga.launch_plan(m, num_lanes)
+    t0 = time.perf_counter()
+    res, got = _run_plan(
+        "plan_groupby_auto(l_suppkey, DDL domain)",
+        lambda: plan_groupby_auto(gtab, [0], SUPPLIER_AGGS, domains,
+                                  budget=4096), {"A": want_a})
+    s_bounded = time.perf_counter() - t0
+    require(res.lowered == "bounded" and not bool(res.domain_miss)
+            and res.table.num_rows == m,
+            f"supplier keys: {res.lowered}, miss {bool(res.domain_miss)}, "
+            f"{res.table.num_rows} slots")
+    t0 = time.perf_counter()
+    gen = _no_launch("plan_groupby_auto(l_suppkey, no domain)",
+                     lambda: plan_groupby_auto(gtab, [0], SUPPLIER_AGGS,
+                                               [None], budget=4096))
+    s_general = time.perf_counter() - t0
+    present = res.present
+    k = int(present.sum())
+    require(gen.lowered == "general" and int(gen.present.sum()) == k,
+            f"general plan: {gen.lowered}, {int(gen.present.sum())} groups, "
+            f"bounded {k}")
+    # bounded slots in key order (no null key here) = the general plan's
+    # rows sorted by key
+    for i, (b, g) in enumerate(zip(res.table.columns, gen.table.columns)):
+        bv, gv = b.valid_mask()[present], g.valid_mask()[:k]
+        require(torch.equal(bv, gv)
+                and torch.equal(b.data[present][bv], g.data[:k][gv]),
+                f"bounded column {i} != the general plan's")
+    skey = gtab.column(0).data.cpu().numpy()
+    qty = gtab.column(1).data.cpu().numpy()
+    qv = gtab.column(1).valid_mask().cpu().numpy()
+    price = gtab.column(2).data.cpu().numpy()
+    slots = np.flatnonzero(present.cpu().numpy())
+    oracle = {1: np.bincount(skey, weights=np.where(qv, qty, 0), minlength=m),
+              2: np.bincount(skey, weights=qv, minlength=m),
+              3: np.bincount(skey, weights=price, minlength=m),
+              4: np.bincount(skey, minlength=m)}
+    require(np.array_equal(slots + 1, np.flatnonzero(oracle[4])),
+            "present slots != the suppliers with rows")
+    for col, want in oracle.items():
+        got_col = res.table.column(col).data[present].cpu().numpy()
+        require(np.array_equal(got_col, want[slots + 1].astype(np.int64)),
+                f"supplier column {col} != np.bincount")
+    log(f"bounded plan over supplier keys: m = {m}, {k} suppliers, kernel "
+        f"A {got['A']} launches ({len(windows)} windows of "
+        f"{windows[0][1]} groups, {per} lane(s) a launch, {num_lanes} "
+        f"lanes), equal to the general plan and np.bincount; "
+        f"{s_bounded:.1f} s (general attempts 4,096-65,536 included), "
+        f"general {s_general:.1f} s")
+    del gen, res
+    row = _accumulate_row(*bounded_accumulate_inputs(
+        gtab, [0], SUPPLIER_AGGS, domains), dev, "supplier keys")
+    out["bounded_suppliers"] = dict(
+        row, windows=len(windows), window_groups=windows[0][1],
+        lanes_a_launch=per, s=s_bounded, general_s=s_general, groups=k)
+    return got["A"]
+
+
+def _wide_rows_part(dev, out: dict) -> int:
+    """(b) ``convert_to_rows(enforce_row_limit=False)`` over INT64 tables
+    of ``WIDE_ROWS`` with ~10 % nulls: kernel C once a table, no
+    fallback, byte for byte its plain version; ``convert_from_rows`` of
+    every batch gives the columns back exactly; C alone against its
+    plain version and byte bound. Returns C's launches."""
+    from spark_rapids_jni_tpu_torch import types as t
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops.kernels import row_transpose as krt
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import (
+        compute_fixed_width_layout,
+        convert_from_rows,
+        convert_to_rows,
+    )
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    launched = 0
+    for ncols, n in WIDE_ROWS:
+        data = torch.randint(-2**62, 2**62, (ncols, n), generator=gen,
+                             device=dev, dtype=torch.int64)
+        valid = torch.rand((ncols, n), generator=gen, device=dev) >= 0.1
+        tbl = Table([Column(t.INT64, data[i], valid[i])
+                     for i in range(ncols)])
+        schema = tbl.schema()
+        starts, _, spr = compute_fixed_width_layout(schema)
+        what = f"convert_to_rows({ncols} INT64 columns, {spr}-byte rows)"
+        batches = _launched_only(what, lambda: convert_to_rows(
+            tbl, enforce_row_limit=False), {krt.NAME: 1})
+        launched += 1
+        datas = [c.data for c in tbl.columns]
+        valids = [c.validity for c in tbl.columns]
+        want = krt.assemble_rows_plain(datas, valids, schema, starts, spr)
+        r0 = 0
+        for b in batches:
+            rows = b.data.view(b.num_rows, spr)
+            require(torch.equal(rows, want[r0:r0 + b.num_rows]),
+                    f"{what}: batch at row {r0} != the plain version")
+            back = convert_from_rows(b, schema)
+            require(torch.equal(torch.stack([c.data for c in back.columns]),
+                                data[:, r0:r0 + b.num_rows])
+                    and torch.equal(
+                        torch.stack([c.validity for c in back.columns]),
+                        valid[:, r0:r0 + b.num_rows]),
+                    f"{what}: the round trip at row {r0} is not exact")
+            del back
+            r0 += b.num_rows
+        require(r0 == n, f"{what}: batches hold {r0} rows")
+        del batches, want
+        b_ms, b_by = bound(data.nbytes + valid.nbytes + n * spr, 0)
+        row = dict(
+            columns=ncols, rows=n, row_bytes=spr, launches=1,
+            rows_per_block=min(128, 232_448 // spr) if spr <= 232_448
+            else 0, max_abs_err=0.0,
+            ms=median_ms(lambda: krt._assemble_rows_cuda(
+                datas, valids, schema, starts, spr)),
+            plain_ms=median_ms(lambda: krt.assemble_rows_plain(
+                datas, valids, schema, starts, spr)),
+            bound_ms=b_ms, bound_by=b_by)
+        out[f"wide_rows_{spr}"] = row
+        log(f"kernel C at {spr}-byte rows x {n}: {n * spr / 1e9:.2f} GB, "
+            f"equal to the plain version byte for byte, round trip exact; "
+            f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, bound "
+            f"{b_ms:.3f} by {b_by})")
+        del tbl, datas, valids, data, valid
+        torch.cuda.empty_cache()
+    return launched
+
+
+def _float_sums_part(ftab, dev, out: dict) -> tuple:
+    """(c) the general groupby by l_suppkey of a FLOAT64 sum over a quarter
+    of SF10 lineitem, three runs: kernel E once a run, the same bits
+    each time, each sum within 1e-12 * sum|x| of the plain version's and
+    within (count - 1) * eps * sum|x| of the exact sum (a long double
+    sum on the host), NaN where a group holds one; then E alone at this
+    shape against its plain version, and bit for bit the groupby's.
+    Returns (E's kernel row, its launches)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.ops import groupby as gb
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    n = ftab.num_rows
+    runs, launched = [], 0
+    for i in range(FLOAT_SUM_RUNS):
+        kernels.reset_counts()
+        g = gb.groupby_aggregate(ftab, [0], [(1, "sum")],
+                                 max_groups=SUPPLIERS)
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        require(got == {kss.NAME: 1} and not kernels.fallbacks(),
+                f"float sums run {i}: launched {got}, fell back "
+                f"{kernels.fallbacks()}")
+        launched += 1
+        k = int(g.num_groups)
+        runs.append(g.table.column(1).data[:k].clone())
+        del g
+    E_BY_PATH["float sums by l_suppkey"] = launched
+    require(all(torch.equal(r.view(torch.int64), runs[0].view(torch.int64))
+                for r in runs), "float sums differ between runs")
+    # the same sums from the kernel's and the plain version's inputs: the
+    # rows sorted by key (stable), the groups' bounds
+    key_sorted, order = torch.sort(ftab.column(0).data, stable=True)
+    same = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                      key_sorted[1:] == key_sorted[:-1]])
+    G = gb._Groups(same, n, SUPPLIERS, dev)
+    vals = ftab.column(1).data[order].to(torch.float64)
+    del key_sorted, order, same
+    got = kss._segment_sum_cuda(vals, G.g_lo, G.g_hi)
+    want = kss.segment_sum_plain(vals, G.gid, SUPPLIERS)
+    torch.cuda.synchronize()
+    require(torch.equal(got[:k].view(torch.int64),
+                        runs[0].view(torch.int64)),
+            "kernel E at the groupby's inputs != the groupby's sums")
+    nan = torch.isnan(want)
+    near = (got - want).abs() <= kss.sum_bound(vals, G.gid, SUPPLIERS)
+    require(torch.equal(torch.isnan(got), nan) and bool((nan | near).all()),
+            "kernel E past 1e-12 * sum|x| of its plain version")
+    h_vals = vals.cpu().numpy()
+    lo, hi = G.g_lo[:k].cpu().numpy(), G.g_hi[:k].cpu().numpy()
+    exact = np.add.reduceat(h_vals.astype(np.longdouble), lo)
+    absum = np.add.reduceat(np.abs(h_vals), lo)
+    count = hi - lo
+    h_got = got[:k].cpu().numpy()
+    fin = np.isfinite(exact)
+    # the long double sum's own error is (count - 1) * 2^-64 * sum|x|
+    tol = (count - 1) * (np.finfo(np.float64).eps + 2.0 ** -63) * absum
+    err = np.abs(h_got.astype(np.longdouble) - exact)
+    require(bool((err[fin] <= tol[fin]).all())
+            and np.array_equal(np.isnan(h_got), np.isnan(exact)),
+            "kernel E past (count - 1) * eps * sum|x| of the exact sum")
+    m = SUPPLIERS
+    idx = G.gid.clamp(max=m)
+    zeros = torch.zeros(m + 1, dtype=torch.float64, device=dev)
+    b_ms, b_by = bound(vals.nbytes + G.g_lo.nbytes + G.g_hi.nbytes
+                       + got.nbytes, n)
+    row = dict(
+        name=kss.NAME, route="cuda",
+        source="spark_rapids_jni_tpu_torch/csrc/segment_sum.cu",
+        replaces="spark_rapids_jni_tpu/ops/groupby.py:186 "
+                 "(_segmented_sum_scan, an XLA scan)",
+        max_abs_err=float((got - want)[~nan].abs().max()),
+        ms=median_ms(lambda: kss._segment_sum_cuda(vals, G.g_lo, G.g_hi)),
+        plain_ms=median_ms(lambda: kss.segment_sum_plain(vals, G.gid, m)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: zeros.index_add_(0, idx, vals)))
+    out["float_sums"] = dict(
+        rows=n, groups=k, runs=FLOAT_SUM_RUNS, nan_groups=int(nan.sum()),
+        max_rel_to_exact=float(np.max(err[fin] / np.maximum(
+            absum[fin], 1e-300))), **{x: row[x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
+    log(f"float sums by l_suppkey over {n} rows: {k} groups, kernel E once "
+        f"a run, the same bits in {FLOAT_SUM_RUNS} runs, within 1e-12 * "
+        f"sum|x| of the plain version and (count - 1) * eps * sum|x| of "
+        f"the exact sum ({int(nan.sum())} NaN groups); E {row['ms']:.3f} ms "
+        f"(plain {row['plain_ms']:.3f}, index_add_ {row['library_ms']:.3f}, "
+        f"bound {b_ms:.3f} by {b_by})")
+    return row, launched
+
+
+def refused_inputs_phase(dev) -> tuple:
+    """Phase 22: what the card once refused, at full width on one H100.
+    (a) the bounded plan over SF10's 100,000 supplier keys (kernel A in
+    windows of groups); (b) rows of 1,632 and 65,000 bytes (kernel C
+    past its 128-row staging); (c) the general groupby's float sums in a
+    fixed order (kernel E). Returns ({path: {kernel: launches}}, E's
+    kernel row, the phase's numbers)."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    tab, _ = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
+    QTY, PRICE, SKEY, F64 = 0, 1, 8, 9
+    gtab = Table([tab.column(SKEY), tab.column(QTY), tab.column(PRICE)])
+    q = ROWS // 4
+    fcols = [tab.column(SKEY), tab.column(F64)]
+    ftab = Table([type(c)(c.dtype, c.data[:q], None if c.validity is None
+                          else c.validity[:q]) for c in fcols])
+    del tab, fcols
+    torch.cuda.synchronize()
+    log(f"phase 22 tables: {ROWS} rows by l_suppkey in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    a = _bounded_suppliers_part(gtab, dev, out)
+    del gtab
+    torch.cuda.empty_cache()
+    c = _wide_rows_part(dev, out)
+    e_row, e = _float_sums_part(ftab, dev, out)
+    del ftab
+    torch.cuda.empty_cache()
+    require(not kernels.fallbacks(), f"phase 22 fell back: "
+            f"{kernels.fallbacks()}")
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 22 (what the card refused): {out['s']:.1f} s (target 60), "
+        f"device peak {out['peak_gib']:.2f} GiB, launches A {a}, C {c}, "
+        f"E {e}, no fallback")
+    launches = {"bounded plan over supplier keys": {"A": a},
+                "wide rows": {"C": c}}
+    return launches, e_row, out
+
 
 def _start_native_build():
     """Build the readers' native library on a thread while nvcc builds
@@ -7026,6 +7365,8 @@ def main() -> int:
         dev, q1_oracle, q1_general, q3_oracle)
     mx_launches, path_times["multiple_executors"] = multi_executor_phase(dev)
     xp_launches, path_times["across_processes"] = across_processes_phase(dev)
+    rf_launches, kernel_rows["E"], path_times["refused_inputs"] = \
+        refused_inputs_phase(dev)
     # each kernel's launches on every path that runs it, each read just
     # after its run
     by_plan = {**q3_launches, **ds_launches, **st_launches, **more_launches,
@@ -7042,7 +7383,17 @@ def main() -> int:
         "row round trip": launches[kernel_rows["C"]["name"]],
         "bridge convert_to_rows": path_times["executor_and_bridge"][
             "bridge"]["convert_to_rows"]["launches"][kernel_rows["C"]["name"]]}
-    for k in ("A", "C", "D"):
+    # phases 1-21 alone, then phase 22's paths and E's wherever it ran
+    earlier = {k: sum(kernel_rows[k]["launches_by_path"].values())
+               for k in ("A", "C", "D")}
+    log(f"launches of phases 1-21: A {earlier['A']}, C {earlier['C']}, "
+        f"D {earlier['D']}")
+    path_times["launches_phases_1_21"] = earlier
+    for path, counts in rf_launches.items():
+        for k, n in counts.items():
+            kernel_rows[k]["launches_by_path"][path] = n
+    kernel_rows["E"]["launches_by_path"] = dict(E_BY_PATH)
+    for k in ("A", "C", "D", "E"):
         launches[kernel_rows[k]["name"]] = sum(
             kernel_rows[k]["launches_by_path"].values())
 

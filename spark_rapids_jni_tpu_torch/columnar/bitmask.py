@@ -30,3 +30,14 @@ def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
     :func:`pack_bits_last_axis` on one axis."""
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     return ((packed[:, None] >> shifts) & 1).reshape(-1)[:n].bool()
+
+
+def pack_validity(valid: torch.Tensor) -> torch.Tensor:
+    """Pack a bool[n] validity vector into a little-endian uint8
+    bitmask of ceil(n/8) bytes; trailing pad bits are 0."""
+    return pack_bits_last_axis(valid)
+
+
+def unpack_validity(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """Unpack a little-endian uint8 bitmask into bool[n]."""
+    return unpack_bits(mask, n)

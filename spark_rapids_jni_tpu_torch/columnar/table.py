@@ -5,6 +5,7 @@ equal-length columns."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 from spark_rapids_jni_tpu_torch.columnar.column import Column
 
@@ -27,6 +28,13 @@ class Table:
     @property
     def num_rows(self) -> int:
         return self.columns[0].size if self.columns else 0
+
+    @classmethod
+    def from_pylists(cls, columns: Sequence[tuple[Sequence, object]],
+                     device=None) -> "Table":
+        """Build from [(values, dtype), ...], ``None`` marking nulls (see
+        :meth:`Column.from_pylist`; ``device=None`` is the card)."""
+        return cls([Column.from_pylist(v, d, device) for v, d in columns])
 
     def column(self, i: int) -> Column:
         return self.columns[i]

@@ -32,6 +32,13 @@
 //   * a launch takes up to kParamLanes lanes within the 227 KB of dynamic
 //     shared memory a block may opt in to; the wrapper splits more lanes
 //     over several launches, each reading gid again.
+//   * a domain too wide for one lane's partials (m past ~23,000 slots)
+//     splits into windows of groups [g0, g0 + w): each launch of the
+//     large kernel covers one window (a row whose group falls outside it
+//     joins no group there), and its fold writes that window's block of
+//     out[m, L]. The wrapper picks the window width and the lanes a
+//     launch that read the fewest bytes; each launch keeps one fixed
+//     order, so float sums still repeat bit for bit.
 //
 // Bound on this card: bytes (each row's group id, and each lane's value
 // and validity bytes, read once). The first design sent every (row,
@@ -103,7 +110,8 @@
 // every warp made it 1.9x slower).
 // Dynamic shared memory per block: 40 bytes a lane plus m * L partials
 // (8 bytes each); for the small kernel m * 256 private partials and the
-// tile's 8,192 one-byte group ids, for the large kernel m two-byte tags.
+// tile's 8,192 one-byte group ids, for the large kernel m two-byte tags
+// (m: the window's width).
 // ptxas's registers and spills are in build.log (-Xptxas -v).
 
 #include <cstdint>
@@ -443,11 +451,13 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
   return pos;
 }
 
+// m is the window's width: a row of gid in [g0, g0 + m) is in its group
+// gid - g0 (g0 = 0 and m the domain when the domain fits one launch)
 template <int THREADS, bool FLOATS>
 __global__ void __launch_bounds__(THREADS)
 accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
                         const __grid_constant__ LaneParams params,
-                        int num_lanes, int m,
+                        int num_lanes, int m, int g0,
                         long long* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   Lane* lane_s = reinterpret_cast<Lane*>(smem);
@@ -466,7 +476,7 @@ accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
        base < n; base += stride) {
     const int64_t row = base + threadIdx.x;
     const bool in = row < n;
-    const int32_t g = in ? gid[row] : -1;
+    const int32_t g = in ? gid[row] - g0 : -1;
     const bool ok = g >= 0 && g < m;
     // Are the warp's rows in distinct groups? Each claims its group's
     // tag; two rows of one group cannot both read their own claim back,
@@ -635,21 +645,24 @@ extern "C" int srjt_groupby_accumulate_shape(int32_t num_lanes, int32_t m,
 }
 
 // gid: device int32[n]; lanes: HOST int64[num_lanes, 5] (see Lane),
-// 1 <= num_lanes <= kParamLanes; floats and threads as given to and by
-// srjt_groupby_accumulate_shape; scratch: device int64[blocks, m *
-// num_lanes]; out: device int64[m, num_lanes], each cell the 64-bit
+// 1 <= num_lanes <= kParamLanes; the window: groups [g0, g0 + m) (g0 = 0
+// and m the domain when it fits one launch; a window needs m > kSmallM);
+// floats and threads as given to and by srjt_groupby_accumulate_shape;
+// scratch: device int64[blocks, m * num_lanes]; out: device int64[m,
+// num_lanes], the window's rows of the result, each cell the 64-bit
 // pattern of its result (a float lane's float64 bits, a uint64 lane's
 // bits). m <= kSmallM takes the per-thread kernel, larger m the
 // warp-aggregated one. Launches on ``stream`` and returns the first CUDA
 // error.
 extern "C" int srjt_groupby_accumulate(const void* gid, int64_t n,
                                        const void* lanes, int32_t num_lanes,
-                                       int32_t m, int32_t floats,
+                                       int32_t m, int32_t g0, int32_t floats,
                                        int32_t threads, void* scratch,
                                        int32_t blocks, void* out,
                                        void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (num_lanes < 1 || num_lanes > kParamLanes || blocks < 1) {
+  if (num_lanes < 1 || num_lanes > kParamLanes || blocks < 1 || g0 < 0 ||
+      (g0 > 0 && m <= kSmallM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -663,9 +676,10 @@ extern "C" int srjt_groupby_accumulate(const void* gid, int64_t n,
   const void* kernel = kernel_for(m, block, floats != 0);
   const int err = allow(kernel, smem);
   if (err != 0) return err;
-  void* args[] = {&g, &n, &params, &num_lanes, &m, &part};
-  cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks), dim3(block), args,
-                                   smem, s);
+  void* small_args[] = {&g, &n, &params, &num_lanes, &m, &part};
+  void* large_args[] = {&g, &n, &params, &num_lanes, &m, &g0, &part};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks), dim3(block),
+                                   small ? small_args : large_args, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int cells = m * num_lanes;
   fold_kernel<<<cells, kThreads, 0, s>>>(params, num_lanes, cells, blocks,

@@ -278,6 +278,10 @@ def tpch_q1_numpy(lineitem: Table) -> dict:
     return out
 
 
+class Q1Result(NamedTuple):
+    result: GroupByResult  # grouped aggregates, padded; sorted by flag/status
+
+
 def _q1_plan() -> fusion.Plan:
     """q1's general plan (the reference's ``_q1_plan``): work table ->
     sort-based groupby under the group budget -> ORDER BY flag, status

@@ -49,6 +49,7 @@ from spark_rapids_jni_tpu_torch.ops._decimal128 import (  # noqa: F401
     var128_numerator,
 )
 from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
+from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
 from spark_rapids_jni_tpu_torch.ops.sort import (
     INT64_MIN,
     gather,
@@ -582,15 +583,14 @@ class _Groups:
 
     def seg_sum(self, values: torch.Tensor) -> torch.Tensor:
         """[m] per-group sums of one lane. int64 lanes are prefix
-        differences, exact; float64 lanes add group by group in an
-        unspecified order."""
+        differences, exact; float64 lanes go to the segment-sum kernel on
+        the card (an order fixed by the group bounds, the same bits run to
+        run) and to its plain ``index_add_`` on the CPU."""
         if self.n == 0:
             return torch.zeros((self.m,), dtype=values.dtype,
                                device=self.device)
         if values.is_floating_point():
-            out = torch.zeros((self.m + 1,), dtype=values.dtype,
-                              device=self.device)
-            return out.index_add_(0, self.gid.clamp(max=self.m), values)[:self.m]
+            return kss.segment_sum(values, self.gid, self.g_lo, self.g_hi)
         return _range_sums_from_cumsum(torch.cumsum(values, 0), self.g_lo,
                                        self.g_hi)
 

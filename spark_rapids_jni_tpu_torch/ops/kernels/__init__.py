@@ -12,6 +12,10 @@ Each module here replaces one Pallas kernel of the JAX package:
 - ``hash_probe.py`` replaces ``ops/pallas/hash_probe.py``
   (``probe_lo_hi``): the join probe's match-run bounds.
 
+One more has no Pallas twin: ``segment_sum.py``, the general groupby's
+float64 group sums in a fixed order, the counterpart of the reference's
+XLA scan ``_segmented_sum_scan`` (``ops/groupby.py``).
+
 The kernels are CUDA C++ under ``spark_rapids_jni_tpu_torch/csrc/``, built
 for ``sm_90a`` by ``_build.py`` at first use and bound through a plain C
 interface loaded with ``ctypes``.
@@ -24,7 +28,8 @@ Contract:
   no configuration switch and no ``try`` that falls back; given CPU
   tensors it runs the plain version (that is how the CPU tests run);
 - an input the kernel does not take (reason names shared with the
-  reference: ``too_many_lanes``, ``float_agg``, ``minmax_width``,
+  reference: ``float_agg``, ``minmax_width``; the port's kernels take
+  what the reference refused as ``too_many_lanes`` and
   ``row_too_wide``) is counted through :func:`fall_back`, which never
   hides it; then a CUDA input raises ``NotImplementedError`` and a CPU
   input runs the plain version. An empty input is no such case: each
@@ -122,4 +127,5 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (  # noqa: E402
     groupby_accumulate as groupby_accumulate,
     hash_probe as hash_probe,
     row_transpose as row_transpose,
+    segment_sum as segment_sum,
 )

@@ -7,7 +7,9 @@ groupby_accumulate.py`` (``accumulate``, body ``_make_kernel``). Source:
 (bytes), how its design differs from the TPU kernel (native int64 lanes,
 no limb split, validity applied in the kernel, float and uint64 lanes)
 and how it avoids same-address atomics per row (per-thread partials in
-shared memory for m <= 16, warp-aggregated updates above).
+shared memory for m <= 16, warp-aggregated updates above). A domain too
+wide for one lane's partials in shared memory splits into windows of
+groups, a launch each (:func:`launch_plan`).
 
 A lane is ``(op, values, valid, neutral)``: ``op`` is sum, min or max;
 ``values`` a tensor[n] or None for the constant 1 (row and valid
@@ -50,6 +52,9 @@ _PARAM_LANES = 64  # lanes one launch takes in its parameters
 _MAX_SMEM = 232_448  # dynamic shared memory a block may opt in to (sm_90)
 _SMALL_M = 16  # the largest m of the per-thread kernel
 _TILE = 8192  # the per-thread kernel's rows per tile (one byte of gid each)
+# bytes a row of one lane is reckoned to read when windows are chosen (an
+# int64 or float64 value); gid is 4 more a launch
+_LANE_BYTES = 8
 FLOAT_SUM_REL = 1e-12  # float sums: |kernel - plain| <= this * sum(|x|)
 
 register_kernel(
@@ -88,7 +93,7 @@ def lanes_per_launch(m: int) -> int:
     ``_PARAM_LANES``, and as many as fit the block's shared memory (40
     bytes a lane and 8 a partial; the per-thread kernel's 256 private
     columns and 8,192-row gid tile, or the large kernel's two-byte tag a
-    group). Below 1 the kernel cannot take ``m``."""
+    group). Below 1 the groups split into windows (:func:`launch_plan`)."""
     if m <= _SMALL_M:
         per = (_MAX_SMEM - _TILE - 8 * 256 * m) // (40 + 8 * m)
     else:
@@ -96,15 +101,47 @@ def lanes_per_launch(m: int) -> int:
     return min(_PARAM_LANES, per)
 
 
+def _widest(per: int) -> int:
+    """The widest window (past ``_SMALL_M``) whose launch takes ``per``
+    lanes: (MAX_SMEM - 2w) >= per * (40 + 8w)."""
+    return (_MAX_SMEM - 40 * per) // (8 * per + 2)
+
+
+def launch_plan(m: int, num_lanes: int) -> tuple[list[tuple[int, int]], int]:
+    """(windows, lanes a launch) of one accumulate over ``m`` groups.
+    A domain that fits one launch is one window [0, m) with
+    ``lanes_per_launch(m)`` lanes a launch. A wider one splits into
+    windows ``(g0, w)`` of near-equal width, each launch covering one
+    window and ``per`` lanes; of the splits, the one that reads the fewest
+    bytes a row: windows x (4 bytes of gid a launch + 8 a lane)."""
+    per = lanes_per_launch(m)
+    if per >= 1:
+        return [(0, m)], per
+    best = None
+    for p in range(1, min(num_lanes, _PARAM_LANES) + 1):
+        count = -(-m // _widest(p))
+        cost = count * (4 * -(-num_lanes // p) + _LANE_BYTES * num_lanes)
+        if best is None or cost < best[0]:
+            best = (cost, count)
+    count = best[1]
+    base, extra = divmod(m, count)
+    windows, g0 = [], 0
+    for i in range(count):
+        w = base + (i < extra)
+        windows.append((g0, w))
+        g0 += w
+    # the widest window sets the lanes every launch takes
+    return windows, lanes_per_launch(base + (extra > 0))
+
+
 def unsupported_reason(lanes: Sequence[Lane], m: int) -> str | None:
-    """Why the kernel cannot take these lanes over ``m`` groups, or None.
-    The caller counts a reason through ``kernels.fall_back``; a CUDA
-    input then raises, a CPU one runs :func:`accumulate_plain`."""
+    """Why the kernel cannot take these lanes, or None (any ``m`` an
+    int32 gid can name: wide domains split into windows). The caller
+    counts a reason through ``kernels.fall_back``; a CUDA input then
+    raises, a CPU one runs :func:`accumulate_plain`."""
     for lane in lanes:
         if lane.values is not None and lane.values.dtype not in _KINDS:
             return "float_agg" if lane.op == "sum" else "minmax_width"
-    if lanes_per_launch(m) < 1:
-        return "too_many_lanes"
     return None
 
 
@@ -119,9 +156,10 @@ def accumulate(gid: torch.Tensor, lanes: Sequence[Lane], m: int) -> torch.Tensor
 
 
 def launches(m: int, num_lanes: int) -> int:
-    """Kernel launches of one accumulate of ``num_lanes`` lanes."""
-    per = lanes_per_launch(m)
-    return -(-num_lanes // per)
+    """Kernel launches of one accumulate of ``num_lanes`` lanes: a
+    launch a window and group of lanes."""
+    windows, per = launch_plan(m, num_lanes)
+    return len(windows) * -(-num_lanes // per)
 
 
 def _is_float(lane: Lane) -> bool:
@@ -237,8 +275,8 @@ def _accumulate_cuda(gid: torch.Tensor, lanes: Sequence[Lane],
     if n == 0 or not lanes:
         # no rows: every cell keeps its neutral, nothing to launch
         return accumulate_plain(gid, lanes, m)
-    per = lanes_per_launch(m)
-    outs = [_launch(gid.contiguous(), lanes[i:i + per], m, device)
+    windows, per = launch_plan(m, len(lanes))
+    outs = [_launch(gid.contiguous(), lanes[i:i + per], m, windows, device)
             for i in range(0, len(lanes), per)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
@@ -268,8 +306,9 @@ def _grid(n: int, num_lanes: int, m: int, floats: bool,
 
 
 def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
-            device) -> torch.Tensor:
-    """One launch over at most ``lanes_per_launch(m)`` lanes."""
+            windows: Sequence[tuple[int, int]], device) -> torch.Tensor:
+    """int64[m, L] of these lanes (as many as a launch takes): one
+    launch a window of groups."""
     n = gid.shape[0]
     keep = [gid]  # every tensor the launch reads, alive until enqueued
     rows = []
@@ -297,21 +336,26 @@ def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
             else _OPS[lane.op]
         rows += [vptr, mptr, kind, op, _neutral_key(lane)]
     floats = any(_is_float(lane) for lane in lanes)
-    threads, blocks = _grid(n, len(lanes), m, floats, device)
+    shapes = [(g0, w, *_grid(n, len(lanes), w, floats, device))
+              for g0, w in windows]
     # the lane descriptors go to the launch as host memory, in its
-    # parameters; each block writes its partials to its row of scratch
+    # parameters; each block writes its window's partials to its row of
+    # scratch, which the windows take in turn (one stream orders them)
     desc = (ctypes.c_int64 * len(rows))(*rows)
     cells = m * len(lanes)
-    buf = torch.empty((cells * (blocks + 1),), dtype=torch.int64,
+    scratch_cells = max(blocks * w * len(lanes)
+                        for _, w, _, blocks in shapes)
+    buf = torch.empty((cells + scratch_cells,), dtype=torch.int64,
                       device=device)  # one allocation: out, then scratch
     out, scratch = buf[:cells].view(m, len(lanes)), buf[cells:]
     fn = _build.function("srjt_groupby_accumulate", [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p])
-    count_launch(NAME)
-    status = fn(gid.data_ptr(), n, ctypes.addressof(desc), len(lanes), m,
-                int(floats), threads, scratch.data_ptr(), blocks,
-                out.data_ptr(), _build.stream_handle(device))
-    _build.check(status, NAME)
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p])
+    for g0, w, threads, blocks in shapes:
+        count_launch(NAME)
+        status = fn(gid.data_ptr(), n, ctypes.addressof(desc), len(lanes), w,
+                    g0, int(floats), threads, scratch.data_ptr(), blocks,
+                    out[g0:].data_ptr(), _build.stream_handle(device))
+        _build.check(status, NAME)
     return out

@@ -6,7 +6,9 @@ row_transpose.py`` (``assemble_rows``, body ``_make_kernel``). Source:
 ``csrc/row_transpose.cu``, which says what bounds it on an H100 (bytes)
 and how its design differs from the TPU kernel (it reads the column
 storage and bool validity directly and stages 128 rows in shared memory,
-the original CUDA design).
+the original CUDA design). It takes rows of any width: past 1,536 bytes
+a block stages as many rows as its shared memory holds, and past 227 KiB
+the fields go straight to the output.
 
 Both versions build the packed row image of fixed-width columns: column
 ``i``'s little-endian bytes at ``starts[i]``, the validity bytes at
@@ -32,9 +34,6 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (
 from spark_rapids_jni_tpu_torch.types import DType
 
 NAME = "row_conversion.to_rows"
-# 128 staged rows x 1536 bytes = 192 KiB of the 227 KiB of shared memory a
-# block may use on Hopper
-MAX_ROW_BYTES = 1536
 
 register_kernel(
     NAME,
@@ -44,17 +43,9 @@ register_kernel(
     replaces="spark_rapids_jni_tpu/ops/pallas/row_transpose.py:103 "
              "assemble_rows",
     doc="column->row byte interleave of fixed-width columns + packed "
-        "validity into the uint8 row image, 128 rows staged per block",
+        "validity into the uint8 row image, rows staged per block (as "
+        "many as fit, 128 at most), any row width",
 )
-
-
-def unsupported_reason(size_per_row: int) -> str | None:
-    """Why the kernel cannot take rows of ``size_per_row`` bytes, or None.
-    The caller counts a reason through ``kernels.fall_back``; a CUDA
-    input then raises, a CPU one runs :func:`assemble_rows_plain`."""
-    if size_per_row > MAX_ROW_BYTES:
-        return "row_too_wide"
-    return None
 
 
 def assemble_rows(
@@ -102,10 +93,6 @@ def _assemble_rows_cuda(datas, valids, schema, starts,
                         size_per_row) -> torch.Tensor:
     n = datas[0].shape[0]
     device = datas[0].device
-    reason = unsupported_reason(size_per_row)
-    if reason is not None:
-        raise NotImplementedError(f"{NAME}: the kernel does not take this "
-                                  f"input ({reason})")
     keep = []  # every tensor the launch reads, alive until enqueued
     rows = []
     for data, valid, dt, start in zip(datas, valids, schema, starts):
@@ -132,7 +119,7 @@ def _assemble_rows_cuda(datas, valids, schema, starts,
         return out  # no rows: nothing to launch
     vld_base = int(starts[-1]) + schema[-1].size_bytes
     fn = _build.function("srjt_assemble_rows", [
-        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p])
     count_launch(NAME)
     status = fn(desc.data_ptr(), len(rows), n, size_per_row, vld_base,

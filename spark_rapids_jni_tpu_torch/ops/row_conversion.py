@@ -12,8 +12,7 @@ The byte-level row format is the reference's (RowConversion.java:40-99):
     multiples of 32 (except the last);
   * fixed-width types only;
   * rows larger than MAX_ROW_SIZE (1536 bytes) rejected unless
-    ``enforce_row_limit=False``, which only CPU tables can use: the
-    kernel stages rows of at most 1536 bytes.
+    ``enforce_row_limit=False``; the kernel takes rows of any width.
 
 Padding bytes are 0, where the original CUDA left whatever shared memory
 held: deterministic output makes rows byte-comparable.
@@ -31,7 +30,6 @@ from typing import Sequence
 import torch
 
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
-from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.bytecast import from_bytes
 from spark_rapids_jni_tpu_torch.ops.kernels import row_transpose as krt
 from spark_rapids_jni_tpu_torch.types import DType
@@ -94,17 +92,6 @@ def _to_rows_impl(table: Table) -> torch.Tensor:
     column_start, _, size_per_row = compute_fixed_width_layout(schema)
     datas = [c.data for c in table.columns]
     valids = [c.validity for c in table.columns]
-    reason = krt.unsupported_reason(size_per_row)
-    if reason is not None:
-        kernels.fall_back(krt.NAME, reason)
-        if datas[0].is_cuda:
-            raise NotImplementedError(
-                f"convert_to_rows: the {krt.NAME} kernel does not take "
-                f"{size_per_row}-byte rows ({reason}: over "
-                f"{krt.MAX_ROW_BYTES}), and a CUDA input never runs the "
-                f"plain version")
-        return krt.assemble_rows_plain(datas, valids, schema, column_start,
-                                       size_per_row)
     return krt.assemble_rows(datas, valids, schema, column_start,
                              size_per_row)
 

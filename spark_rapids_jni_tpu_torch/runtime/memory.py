@@ -636,6 +636,19 @@ class HostStagingPool:
             self._free.clear()
 
 
+_default_pool: Optional[HostStagingPool] = None
+_default_pool_lock = threading.Lock()
+
+
+def default_staging_pool() -> HostStagingPool:
+    """The process's shared staging pool, made at first use."""
+    global _default_pool
+    with _default_pool_lock:
+        if _default_pool is None:
+            _default_pool = HostStagingPool()
+        return _default_pool
+
+
 # ---- the spill store --------------------------------------------------------
 
 

@@ -538,6 +538,16 @@ class ResultCache:
         record_cache("result_cache", "hit", key=key.short, nbytes=nbytes)
         return fusion.FusedResult(table, meta)
 
+    def invalidate(self, key: CacheKey) -> bool:
+        """Drop one entry (e.g. the caller knows its source changed);
+        False when there was none."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return False
+            self._discard_locked(key, entry, "invalidated")
+        return True
+
     def clear(self) -> None:
         with self._lock:
             for key, entry in list(self._entries.items()):

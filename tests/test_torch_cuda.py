@@ -301,8 +301,9 @@ def test_paths_launch_their_kernels(dev):
 
 
 def test_wide_rows_fall_back_with_reason(dev):
-    # a CUDA table never runs the plain version: rows wider than the
-    # kernel's cap are counted under their reason, then refused
+    # rows wider than the 128-row staging (1,536 bytes) once fell back as
+    # row_too_wide and raised on the card; the kernel now takes them:
+    # one launch, no fallback, equal to the plain version
     n = 300
     rng = np.random.default_rng(0)
     tbl = Table([
@@ -311,10 +312,68 @@ def test_wide_rows_fall_back_with_reason(dev):
         for _ in range(200)  # 200 x 8 + 25 validity bytes > 1536
     ])
     kernels.reset_counts()
-    with pytest.raises(NotImplementedError, match="row_too_wide"):
-        convert_to_rows(tbl, enforce_row_limit=False)
-    assert kernels.fallbacks() == {(krt.NAME, "row_too_wide"): 1}
-    assert kernels.launches(krt.NAME) == 0
+    got = convert_to_rows(tbl, enforce_row_limit=False)
+    assert kernels.fallbacks() == {}
+    assert kernels.launches(krt.NAME) == 1
+    schema = tbl.schema()
+    starts, _, spr = compute_fixed_width_layout(schema)
+    want = krt.assemble_rows_plain([c.data for c in tbl.columns],
+                                   [c.validity for c in tbl.columns], schema,
+                                   starts, spr)
+    assert got[0].row_size == spr == 1632
+    assert torch.equal(got[0].data.view(n, spr), want)
+
+
+def _wide_table(ncols, n, dev, seed):
+    """``ncols`` columns cycling through every fixed width (1, 2, 4, 8
+    and 16 bytes: alignment gaps before each wider one), ~10 % nulls, an
+    all-valid column every seventh."""
+    rng = np.random.default_rng(seed)
+    kinds = [(t.INT8, np.int8), (t.INT64, np.int64), (t.INT16, np.int16),
+             (t.FLOAT64, np.float64), (t.INT32, np.int32),
+             (t.decimal128(-3), None), (t.UINT8, np.uint8)]
+    cols = []
+    for i in range(ncols):
+        dt, np_dt = kinds[i % len(kinds)]
+        valid = None if i % 7 == 3 else rng.random(n) > 0.1
+        if np_dt is None:
+            data = rng.integers(-2**62, 2**62, (n, 2))
+        elif np_dt == np.float64:
+            data = rng.standard_normal(n)
+        else:
+            info = np.iinfo(np_dt)
+            data = rng.integers(info.min, info.max, n, dtype=np_dt)
+        cols.append(Column(dt, torch.from_numpy(data).to(dev),
+                           None if valid is None
+                           else torch.from_numpy(valid).to(dev)))
+    return Table(cols)
+
+
+@pytest.mark.parametrize("ncols,n", [
+    (7, 2049),      # 72-byte rows: the 128-row kernel
+    (200, 257),     # 1,856 bytes: 125 rows a block
+    (1401, 33),     # 12,984 bytes: 17 rows a block, odd tiles off 16 bytes
+    (8000, 7),      # 74,152 bytes: 3 rows a block, odd tiles off 16 bytes
+    (33_000, 3)])   # 305,840 bytes: no row fits, straight to the output
+def test_rows_of_any_width_equal_the_plain_version(dev, ncols, n):
+    tbl = _wide_table(ncols, n, dev, ncols)
+    schema = tbl.schema()
+    starts, _, spr = compute_fixed_width_layout(schema)
+    datas = [c.data for c in tbl.columns]
+    valids = [c.validity for c in tbl.columns]
+    kernels.reset_counts()
+    got = krt._assemble_rows_cuda(datas, valids, schema, starts, spr)
+    assert kernels.launches(krt.NAME) == 1
+    want = krt.assemble_rows_plain(datas, valids, schema, starts, spr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    back = convert_from_rows(convert_to_rows(
+        tbl, enforce_row_limit=False)[0], schema)
+    for a, b in zip(back.columns, tbl.columns):
+        assert torch.equal(a.valid_mask(), b.valid_mask())
+        v = b.valid_mask()
+        assert torch.equal(a.data[v].view(torch.uint8),
+                           b.data[v].view(torch.uint8))
 
 
 def test_ineligible_groupby_raises(dev):
@@ -1139,7 +1198,8 @@ def test_accumulate_kernel_uint64_and_float_lanes(dev, m):
 
 @pytest.mark.parametrize("m,num_lanes,with_float", [
     (101, 22, False), (1032, 16, False), (1032, 40, False), (4096, 9, False),
-    (20_000, 1, False), (1032, 16, True), (17, 9, True), (3, 13, True)])
+    (20_000, 1, False), (1032, 16, True), (17, 9, True), (3, 13, True),
+    (40_000, 3, False), (100_001, 5, True), (23_300, 1, False)])
 def test_accumulate_kernel_past_the_old_cap(dev, m, num_lanes, with_float):
     # m*L above the TPU kernel's 2048 cells; lanes past what one block's
     # shared memory holds split over launches, each reading gid again.
@@ -1158,7 +1218,8 @@ def test_accumulate_kernel_past_the_old_cap(dev, m, num_lanes, with_float):
     kernels.reset_counts()
     _check_lanes(gid, lanes, m)
     assert kernels.launches(kga.NAME) == kga.launches(m, num_lanes)
-    assert kga.unsupported_reason(lanes, 40_000) == "too_many_lanes"
+    # past ~23,000 slots the domain splits into windows: no reason left
+    assert kga.unsupported_reason(lanes, 40_000) is None
 
 
 def _refused_inputs(n, device, rng):
@@ -1974,15 +2035,13 @@ def test_fleet_on_the_card_serves_planned_q1_bit_identical(dev):
 
 def test_general_float_groupby_sum_varies_only_in_rounding(
         dev, record_property):
-    """The general groupby's float64 sums add each group's rows with
-    ``index_add_`` (atomic adds, in an order the card picks): the same
-    input may give other low bits from run to run, so a fleet's
-    bit-identity check must not serve such a plan (it serves integer and
-    decimal plans; ROADMAP.md Queue 3). Eight runs: the counts are
+    """The general groupby's float64 sums go through the segment-sum
+    kernel, whose order the group bounds fix (its first version added
+    with ``index_add_``, atomics in an order the card picks: 8 bit
+    patterns in 8 runs on the H100). Eight runs: the counts are
     bit-identical, each sum lies within float64's reordering bound of
-    the exact sum, and the number of distinct bit patterns of the sums
-    is recorded (``distinct_sum_bits``, printed with ``-s``): more than
-    one shows the finding, one that the sums came out deterministic."""
+    the exact sum, and the sums repeat bit for bit: one pattern
+    (``distinct_sum_bits``, printed with ``-s``)."""
     import math
 
     rng = np.random.default_rng(31)
@@ -2009,3 +2068,111 @@ def test_general_float_groupby_sum_varies_only_in_rounding(
     assert len(counts) == 1
     record_property("distinct_sum_bits", len(bits))
     print(f"distinct_sum_bits {len(bits)} of 8 runs")
+    assert len(bits) == 1
+
+
+def _sorted_groups(sizes, dev, seed, past=0):
+    """Sorted group ids of groups of ``sizes`` rows (0 = an empty group),
+    ``past`` more rows in a group past m, and float64 values with
+    signed zeros, a NaN group and an inf group: (values, gid, g_lo,
+    g_hi)."""
+    rng = np.random.default_rng(seed)
+    m = len(sizes)
+    gid = np.repeat(np.arange(m + 1), list(sizes) + [past])
+    vals = rng.standard_normal(gid.shape[0]) * 10.0 ** rng.integers(
+        -3, 9, gid.shape[0])
+    vals[rng.random(gid.shape[0]) < 0.05] = -0.0
+    if m > 3:
+        vals[gid == 1] = np.where(vals[gid == 1] > 0, np.inf, 1.0)
+        vals[np.flatnonzero(gid == 2)[:1]] = np.nan
+    gid_t = torch.from_numpy(gid).to(dev)
+    ar = torch.arange(m, device=dev)
+    return (torch.from_numpy(vals).to(dev), gid_t,
+            torch.searchsorted(gid_t, ar), torch.searchsorted(gid_t, ar,
+                                                              right=True))
+
+
+@pytest.mark.parametrize("case", ["small", "one_large", "mixed", "tail",
+                                  "empty_rows"])
+def test_segment_sum_kernel_equals_its_plain_version(dev, case):
+    """The segment-sum kernel against ``index_add_``: within 1e-12 of
+    sum|x| a group, within (count - 1) * eps * sum|x| of the exact
+    (``math.fsum``) sum, NaN and inf where the plain version has them,
+    bit for bit the same in a second run; one launch, none for no rows."""
+    import math
+
+    from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
+
+    rng = np.random.default_rng(5)
+    sizes = {"small": rng.integers(0, 4, 3000),
+             "one_large": [kss.CHUNK * 300 + 17],
+             "mixed": np.concatenate([rng.integers(0, 3, 500), [0, 5000],
+                                      rng.integers(1, 2 * kss.CHUNK, 40),
+                                      [kss.CHUNK, kss.CHUNK + 1, 1]]),
+             "tail": rng.integers(1, 300, 77),
+             "empty_rows": [0, 0, 0]}[case]
+    vals, gid, lo, hi = _sorted_groups(sizes, dev, len(sizes),
+                                       past=999 if case == "tail" else 0)
+    m = lo.shape[0]
+    kernels.reset_counts()
+    got = kss._segment_sum_cuda(vals, lo, hi)
+    again = kss._segment_sum_cuda(vals, lo, hi)
+    assert kernels.launches(kss.NAME) == (0 if vals.shape[0] == 0 else 2)
+    want = kss.segment_sum_plain(vals, gid, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin & ~nan], want[~fin & ~nan])
+    near = (got - want).abs() <= kss.sum_bound(vals, gid, m)
+    assert bool(near[fin].all())
+    h_vals, h_gid = vals.cpu().numpy(), gid.cpu().numpy()
+    h_got = got.cpu().numpy()
+    for g in np.flatnonzero(fin.cpu().numpy())[:400]:
+        x = h_vals[h_gid == g]
+        tol = max(len(x) - 1, 0) * np.finfo(np.float64).eps * np.abs(x).sum()
+        assert abs(h_got[g] - math.fsum(x)) <= tol
+    # the empty groups' sums are +0.0, as index_add_ into zeros gives
+    empty = (hi == lo).cpu().numpy()
+    assert not np.signbit(h_got[empty]).any() and not h_got[empty].any()
+
+
+def test_bounded_plan_over_supplier_keys_on_the_card(dev):
+    """A domain of 100,000 keys (m = 100,001): plan_groupby_auto grows
+    from 4,096 to the bounded plan, kernel A takes it in windows (its
+    launches = ``launches(m, L)``), equal to the same call on the CPU
+    and to the general plan's groups."""
+    from spark_rapids_jni_tpu_torch.ops.groupby import bounded_lanes
+    from spark_rapids_jni_tpu_torch.ops.planner import (
+        plan_groupby_auto,
+        scalar_domain,
+    )
+
+    n = 200_000
+    rng = np.random.default_rng(41)
+    keys = rng.integers(1, 100_001, n).astype(np.int32)
+    q = rng.integers(100, 5000, n)
+    qv = rng.random(n) > 0.01
+    p = rng.integers(90_000, 10_000_000, n)
+    aggs = [(1, "sum"), (1, "count"), (2, "sum"), (2, "count"), (1, "min"),
+            (1, "max"), (2, "min"), (2, "max")]
+    out = {}
+    for d in (dev, "cpu"):
+        tbl = Table([Column.from_numpy(keys, device=d),
+                     Column.from_numpy(q, validity=qv, device=d),
+                     Column.from_numpy(p, device=d)])
+        kernels.reset_counts()
+        res = plan_groupby_auto(tbl, [0], aggs,
+                                [scalar_domain(range(1, 100_001))],
+                                budget=4096)
+        assert res.lowered == "bounded" and kernels.fallbacks() == {}
+        out[str(d)] = (res, kernels.launches(kga.NAME))
+        if d == dev:
+            lanes = bounded_lanes(tbl, aggs).lanes
+            assert out[str(d)][1] == kga.launches(100_001, len(lanes)) > 5
+    card, cpu = out[str(dev)][0], out["cpu"][0]
+    assert torch.equal(card.present.cpu(), cpu.present)
+    for a, b in zip(card.table.columns, cpu.table.columns):
+        assert torch.equal(a.valid_mask().cpu(), b.valid_mask())
+        assert torch.equal(a.data.cpu(), b.data)

@@ -20,6 +20,7 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (
     hash_probe as khp,
     q1 as kq1,
     row_transpose as krt,
+    segment_sum as kss,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -202,15 +203,20 @@ def test_entry_point_refuses_quiet_cpu_fallback():
 
 def test_registered_kernels_declare_oracle_and_source():
     specs = kernels.registered()
-    # every Pallas kernel of the reference has its counterpart
-    assert set(specs) == {kga.NAME, kq1.NAME, krt.NAME, khp.NAME}
+    # every Pallas kernel of the reference has its counterpart, and the
+    # general groupby's float sums one more (the reference's XLA scan)
+    pallas = {kga.NAME, kq1.NAME, krt.NAME, khp.NAME}
+    assert set(specs) == pallas | {kss.NAME}
     for spec in specs.values():
         module, _, fn = spec.oracle.rpartition(".")
         assert callable(getattr(sys.modules[module], fn)), spec.oracle
         src = PKG / spec.source
         assert src.suffix == ".cu" and src.exists(), spec.source
-        assert "spark_rapids_jni_tpu/ops/pallas/" in spec.replaces
+        assert ("spark_rapids_jni_tpu/ops/pallas/" in spec.replaces) == (
+            spec.name in pallas)
         assert Path(spec.replaces.split(":")[0]).name in src.read_text()
+    assert specs[kss.NAME].replaces.startswith(
+        "spark_rapids_jni_tpu/ops/groupby.py:186 _segmented_sum_scan")
 
 
 def test_cpu_wrappers_take_the_plain_path():

@@ -306,12 +306,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    False)`` over 200 INT64 columns x 2,000,000 rows (1,632-byte rows)
    and 8,000 x 20,000 (65,000-byte rows), ~10 % nulls, kernel C once
    each, equal byte for byte to its plain version, the round trip
-   through ``convert_from_rows`` exact, C's time beside its byte bound;
-   the general groupby by l_suppkey of a FLOAT64 sum over a quarter of
-   SF10 lineitem three times, kernel E once a run, the same bits each
-   run, within 1e-12 * sum|x| of the plain version and (count - 1) *
-   eps * sum|x| of the exact sum, and E alone at this shape against its
-   plain version; no fallback anywhere in the phase;
+   through ``convert_from_rows`` exact, C's time (split into the
+   wrapper's host time and the kernel's) beside its byte bound, its
+   plain version and ``torch.cat`` of the ready byte pieces; the
+   general groupby by l_suppkey of a FLOAT64 sum over a quarter of SF10
+   lineitem three times, kernel E once a run, the same bits each run,
+   within 1e-12 * sum|x| of the plain version and (count - 1) * eps *
+   sum|x| of the exact sum, and E alone at this shape and with the same
+   rows in one group against its plain version and ``index_add_``; no
+   fallback anywhere in the phase;
 23. one ``{"kernels": [...]}`` line (A-D and E, the general groupby's
    float sums), the card line, and the final ``{"ok": true, "device":
    {...}}`` line.
@@ -492,7 +495,10 @@ def kernel_phases(li, dev):
     from spark_rapids_jni_tpu_torch.ops.row_conversion import (
         compute_fixed_width_layout,
     )
-    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+    from spark_rapids_jni_tpu_torch.utils.timing import (
+        host_device_ms,
+        median_ms,
+    )
 
     n = li.num_rows
     rows = {}
@@ -560,6 +566,9 @@ def kernel_phases(li, dev):
                             starts, spr)), "yardstick differs")
     del pieces
     b_ms, b_by = bound(distinct_bytes(datas + valids) + n * spr, 0)
+    host_ms, device_ms = host_device_ms(
+        lambda: krt._prepare_cuda(datas, valids, schema, starts, spr),
+        krt._launch_cuda)
     rows["C"] = dict(
         name=krt.NAME, route="cuda",
         source="spark_rapids_jni_tpu_torch/csrc/row_transpose.cu",
@@ -569,10 +578,12 @@ def kernel_phases(li, dev):
             datas, valids, schema, starts, spr)),
         plain_ms=median_ms(lambda: krt.assemble_rows_plain(
             datas, valids, schema, starts, spr)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, host_ms=host_ms,
+        device_ms=device_ms)
     log(f"kernel C {krt.NAME}: {spr}-byte rows exact; "
-        f"{rows['C']['ms']:.3f} ms (plain {rows['C']['plain_ms']:.3f}, "
-        f"torch.cat {lib:.3f}, bound {b_ms:.3f})")
+        f"{rows['C']['ms']:.3f} ms (wrapper's host {host_ms:.3f}, kernel "
+        f"{device_ms:.3f}; plain {rows['C']['plain_ms']:.3f}, torch.cat "
+        f"{lib:.3f}, bound {b_ms:.3f})")
     return rows
 
 
@@ -7044,16 +7055,25 @@ def _wide_rows_part(dev, out: dict) -> int:
     of ``WIDE_ROWS`` with ~10 % nulls: kernel C once a table, no
     fallback, byte for byte its plain version; ``convert_from_rows`` of
     every batch gives the columns back exactly; C alone against its
-    plain version and byte bound. Returns C's launches."""
+    plain version, ``torch.cat`` of the ready byte pieces and its byte
+    bound, its time split into the wrapper's host time and the kernel's.
+    Returns C's launches."""
     from spark_rapids_jni_tpu_torch import types as t
     from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.bitmask import (
+        pack_bits_last_axis,
+    )
+    from spark_rapids_jni_tpu_torch.ops.bytecast import to_bytes
     from spark_rapids_jni_tpu_torch.ops.kernels import row_transpose as krt
     from spark_rapids_jni_tpu_torch.ops.row_conversion import (
         compute_fixed_width_layout,
         convert_from_rows,
         convert_to_rows,
     )
-    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+    from spark_rapids_jni_tpu_torch.utils.timing import (
+        host_device_ms,
+        median_ms,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(22)
     launched = 0
@@ -7064,7 +7084,7 @@ def _wide_rows_part(dev, out: dict) -> int:
         tbl = Table([Column(t.INT64, data[i], valid[i])
                      for i in range(ncols)])
         schema = tbl.schema()
-        starts, _, spr = compute_fixed_width_layout(schema)
+        starts, sizes, spr = compute_fixed_width_layout(schema)
         what = f"convert_to_rows({ncols} INT64 columns, {spr}-byte rows)"
         batches = _launched_only(what, lambda: convert_to_rows(
             tbl, enforce_row_limit=False), {krt.NAME: 1})
@@ -7087,22 +7107,44 @@ def _wide_rows_part(dev, out: dict) -> int:
             del back
             r0 += b.num_rows
         require(r0 == n, f"{what}: batches hold {r0} rows")
-        del batches, want
+        del batches
+        # yardstick: one torch.cat of the ready byte pieces (each column's
+        # bytes, the packed validity bytes, the pad), the same image
+        pieces = [to_bytes(d, dt) for d, dt in zip(datas, schema)]
+        pieces.append(pack_bits_last_axis(valid.t()))
+        if spr > starts[-1] + 8 + pieces[-1].shape[1]:
+            pieces.append(torch.zeros(
+                (n, spr - starts[-1] - 8 - pieces[-1].shape[1]),
+                dtype=torch.uint8, device=dev))
+        require(torch.equal(torch.cat(pieces, dim=1), want),
+                f"{what}: the yardstick differs")
+        del want
+        lib = median_ms(lambda: torch.cat(pieces, dim=1))
+        del pieces
+        plan = krt.tile_plan(starts, sizes, spr)
         b_ms, b_by = bound(data.nbytes + valid.nbytes + n * spr, 0)
+        # the wrapper as convert_to_rows calls it
+        host_ms, device_ms = host_device_ms(
+            lambda: krt._prepare_cuda(datas, valids, schema, starts, spr),
+            krt._launch_cuda)
         row = dict(
             columns=ncols, rows=n, row_bytes=spr, launches=1,
-            rows_per_block=min(128, 232_448 // spr) if spr <= 232_448
-            else 0, max_abs_err=0.0,
+            rows_per_block=plan.rows, segments=len(plan.segments),
+            smem_per_block=plan.smem, max_abs_err=0.0,
             ms=median_ms(lambda: krt._assemble_rows_cuda(
                 datas, valids, schema, starts, spr)),
+            host_ms=host_ms, device_ms=device_ms,
             plain_ms=median_ms(lambda: krt.assemble_rows_plain(
                 datas, valids, schema, starts, spr)),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         out[f"wide_rows_{spr}"] = row
         log(f"kernel C at {spr}-byte rows x {n}: {n * spr / 1e9:.2f} GB, "
-            f"equal to the plain version byte for byte, round trip exact; "
-            f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, bound "
-            f"{b_ms:.3f} by {b_by})")
+            f"{len(plan.segments)} segments of {plan.rows} rows a block, "
+            f"{plan.smem} bytes of shared memory; equal to the plain "
+            f"version byte for byte, round trip exact; {row['ms']:.3f} ms "
+            f"(wrapper's host {host_ms:.3f}, kernel {device_ms:.3f}; plain "
+            f"{row['plain_ms']:.3f}, torch.cat {lib:.3f}, bound {b_ms:.3f} "
+            f"by {b_by})")
         del tbl, datas, valids, data, valid
         torch.cuda.empty_cache()
     return launched
@@ -7114,8 +7156,8 @@ def _float_sums_part(ftab, dev, out: dict) -> tuple:
     each time, each sum within 1e-12 * sum|x| of the plain version's and
     within (count - 1) * eps * sum|x| of the exact sum (a long double
     sum on the host), NaN where a group holds one; then E alone at this
-    shape against its plain version, and bit for bit the groupby's.
-    Returns (E's kernel row, its launches)."""
+    shape against its plain version, and bit for bit the groupby's; then
+    the same rows in one group. Returns (E's kernel row, its launches)."""
     import numpy as np
 
     from spark_rapids_jni_tpu_torch.ops import groupby as gb
@@ -7149,7 +7191,7 @@ def _float_sums_part(ftab, dev, out: dict) -> tuple:
     G = gb._Groups(same, n, SUPPLIERS, dev)
     vals = ftab.column(1).data[order].to(torch.float64)
     del key_sorted, order, same
-    got = kss._segment_sum_cuda(vals, G.g_lo, G.g_hi)
+    got = kss._segment_sum_cuda(vals, G.gid, G.g_lo, G.g_hi)
     want = kss.segment_sum_plain(vals, G.gid, SUPPLIERS)
     torch.cuda.synchronize()
     require(torch.equal(got[:k].view(torch.int64),
@@ -7183,29 +7225,72 @@ def _float_sums_part(ftab, dev, out: dict) -> tuple:
         replaces="spark_rapids_jni_tpu/ops/groupby.py:186 "
                  "(_segmented_sum_scan, an XLA scan)",
         max_abs_err=float((got - want)[~nan].abs().max()),
-        ms=median_ms(lambda: kss._segment_sum_cuda(vals, G.g_lo, G.g_hi)),
+        ms=median_ms(lambda: kss._segment_sum_cuda(vals, G.gid, G.g_lo,
+                                                   G.g_hi)),
         plain_ms=median_ms(lambda: kss.segment_sum_plain(vals, G.gid, m)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: zeros.index_add_(0, idx, vals)))
+    skew = _one_group_sums(vals, dev)
     out["float_sums"] = dict(
         rows=n, groups=k, runs=FLOAT_SUM_RUNS, nan_groups=int(nan.sum()),
         max_rel_to_exact=float(np.max(err[fin] / np.maximum(
-            absum[fin], 1e-300))), **{x: row[x] for x in (
+            absum[fin], 1e-300))), one_group=skew, **{x: row[x] for x in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
     log(f"float sums by l_suppkey over {n} rows: {k} groups, kernel E once "
         f"a run, the same bits in {FLOAT_SUM_RUNS} runs, within 1e-12 * "
         f"sum|x| of the plain version and (count - 1) * eps * sum|x| of "
         f"the exact sum ({int(nan.sum())} NaN groups); E {row['ms']:.3f} ms "
         f"(plain {row['plain_ms']:.3f}, index_add_ {row['library_ms']:.3f}, "
-        f"bound {b_ms:.3f} by {b_by})")
+        f"bound {b_ms:.3f} by {b_by}); the same rows in one group "
+        f"{skew['ms']:.3f} ms (plain {skew['plain_ms']:.3f}, index_add_ "
+        f"{skew['library_ms']:.3f})")
     return row, launched
+
+
+def _one_group_sums(vals, dev) -> dict:
+    """Kernel E with every row in one group (NaN rows read as 0.0, so the
+    sum is finite): the same bits in ``FLOAT_SUM_RUNS`` runs, within its
+    bounds of the plain version and of a long double sum, and its time
+    beside the 100,000 groups' (the skew target: within 2x)."""
+    import numpy as np
+
+    from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    n = vals.shape[0]
+    x = torch.nan_to_num(vals, nan=0.0)
+    gid = torch.zeros(n, dtype=torch.int64, device=dev)
+    lo = torch.zeros(1, dtype=torch.int64, device=dev)
+    hi = torch.full((1,), n, dtype=torch.int64, device=dev)
+    runs = [kss._segment_sum_cuda(x, gid, lo, hi)
+            for _ in range(FLOAT_SUM_RUNS)]
+    want = kss.segment_sum_plain(x, gid, 1)
+    torch.cuda.synchronize()
+    require(all(torch.equal(r.view(torch.int64), runs[0].view(torch.int64))
+                for r in runs), "one group: sums differ between runs")
+    got = float(runs[0][0])
+    h = x.cpu().numpy()
+    exact = np.sum(h.astype(np.longdouble))
+    absum = float(np.abs(h).sum())
+    require(abs(got - float(want[0])) <= kss.SUM_REL * absum
+            and abs(np.longdouble(got) - exact) <= (n - 1) * (
+                np.finfo(np.float64).eps + 2.0 ** -63) * absum,
+            "one group: kernel E past its bounds")
+    zeros = torch.zeros(2, dtype=torch.float64, device=dev)
+    b_ms, _ = bound(x.nbytes + 24, n)
+    return dict(
+        max_abs_err=abs(got - float(want[0])),
+        ms=median_ms(lambda: kss._segment_sum_cuda(x, gid, lo, hi)),
+        plain_ms=median_ms(lambda: kss.segment_sum_plain(x, gid, 1)),
+        library_ms=median_ms(lambda: zeros.index_add_(0, gid, x)),
+        bound_ms=b_ms)
 
 
 def refused_inputs_phase(dev) -> tuple:
     """Phase 22: what the card once refused, at full width on one H100.
     (a) the bounded plan over SF10's 100,000 supplier keys (kernel A in
-    windows of groups); (b) rows of 1,632 and 65,000 bytes (kernel C
-    past its 128-row staging); (c) the general groupby's float sums in a
+    windows of groups); (b) rows of 1,632 and 65,000 bytes (kernel C's
+    tiled path); (c) the general groupby's float sums in a
     fixed order (kernel E). Returns ({path: {kernel: launches}}, E's
     kernel row, the phase's numbers)."""
     from spark_rapids_jni_tpu_torch.columnar import Table

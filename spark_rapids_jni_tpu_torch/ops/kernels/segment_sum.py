@@ -6,14 +6,16 @@ Replaces no Pallas kernel: it is the counterpart of the reference's
 associative scan that XLA runs in an order fixed by its shape. Source:
 ``csrc/segment_sum.cu``, which says how the order is fixed (chunks of
 ``CHUNK`` rows, each summed by a warp in a fixed tree, the chunk sums of a
-group folded in index order) and what bounds it on an H100 (bytes).
+group folded in index order), what bounds it on an H100 (bytes) and how
+its warps find their rows (blocks of ``CHUNK`` sorted rows and each
+row's group id: no prefix pass, no search).
 
 Group ``g`` is the contiguous sorted rows ``[g_lo[g], g_hi[g])``; rows of
 groups past ``m`` belong to no range and are dropped. The kernel's sums
-repeat bit for bit run to run; the plain version (``index_add_``, the
-general groupby's body before the kernel) adds in another order, so the
-two agree within ``SUM_REL * sum(|x|)`` per group, and each lies within
-``(count - 1) * eps * sum(|x|)`` of the exact sum.
+repeat bit for bit run to run, whatever its grid; the plain version
+(``index_add_``, the general groupby's body before the kernel) adds in
+another order, so the two agree within ``SUM_REL * sum(|x|)`` per group,
+and each lies within ``(count - 1) * eps * sum(|x|)`` of the exact sum.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from spark_rapids_jni_tpu_torch.ops.kernels import (
 )
 
 NAME = "groupby.segment_sum"
-CHUNK = 1024  # rows a warp sums: 32 a lane
+CHUNK = 1024  # rows a warp sums, 32 a lane: kChunk in csrc/segment_sum.cu
 SUM_REL = 1e-12  # |kernel - plain| <= this * sum(|x|) per group
 _BLOCKS_PER_SM = 8
 
@@ -53,7 +55,7 @@ def segment_sum(values: torch.Tensor, gid: torch.Tensor, g_lo: torch.Tensor,
     index). CUDA tensors launch the kernel, CPU tensors run
     :func:`segment_sum_plain`."""
     if values.is_cuda:
-        return _segment_sum_cuda(values, g_lo, g_hi)
+        return _segment_sum_cuda(values, gid, g_lo, g_hi)
     return segment_sum_plain(values, gid, g_lo.shape[0])
 
 
@@ -72,38 +74,41 @@ def sum_bound(values: torch.Tensor, gid: torch.Tensor, m: int) -> torch.Tensor:
     return SUM_REL * segment_sum_plain(values.abs(), gid, m)
 
 
-def _segment_sum_cuda(values: torch.Tensor, g_lo: torch.Tensor,
-                      g_hi: torch.Tensor) -> torch.Tensor:
-    m = g_lo.shape[0]
+def _segment_sum_cuda(values: torch.Tensor, gid: torch.Tensor,
+                      g_lo: torch.Tensor, g_hi: torch.Tensor,
+                      blocks: int | None = None) -> torch.Tensor:
+    """The kernel on CUDA tensors: nothing runs before it but one
+    allocation, the output and its scratch (two chunk sums per ``CHUNK``
+    rows). ``blocks``: the most blocks a launch takes
+    (default 8 a SM); any count gives the same bits."""
+    m, n = g_lo.shape[0], values.shape[0]
     device = values.device
     if values.dtype != torch.float64 or values.ndim != 1:
         raise TypeError(f"{NAME}: values must be float64[n], got "
                         f"{values.dtype}{tuple(values.shape)}")
+    if gid.dtype != torch.int64 or gid.shape != (n,) \
+            or gid.device != device:
+        raise TypeError(f"{NAME}: gid must be int64[{n}] on {device}")
     for b in (g_lo, g_hi):
         if b.dtype != torch.int64 or b.shape != (m,) or b.device != device:
             raise TypeError(f"{NAME}: bounds must be int64[{m}] on {device}")
-    n = values.shape[0]
-    out = torch.empty((m,), dtype=torch.float64, device=device)
-    if m == 0 or n == 0:
-        return out.zero_()  # no rows: every sum is 0.0, nothing to launch
-    values, g_lo, g_hi = values.contiguous(), g_lo.contiguous(), \
-        g_hi.contiguous()
-    # each group's first chunk id: the exclusive prefix sum of its chunk
-    # count; a group holds at most one partial chunk, so n // CHUNK + m
-    # chunk sums are all there can be
-    first = torch.zeros((m + 1,), dtype=torch.int64, device=device)
-    torch.cumsum((g_hi - g_lo).clamp_(min=0).add_(CHUNK - 1)
-                 .div_(CHUNK, rounding_mode="floor"), 0, out=first[1:])
-    partial = torch.empty((n // CHUNK + m,), dtype=torch.float64,
-                          device=device)
-    blocks = _build.sm_count(device) * _BLOCKS_PER_SM
+    if m == 0 or n == 0:  # no rows: every sum is 0.0, nothing to launch
+        return torch.zeros((m,), dtype=torch.float64, device=device)
+    values, gid = values.contiguous(), gid.contiguous()
+    g_lo, g_hi = g_lo.contiguous(), g_hi.contiguous()
+    # one allocation: the output, then the scratch
+    buf = torch.empty((m + 2 * ((n + CHUNK - 1) // CHUNK),),
+                      dtype=torch.float64, device=device)
+    out, partial = buf[:m], buf[m:]
+    if blocks is None:
+        blocks = _build.sm_count(device) * _BLOCKS_PER_SM
     fn = _build.function("srjt_segment_sum", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p])
     count_launch(NAME)
-    status = fn(values.data_ptr(), g_lo.data_ptr(), g_hi.data_ptr(),
-                first.data_ptr(), m, CHUNK, partial.data_ptr(), blocks,
+    status = fn(values.data_ptr(), gid.data_ptr(), g_lo.data_ptr(),
+                g_hi.data_ptr(), m, n, partial.data_ptr(), blocks,
                 out.data_ptr(), _build.stream_handle(device))
     _build.check(status, NAME)
     return out

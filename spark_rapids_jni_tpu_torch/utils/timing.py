@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -24,3 +25,25 @@ def median_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_device_ms(prepare, launch, reps: int = 7) -> tuple[float, float]:
+    """(host ms, device ms) of a wrapper split at its launch: the median
+    host-clock time of ``prep = prepare()`` (its checks, descriptors and
+    allocations, up to the launch) and the median time between two CUDA
+    events around ``launch(prep)`` alone; one warm-up of each."""
+    launch(prepare())
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prep = prepare()
+        host.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(prep)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(device)

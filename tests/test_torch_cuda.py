@@ -324,14 +324,27 @@ def test_wide_rows_fall_back_with_reason(dev):
     assert torch.equal(got[0].data.view(n, spr), want)
 
 
-def _wide_table(ncols, n, dev, seed):
-    """``ncols`` columns cycling through every fixed width (1, 2, 4, 8
-    and 16 bytes: alignment gaps before each wider one), ~10 % nulls, an
-    all-valid column every seventh."""
+def _wide_table(ncols, n, dev, seed, layout="mixed"):
+    """``ncols`` columns of ~10 % nulls. "mixed": cycling through every
+    fixed width (1, 2, 4, 8 and 16 bytes: alignment gaps before each
+    wider one), an all-valid column every seventh; "decimal128": DECIMAL128
+    columns only, so every segment of the tiled kernel starts and ends on
+    a 16-byte column; "int64 views": INT64 columns and bools that are the
+    rows ``data[i]``, ``valid[i]`` of ``[ncols, n]`` tensors, so with n
+    odd every other column's address is off 16 bytes and the bools' off
+    4."""
     rng = np.random.default_rng(seed)
+    if layout == "int64 views":
+        data = torch.from_numpy(rng.integers(-2**62, 2**62, (ncols, n)))
+        valid = torch.from_numpy(rng.random((ncols, n)) > 0.1)
+        data, valid = data.to(dev), valid.to(dev)
+        return Table([Column(t.INT64, data[i], valid[i])
+                      for i in range(ncols)])
     kinds = [(t.INT8, np.int8), (t.INT64, np.int64), (t.INT16, np.int16),
              (t.FLOAT64, np.float64), (t.INT32, np.int32),
              (t.decimal128(-3), None), (t.UINT8, np.uint8)]
+    if layout == "decimal128":
+        kinds = [(t.decimal128(-3), None)]
     cols = []
     for i in range(ncols):
         dt, np_dt = kinds[i % len(kinds)]
@@ -349,16 +362,27 @@ def _wide_table(ncols, n, dev, seed):
     return Table(cols)
 
 
-@pytest.mark.parametrize("ncols,n", [
-    (7, 2049),      # 72-byte rows: the 128-row kernel
-    (200, 257),     # 1,856 bytes: 125 rows a block
-    (1401, 33),     # 12,984 bytes: 17 rows a block, odd tiles off 16 bytes
-    (8000, 7),      # 74,152 bytes: 3 rows a block, odd tiles off 16 bytes
-    (33_000, 3)])   # 305,840 bytes: no row fits, straight to the output
-def test_rows_of_any_width_equal_the_plain_version(dev, ncols, n):
-    tbl = _wide_table(ncols, n, dev, ncols)
+@pytest.mark.parametrize("ncols,n,layout", [
+    (7, 2049, "mixed"),     # 72-byte rows: the 128-row kernel
+    (200, 257, "mixed"),    # 1,856 bytes: tiles of 32 rows, the last 1
+    (1401, 33, "mixed"),    # 12,984 bytes: 10 segments
+    (8000, 7, "mixed"),     # 74,152 bytes: one partial tile
+    (33_000, 3, "mixed"),   # 305,840 bytes: wider than shared memory
+    (150, 97, "decimal128"),  # 2,424 bytes: 16-byte columns at each edge
+    (200, 257, "int64 views")])  # 1,632 bytes: columns off 16 bytes
+def test_rows_of_any_width_equal_the_plain_version(dev, ncols, n, layout):
+    tbl = _wide_table(ncols, n, dev, ncols, layout)
     schema = tbl.schema()
-    starts, _, spr = compute_fixed_width_layout(schema)
+    starts, sizes, spr = compute_fixed_width_layout(schema)
+    if spr > krt.MAX_ROW:
+        plan = krt.tile_plan(starts, sizes, spr)
+        assert n % plan.rows != 0  # a partial tile
+        if layout == "decimal128":
+            assert len(plan.segments) > 2 and all(
+                s.begin in starts for s in plan.segments[1:]
+                if not len(s.vbytes))
+        if layout == "int64 views":
+            assert tbl.column(1).data.data_ptr() % 16 == 8
     datas = [c.data for c in tbl.columns]
     valids = [c.validity for c in tbl.columns]
     kernels.reset_counts()
@@ -2093,34 +2117,41 @@ def _sorted_groups(sizes, dev, seed, past=0):
 
 
 @pytest.mark.parametrize("case", ["small", "one_large", "mixed", "tail",
-                                  "empty_rows"])
+                                  "empty_rows", "near_chunk"])
 def test_segment_sum_kernel_equals_its_plain_version(dev, case):
     """The segment-sum kernel against ``index_add_``: within 1e-12 of
     sum|x| a group, within (count - 1) * eps * sum|x| of the exact
     (``math.fsum``) sum, NaN and inf where the plain version has them,
-    bit for bit the same in a second run; one launch, none for no rows."""
+    bit for bit the same in a second run and on a grid of one block; one
+    launch a call, none for no rows."""
     import math
 
     from spark_rapids_jni_tpu_torch.ops.kernels import segment_sum as kss
 
     rng = np.random.default_rng(5)
+    c = kss.CHUNK
     sizes = {"small": rng.integers(0, 4, 3000),
-             "one_large": [kss.CHUNK * 300 + 17],
+             "one_large": [c * 300 + 17],
              "mixed": np.concatenate([rng.integers(0, 3, 500), [0, 5000],
-                                      rng.integers(1, 2 * kss.CHUNK, 40),
-                                      [kss.CHUNK, kss.CHUNK + 1, 1]]),
+                                      rng.integers(1, 2 * c, 40),
+                                      [c, c + 1, 1]]),
              "tail": rng.integers(1, 300, 77),
-             "empty_rows": [0, 0, 0]}[case]
+             "empty_rows": [0, 0, 0],
+             # groups just under and just over one and two chunks
+             "near_chunk": rng.choice([c - 1, c, c + 1, 2 * c - 1, 2 * c,
+                                       2 * c + 1, 1], 300)}[case]
     vals, gid, lo, hi = _sorted_groups(sizes, dev, len(sizes),
                                        past=999 if case == "tail" else 0)
     m = lo.shape[0]
     kernels.reset_counts()
-    got = kss._segment_sum_cuda(vals, lo, hi)
-    again = kss._segment_sum_cuda(vals, lo, hi)
-    assert kernels.launches(kss.NAME) == (0 if vals.shape[0] == 0 else 2)
+    got = kss._segment_sum_cuda(vals, gid, lo, hi)
+    again = kss._segment_sum_cuda(vals, gid, lo, hi)
+    one_block = kss._segment_sum_cuda(vals, gid, lo, hi, blocks=1)
+    assert kernels.launches(kss.NAME) == (0 if vals.shape[0] == 0 else 3)
     want = kss.segment_sum_plain(vals, gid, m)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    assert torch.equal(got.view(torch.int64), one_block.view(torch.int64))
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     fin = torch.isfinite(want)

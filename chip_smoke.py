@@ -300,9 +300,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    revenue-by-supplier aggregate: sum and count of l_quantity and
    l_extendedprice, their min and max), lowered to the bounded plan at
    m = 100,001 with kernel A launched exactly ``launches(m, L)`` times
-   (windows of groups), equal to the same call with no domain (the
-   general plan) and to ``np.bincount``, and A alone at this shape
-   against its plain version; ``convert_to_rows(enforce_row_limit=
+   (one pass), equal to the same call with no domain (the general
+   plan) and to ``np.bincount``, A alone at this shape against its
+   plain version, and one float-sum lane at m = 100,001 (windows of
+   groups) three times: the same bits each run, within
+   ``FLOAT_SUM_REL * sum|x|`` of the plain version; ``convert_to_rows(enforce_row_limit=
    False)`` over 200 INT64 columns x 2,000,000 rows (1,632-byte rows)
    and 8,000 x 20,000 (65,000-byte rows), ~10 % nulls, kernel C once
    each, equal byte for byte to its plain version, the round trip
@@ -469,7 +471,8 @@ def _accumulate_row(gid, lanes, m: int, dev, what: str) -> dict:
     ) + got.nbytes
     b_ms, b_by = bound(nbytes, n * len(lanes))
     row = dict(
-        m=m, lanes=len(lanes), rows=n, launches=kga.launches(m, len(lanes)),
+        m=m, lanes=len(lanes), rows=n,
+        launches=kga.launches(m, len(lanes), len(fsum)),
         max_abs_err=max_abs_err(got[:, exact], want[:, exact]),
         float_sum_lanes=len(fsum),
         ms=median_ms(lambda: kga._accumulate_cuda(gid, lanes, m)),
@@ -6975,9 +6978,11 @@ def _bounded_suppliers_part(gtab, dev, out: dict) -> int:
     """(a) ``plan_groupby_auto`` over SF10 lineitem by l_suppkey with the
     DDL domain of 100,000 supplier keys from a budget of 4,096: the
     bounded plan at m = 100,001, kernel A launched ``launches(m, L)``
-    times (windows of groups), equal to the same call with no domain
-    (the general plan) and to ``np.bincount``; then A alone at this shape
-    against its plain version. Returns A's launches."""
+    times (one pass), equal to the same call with no domain (the
+    general plan) and to ``np.bincount``; then A alone at this shape
+    against its plain version, and A over one float-sum lane (the
+    FLOAT64 price, column 3 of ``gtab``) at the same m three times: the
+    same bits each run, within its bound. Returns A's launches."""
     import numpy as np
 
     from spark_rapids_jni_tpu_torch.ops.groupby import bounded_lanes
@@ -6992,7 +6997,7 @@ def _bounded_suppliers_part(gtab, dev, out: dict) -> int:
     domains = [scalar_domain(range(1, SUPPLIERS + 1))]
     num_lanes = len(bounded_lanes(gtab, SUPPLIER_AGGS).lanes)
     want_a = kga.launches(m, num_lanes)
-    windows, per = kga.launch_plan(m, num_lanes)
+    plan = kga.launch_plan(m, num_lanes)
     t0 = time.perf_counter()
     res, got = _run_plan(
         "plan_groupby_auto(l_suppkey, DDL domain)",
@@ -7036,18 +7041,51 @@ def _bounded_suppliers_part(gtab, dev, out: dict) -> int:
         require(np.array_equal(got_col, want[slots + 1].astype(np.int64)),
                 f"supplier column {col} != np.bincount")
     log(f"bounded plan over supplier keys: m = {m}, {k} suppliers, kernel "
-        f"A {got['A']} launches ({len(windows)} windows of "
-        f"{windows[0][1]} groups, {per} lane(s) a launch, {num_lanes} "
-        f"lanes), equal to the general plan and np.bincount; "
+        f"A {got['A']} launch(es) (one pass over {plan.one_pass} of "
+        f"{num_lanes} lanes), equal to the general plan and np.bincount; "
         f"{s_bounded:.1f} s (general attempts 4,096-65,536 included), "
         f"general {s_general:.1f} s")
     del gen, res
-    row = _accumulate_row(*bounded_accumulate_inputs(
-        gtab, [0], SUPPLIER_AGGS, domains), dev, "supplier keys")
+    gid, lanes, _ = bounded_accumulate_inputs(gtab, [0], SUPPLIER_AGGS,
+                                              domains)
+    row = _accumulate_row(gid, lanes, m, dev, "supplier keys")
     out["bounded_suppliers"] = dict(
-        row, windows=len(windows), window_groups=windows[0][1],
-        lanes_a_launch=per, s=s_bounded, general_s=s_general, groups=k)
+        row, one_pass_lanes=plan.one_pass, s=s_bounded, general_s=s_general,
+        groups=k, float_sum=_wide_float_sum(gid, gtab.column(3), m))
     return got["A"]
+
+
+def _wide_float_sum(gid, col, m: int) -> dict:
+    """A over one float-sum lane at m groups past shared memory (windows
+    of the large kernel, a fixed order), ``FLOAT_SUM_RUNS`` times: the
+    same bits each run, each sum within ``FLOAT_SUM_REL * sum|x|`` of the
+    plain version's, NaN where it is; its time beside the plain
+    version's."""
+    from spark_rapids_jni_tpu_torch.ops.kernels import groupby_accumulate as kga
+    from spark_rapids_jni_tpu_torch.utils.timing import median_ms
+
+    lane = kga.Lane("sum", col.data, col.validity, 0.0)
+    runs = [kga._accumulate_cuda(gid, [lane], m)
+            for _ in range(FLOAT_SUM_RUNS)]
+    require(all(torch.equal(runs[0], r) for r in runs[1:]),
+            f"A's float sum at m = {m}: the bits differ between runs")
+    g = runs[0][:, 0].view(torch.float64)
+    w = kga.accumulate_plain(gid, [lane], m)[:, 0].view(torch.float64)
+    nan = torch.isnan(w)
+    near = (g - w).abs() <= kga.float_sum_bound(gid, lane, m)
+    require(bool(((torch.isnan(g) == nan) & (nan | near)).all()),
+            f"A's float sum at m = {m} past its bound")
+    del runs
+    row = dict(launches=kga.launches(m, 1, 1), runs=FLOAT_SUM_RUNS,
+               nan_groups=int(nan.sum()),
+               ms=median_ms(lambda: kga._accumulate_cuda(gid, [lane], m)),
+               plain_ms=median_ms(lambda: kga.accumulate_plain(
+                   gid, [lane], m)))
+    log(f"kernel A, one float-sum lane at m = {m}: {row['launches']} "
+        f"launches (windows), the same bits in {FLOAT_SUM_RUNS} runs, "
+        f"within the bound; {row['ms']:.3f} ms (plain "
+        f"{row['plain_ms']:.3f})")
+    return row
 
 
 def _wide_rows_part(dev, out: dict) -> int:
@@ -7289,7 +7327,7 @@ def _one_group_sums(vals, dev) -> dict:
 def refused_inputs_phase(dev) -> tuple:
     """Phase 22: what the card once refused, at full width on one H100.
     (a) the bounded plan over SF10's 100,000 supplier keys (kernel A in
-    windows of groups); (b) rows of 1,632 and 65,000 bytes (kernel C's
+    one pass; one float-sum lane in windows of groups); (b) rows of 1,632 and 65,000 bytes (kernel C's
     tiled path); (c) the general groupby's float sums in a
     fixed order (kernel E). Returns ({path: {kernel: launches}}, E's
     kernel row, the phase's numbers)."""
@@ -7303,7 +7341,8 @@ def refused_inputs_phase(dev) -> tuple:
     kernels.reset_counts()
     tab, _ = tpch.lineitem_groupby_table(ROWS, Q3_ORDERS, SUPPLIERS)
     QTY, PRICE, SKEY, F64 = 0, 1, 8, 9
-    gtab = Table([tab.column(SKEY), tab.column(QTY), tab.column(PRICE)])
+    gtab = Table([tab.column(SKEY), tab.column(QTY), tab.column(PRICE),
+                  tab.column(F64)])
     q = ROWS // 4
     fcols = [tab.column(SKEY), tab.column(F64)]
     ftab = Table([type(c)(c.dtype, c.data[:q], None if c.validity is None

@@ -29,89 +29,85 @@
 //     shape alone, so a run repeats bit for bit: every combine below is
 //     either a thread's own rows in row order, a fold in a fixed tree, or
 //     (large domains) warps committing one after another.
-//   * a launch takes up to kParamLanes lanes within the 227 KB of dynamic
-//     shared memory a block may opt in to; the wrapper splits more lanes
-//     over several launches, each reading gid again.
-//   * a domain too wide for one lane's partials (m past ~23,000 slots)
-//     splits into windows of groups [g0, g0 + w): each launch of the
-//     large kernel covers one window (a row whose group falls outside it
-//     joins no group there), and its fold writes that window's block of
-//     out[m, L]. The wrapper picks the window width and the lanes a
-//     launch that read the fewest bytes; each launch keeps one fixed
-//     order, so float sums still repeat bit for bit.
+//   * any m an int32 gid can name (below).
 //
 // Bound on this card: bytes (each row's group id, and each lane's value
-// and validity bytes, read once). The first design sent every (row,
-// lane) through one 64-bit shared-memory atomic into part[g * L + l]. At
-// TPC-H q1 (m = 12 slots, ~7 live groups) the 32 threads of a warp hit ~7
-// addresses, so each atomic instruction serialised several ways, and the
-// kernel reached a fifth of its byte bound. The SASS of that build
-// (cuobjdump -sass, sm_90a) says why it was worse than serialisation:
-// there is no 64-bit add, min or max instruction on shared memory, and
-// every such atomic compiled to a compare-and-swap loop (ATOMS.CAST.SPIN.64,
-// nine in that kernel), which retries whenever another thread changed the
-// word between its load and its swap.
-//
-// This design has no same-address atomics per row. The element kind and
-// op of a lane are template arguments of the code that reads its rows,
-// chosen by one warp-uniform switch per lane (with_lane); the two kernels
-// order their loops differently:
-// - Small domains (m <= kSmallM, q1's case): lanes outer, rows inner. A
-//   block walks tiles of kTile rows; it stages the tile's group ids in
-//   shared memory once, then runs each lane over the whole tile, so the
-//   switch runs once per lane and tile, not per row. Every thread owns a
-//   private column of m partials in shared memory, laid out
-//   [group][thread] so a warp's updates never share a bank pair, and
-//   updates it with a plain load and store. After each lane's pass over
-//   the tile, 16 threads per group fold the 256 columns (16 reads each,
-//   then shuffles) into the block's partials.
-// - Larger domains: per-thread columns would not fit. Rows outer, lanes
-//   inner, in blocks of 256 or 1,024 threads, whichever keeps more warps
-//   resident (ties: 256). Wide partials (the monthly rollup's 134 KB)
-//   leave room for one block a multiprocessor, and 1,024 threads keep 32
-//   warps of loads in flight; small ones fit 8 blocks of 256, whose
-//   separate partials spread a hot group's updates (q5's null slot holds
-//   ~99.9 % of its rows: with 1,024-thread blocks its time rose from
-//   1.50 to 1.80 ms). Each warp
-//   takes 32 rows at a time and first tests whether they are in 32
-//   different groups (each row writes its thread id into a two-byte tag
-//   per group and reads it back: a store, a load and a vote). If they
-//   are, every row is its own group's leader. If not, it finds the rows
-//   of each group once (__match_any_sync on the group id, shared by every
-//   lane), and for each lane reduces each group's values over its rank
-//   order in as many shuffle steps as the warp's largest group needs
-//   (five when all 32 share one). Then one leader per group updates the
-//   block's partials: a shared atomic for integer and min/max lanes (a
-//   CAS loop, at most one per group per warp instruction, each at a
-//   different address), and for float sums a plain add, warp after warp
-//   between barriers, so their order is fixed.
-// - No global atomics: each block writes its partials to its own row of
-//   a scratch buffer, and a second kernel folds the rows of each cell in
-//   a fixed tree (one block a cell) and decodes the order keys.
+// and validity bytes, read once). Three kernels, by the domain:
+// - Small domains (m <= kSmallM: planned q1, q12, q4): per-thread private
+//   partials. Lanes outer, rows inner: a block walks tiles of kTile rows,
+//   stages the tile's group ids in shared memory once, then runs each lane
+//   over the tile (one warp-uniform switch per lane and tile, with_lane).
+//   Every thread owns a column of m partials in shared memory, laid out
+//   [group][thread] so a warp's updates never share a bank pair, updated
+//   with a plain load and store; 16 threads per group then fold the 256
+//   columns into the block's partials. Loads go kBatch rows at a time
+//   ahead of their updates. (The first design sent every (row, lane)
+//   through a 64-bit shared atomic, a compare-and-swap loop on sm_90a,
+//   ATOMS.CAST.SPIN.64, and reached a fifth of the bound at q1; this
+//   reaches about half.)
+// - Larger domains one launch holds (the monthly rollup, q5, up to ~23,000
+//   slots a lane): the block's partials in shared memory, rows outer,
+//   lanes inner, in blocks of 256 or 1,024 threads, whichever keeps more
+//   warps resident (q5's hot null slot, ~99.9 % of its rows, ran slower
+//   in 1,024-thread blocks). A warp takes 32 rows at a time and tests
+//   whether they are in 32 groups (each row writes its thread id into a
+//   two-byte tag per group and reads it back), then whether they are all
+//   in one (one compare: q5's warps); otherwise __match_any_sync finds the
+//   groups. Each lane's values reduce over their rank order in as many
+//   shuffle steps as the largest group needs, and one leader per group
+//   updates the block's partials:
+//   * the partials are lane-major (a lane's m cells together), so the
+//     leaders of a warp, in distinct groups, hit different banks. Laid
+//     out [group][lane], a group's cells at the rollup's 16 lanes span
+//     128 bytes, so every leader of a lane hit one bank pair: each update
+//     was a ~31-way bank conflict, and the rollup took 22.3-23.1 ms where
+//     its lanes split by kind took 1.0-2.2 ms each (PERF.md);
+//   * integer sums are native 32-bit shared atomicAdds on the cell's low
+//     and high words (planes of their own), the carry found from the low
+//     word's old value: exact in any order, no CAS loop;
+//   * min/max read the cell first and take the 64-bit CAS loop only when
+//     the row would win (rarely, past a block's first rows);
+//   * float sums commit warp after warp, each warp waiting for its turn on
+//     a counter in shared memory instead of 32 block barriers per 1,024
+//     rows; the order, and so the bits, are those of the barriers.
+//   Each block writes its partials to its row of a scratch buffer, and
+//   fold_kernel folds the rows of each cell in a fixed tree.
+// - Past one launch's shared memory (m = 100,001, SF10's supplier keys):
+//   one pass over the rows, the partials in global memory (out itself:
+//   100,001 x 8 distinct lanes is 6.4 MB, which stays in the 50 MB L2),
+//   updated with native 64-bit global atomics (atomicAdd, and atomicMin/
+//   atomicMax on the order key; reading a min/max cell first measured no
+//   faster). The distinct test hashes groups into 4,096 tags. A warp keeps
+//   a hot group (kRunRows of its 32 rows) as its run, its partials private
+//   in shared memory while the group keeps appearing, so one group does
+//   not queue every warp at one L2 address. The leaders' values wait in
+//   shared memory and go out row by row, one op after another, so a
+//   warp's atomics cover adjacent cells of a few rows: a row's atomics
+//   each on its own took 6.5 ms, row by row 4.4 (about 3.8 of the 6.5 ms
+//   were atomics: with them cut the kernel took 2.7). Float sums are the
+//   exception: their order must be fixed, so the wrapper sends them
+//   through windows of groups [g0, g0 + w), a launch of the large kernel
+//   each.
 // - A launch of integer lanes only takes kernels compiled without the
 //   float paths (FLOATS = false): with them the small kernel needed 54
 //   registers, or spilled at 40, and planned q1's A took 1.86-1.98 ms
 //   against 1.55 before the float paths existed (PERF.md).
-// Loads are coalesced element loads (a warp reads whole sectors); the
-// small kernel issues them kBatch rows at a time ahead of their
-// shared-memory updates. The lane descriptors travel in the launch's
-// parameters, so a launch makes no host-to-device copy and the card does
-// not wait on the host between the launches.
-// Measured on the H100 at q1 (PERF.md): loading and updating row by row
-// kept one load in flight per thread (2.7 ms); batching the loads made it
-// 1.7-2.1 ms and moving the descriptors into the parameters 1.6 ms, half
-// the byte bound. A branch-free variant (rows in no group updating a
-// spare row, read-only-path loads, 16K-row tiles) was slower, 2.0 ms.
-// The large-domain kernel at 60M rows (bench_kernels --large, PERF.md):
-// with one group it takes a quarter to a third of the time of one atomic
-// per row and lane; with rows spread over m = 2048 groups, where that
-// loop meets no contention, the distinct-rows test keeps it within 10 %
-// of it (without the test, __match_any_sync and the rank arithmetic on
-// every warp made it 1.9x slower).
+// Tried and dropped on the card (PERF.md): loading a chunk of 8 lanes of
+// a row before folding any (64-106 registers, slower everywhere), an L2
+// prefetch of the next rows, two 32-row sets a warp, a division-free
+// commit and 8,192 tags (no change), more blocks an SM by launch bounds
+// (spills). With its loads cut the one-pass kernel took 0.5 ms less and
+// with its atomics cut 0.15 ms less: the rest is per-row, per-lane work.
+// The lane descriptors travel in the launch's parameters, so a launch
+// makes no host-to-device copy and the card does not wait on the host.
+// Each shape's time beside its bound, plain version and library call is
+// in PERF.md's kernel tables.
 // Dynamic shared memory per block: 40 bytes a lane plus m * L partials
-// (8 bytes each); for the small kernel m * 256 private partials and the
-// tile's 8,192 one-byte group ids, for the large kernel m two-byte tags
-// (m: the window's width).
+// (8 bytes each); the small kernel adds m * 256 private partials and the
+// tile's 8,192 one-byte group ids, the large kernel a 16-byte turn counter
+// and m two-byte tags (m: the window's width); the one-pass kernel 40
+// bytes and a run cell per warp a lane, beside ~38 KB of static tags,
+// staged values and lane order.
 // ptxas's registers and spills are in build.log (-Xptxas -v).
 
 #include <cstdint>
@@ -243,18 +239,6 @@ __device__ __forceinline__ long long decode(const Lane& lane, long long k) {
     return k >= 0 ? k : k ^ kKeyMax;
   }
   return k;
-}
-
-template <int64_t OP>
-__device__ __forceinline__ void atomic_fold(long long* slot, long long v) {
-  if constexpr (OP == kSum) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(slot),
-              static_cast<unsigned long long>(v));
-  } else if constexpr (OP == kMin) {
-    atomicMin(slot, v);
-  } else {
-    atomicMax(slot, v);
-  }
 }
 
 // f(Type<element>{}, OpC<op>{}) with the lane's kind and op as types
@@ -434,7 +418,7 @@ accumulate_small_kernel(const int32_t* __restrict__ gid, int64_t n,
   flush(m * num_lanes, blk, scratch);
 }
 
-// ---- larger domains: warp-aggregated shared atomics -----------------------
+// ---- larger domains: the warp's groups ------------------------------------
 
 // position of the n-th (from 0) set bit of mask; n < popc(mask)
 __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
@@ -451,6 +435,182 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
   return pos;
 }
 
+// How a warp's 32 rows fall into groups. Rows of one group combine over
+// their rank order: step k adds rank r + 2^k into rank r, so rank 0 (the
+// group's leader) ends holding the whole group in as many steps as the
+// warp's largest group needs (none when the rows are in 32 groups).
+struct WarpGroups {
+  int rank;    // among the warp's rows of this row's group
+  int count;   // rows of the warp in this row's group
+  int big;     // rows of the warp's largest group (rows in no group aside)
+  int steps;   // shuffle steps: ceil(log2(big))
+  int src[5];  // the lane that step k reads
+};
+
+// distinct: the warp's rows are known to be in 32 different groups (rows
+// in no group aside); otherwise __match_any_sync finds the groups.
+__device__ __forceinline__ WarpGroups warp_groups(bool ok, int g,
+                                                  bool distinct,
+                                                  int lane_id) {
+  WarpGroups w{0, 1, 1, 0, {lane_id, lane_id, lane_id, lane_id, lane_id}};
+  if (distinct) return w;
+  const int key = ok ? g : -1;
+  if (__all_sync(kFull, key == __shfl_sync(kFull, key, 0))) {
+    // one set (a hot group, q5's null slot): ranks are lanes, no match
+    w.rank = lane_id;
+    w.count = 32;
+    w.big = ok ? 32 : 1;
+    w.steps = ok ? 5 : 0;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if (lane_id + (1 << k) < 32) w.src[k] = lane_id + (1 << k);
+    }
+    return w;
+  }
+  {
+    // rows in no group form one more set, whose leader writes nothing
+    const unsigned peers = __match_any_sync(kFull, key);
+    w.rank = __popc(peers & ((1u << lane_id) - 1u));
+    w.count = __popc(peers);
+    w.big = __reduce_max_sync(kFull, ok ? w.count : 1);
+    w.steps = 32 - __clz(w.big - 1);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int r = w.rank + (1 << k);
+      if (k < w.steps && r < w.count) w.src[k] = nth_set_bit(peers, r);
+    }
+  }
+  return w;
+}
+
+// rank r ends holding the combine of ranks [r, count) of its group
+template <int64_t OP>
+__device__ __forceinline__ long long warp_reduce(long long v,
+                                                 const WarpGroups& w) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    if (k >= w.steps) break;  // steps is warp-uniform
+    const long long o = __shfl_sync(kFull, v, w.src[k]);
+    if (w.rank + (1 << k) < w.count) v = combine<OP>(v, o);
+  }
+  return v;
+}
+
+// the lane's word for this row, its neutral where the row is in no group
+// or invalid; the value and validity loads do not wait on each other
+template <typename T, int64_t OP>
+__device__ __forceinline__ long long row_word(Type<T> type, OpC<OP> op_c,
+                                              const Lane& lane, bool ok,
+                                              int64_t row) {
+  const long long v = ok ? value(type, op_c, lane.values, row) : 0;
+  const bool valid = ok && (lane.valid == nullptr || lane.valid[row] != 0);
+  return valid ? v : lane.neutral;
+}
+
+// ---- larger domains, one launch: the block's partials in shared memory ----
+//
+// Lane-major: lane l's m cells start at blk + l * m, so the leaders of one
+// warp (distinct groups) update cells in different banks. A sum lane keeps
+// its cells as two planes of uint32 (the m low words, then the m high
+// words); a min/max or float-sum lane keeps m int64 words.
+
+constexpr int kTurnBytes = 16;  // the float sums' turn counter, 16-aligned
+
+__device__ __forceinline__ void large_init(const Lane* lane_s, int num_lanes,
+                                           int m, long long* blk) {
+  for (int j = threadIdx.x; j < m * num_lanes; j += blockDim.x) {
+    const int l = j / m;
+    const int g = j - l * m;
+    const Lane& lane = lane_s[l];
+    long long* cells = blk + static_cast<int64_t>(l) * m;
+    if (lane.op == kSum) {
+      unsigned* word = reinterpret_cast<unsigned*>(cells);
+      const unsigned long long u = static_cast<unsigned long long>(lane.neutral);
+      word[g] = static_cast<unsigned>(u);
+      word[m + g] = static_cast<unsigned>(u >> 32);
+    } else {
+      cells[g] = lane.neutral;
+    }
+  }
+  __syncthreads();
+}
+
+// the block's partials to its row of the scratch buffer, [group][lane]
+__device__ __forceinline__ void large_flush(const Lane* lane_s, int num_lanes,
+                                            int m, const long long* blk,
+                                            long long* __restrict__ scratch) {
+  __syncthreads();
+  const int cells = m * num_lanes;
+  long long* row = scratch + static_cast<int64_t>(blockIdx.x) * cells;
+  for (int j = threadIdx.x; j < cells; j += blockDim.x) {
+    const int g = j / num_lanes;
+    const int l = j - g * num_lanes;
+    const long long* lane_cells = blk + static_cast<int64_t>(l) * m;
+    if (lane_s[l].op == kSum) {
+      const unsigned* word = reinterpret_cast<const unsigned*>(lane_cells);
+      row[j] = static_cast<long long>(
+          (static_cast<unsigned long long>(word[m + g]) << 32) | word[g]);
+    } else {
+      row[j] = lane_cells[g];
+    }
+  }
+}
+
+// A wrapping int64 sum as native 32-bit shared atomics on the cell's low
+// and high words: the high word's add goes first, not waiting; the low
+// word's old value tells whether this add wrapped it (old + lo < old), and
+// the carry is one more add to the high word. Every wrap of the low word
+// is counted once, by the add that caused it, so the int64 total is exact
+// in any order of the adds.
+__device__ __forceinline__ void shared_add(long long* cells, int m, int g,
+                                           long long v) {
+  unsigned* word = reinterpret_cast<unsigned*>(cells);
+  const unsigned long long u = static_cast<unsigned long long>(v);
+  const unsigned lo = static_cast<unsigned>(u);
+  const unsigned hi = static_cast<unsigned>(u >> 32);
+  if (hi != 0) atomicAdd(word + m + g, hi);
+  if (lo != 0) {
+    const unsigned old = atomicAdd(word + g, lo);
+    if (old + lo < old) atomicAdd(word + m + g, 1u);
+  }
+}
+
+// A 64-bit shared min/max is a compare-and-swap loop on sm_90a; past a
+// block's first rows almost no row wins, so read the cell first. A stale
+// read is an older value of a cell that only moves toward the winner, so
+// it can only send a row to the atomic that needs none, never skip one.
+template <int64_t OP>
+__device__ __forceinline__ void shared_minmax(long long* cell, long long v) {
+  const long long cur = *reinterpret_cast<volatile long long*>(cell);
+  if (OP == kMin ? v < cur : v > cur) {
+    if constexpr (OP == kMin) {
+      atomicMin(cell, v);
+    } else {
+      atomicMax(cell, v);
+    }
+  }
+}
+
+// Float sums add in a fixed order: iteration by iteration, lane by lane,
+// warp 0 to the last. A warp waits for its turn (the count of commits
+// before its own), adds its leaders' values and passes the turn on; no
+// block-wide barrier, so the warps not at a commit run ahead to their next
+// loads. The order is that of a block barrier per warp, and so the bits.
+__device__ __forceinline__ void turn_wait(const unsigned* turn,
+                                          unsigned ticket) {
+  while (*reinterpret_cast<const volatile unsigned*>(turn) != ticket) {
+  }
+  __threadfence_block();
+}
+
+__device__ __forceinline__ void turn_pass(unsigned* turn, unsigned ticket) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    *reinterpret_cast<volatile unsigned*>(turn) = ticket + 1;
+  }
+}
+
 // m is the window's width: a row of gid in [g0, g0 + m) is in its group
 // gid - g0 (g0 = 0 and m the domain when the domain fits one launch)
 template <int THREADS, bool FLOATS>
@@ -460,79 +620,63 @@ accumulate_large_kernel(const int32_t* __restrict__ gid, int64_t n,
                         int num_lanes, int m, int g0,
                         long long* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Lane* lane_s = reinterpret_cast<Lane*>(smem);
+  unsigned* turn = reinterpret_cast<unsigned*>(smem);
+  Lane* lane_s = reinterpret_cast<Lane*>(smem + kTurnBytes);
   long long* blk = reinterpret_cast<long long*>(lane_s + num_lanes);
   // tag[g]: the thread that last claimed group g (any warp of the block)
-  uint16_t* tag = reinterpret_cast<uint16_t*>(blk + m * num_lanes);
-  load_lanes(params, num_lanes, m, lane_s, blk);
+  uint16_t* tag = reinterpret_cast<uint16_t*>(
+      blk + static_cast<int64_t>(m) * num_lanes);
+  for (int j = threadIdx.x; j < num_lanes; j += THREADS) {
+    lane_s[j] = params.lane[j];
+  }
+  if (threadIdx.x == 0) *turn = 0;
+  __syncthreads();
+  large_init(lane_s, num_lanes, m, blk);
 
   const int lane_id = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const uint16_t me = static_cast<uint16_t>(threadIdx.x);
+  unsigned ticket = threadIdx.x >> 5;  // this warp's next float-sum turn
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-  // a block-uniform loop: the warp's collectives run converged, and the
-  // float sums' barriers are reached by every thread
+  // a block-uniform loop: every warp takes every float-sum turn
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * THREADS;
        base < n; base += stride) {
     const int64_t row = base + threadIdx.x;
-    const bool in = row < n;
-    const int32_t g = in ? gid[row] - g0 : -1;
+    const int32_t g = row < n ? gid[row] - g0 : -1;
     const bool ok = g >= 0 && g < m;
     // Are the warp's rows in distinct groups? Each claims its group's
     // tag; two rows of one group cannot both read their own claim back,
     // so "all read their own" proves it (another warp's claim in between
-    // only sends the warp down the exact path below).
+    // only sends the warp down the exact path).
     if (ok) tag[g] = me;
     __syncwarp();
     const bool distinct = __all_sync(kFull, !ok || tag[g] == me);
-    // Otherwise: the rows of this warp in the same group as this one
-    // (rows in no group form one more set, whose leader writes nothing),
-    // and as many shuffle steps as the warp's largest group needs.
-    int rank = 0, count = 1, steps = 0;
-    int src[5] = {lane_id, lane_id, lane_id, lane_id, lane_id};
-    if (!distinct) {
-      const unsigned peers = __match_any_sync(kFull, ok ? g : -1);
-      rank = __popc(peers & ((1u << lane_id) - 1u));
-      count = __popc(peers);
-      steps = 32 - __clz(__reduce_max_sync(kFull, ok ? count : 1) - 1);
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        const int r = rank + (1 << k);
-        if (k < steps && r < count) src[k] = nth_set_bit(peers, r);
-      }
-    }
+    const WarpGroups wg = warp_groups(ok, g, distinct, lane_id);
+    const bool lead = ok && wg.rank == 0;
     for (int l = 0; l < num_lanes; ++l) {
       const Lane lane = lane_s[l];
       with_lane<FLOATS>(lane, [&](auto type, auto op_c) {
         constexpr int64_t OP = decltype(op_c)::value;
-        long long v = lane.neutral;
-        if (ok && (lane.valid == nullptr || lane.valid[row] != 0)) {
-          v = value(type, op_c, lane.values, row);
-        }
-        // rank r ends holding the combine of ranks [r, count)
-#pragma unroll
-        for (int k = 0; k < 5; ++k) {
-          if (k >= steps) break;
-          const long long o = __shfl_sync(kFull, v, src[k]);
-          if (rank + (1 << k) < count) v = combine<OP>(v, o);
-        }
-        long long* cell = blk + (ok ? g : 0) * num_lanes + l;
+        const long long v =
+            warp_reduce<OP>(row_word(type, op_c, lane, ok, row), wg);
+        long long* cells = blk + static_cast<int64_t>(l) * m;
         if constexpr (OP == kSumF) {
-          // warp after warp: the leaders of one warp are in distinct
-          // groups, so each adds to its cell alone
-          for (int w = 0; w < THREADS / 32; ++w) {
-            if (w == warp && ok && rank == 0) {
-              *cell = combine<kSumF>(*cell, v);
-            }
-            __syncthreads();
+          // the leaders of one warp are in distinct groups: each adds to
+          // its cell alone
+          turn_wait(turn, ticket);
+          if (lead) cells[g] = combine<kSumF>(cells[g], v);
+          turn_pass(turn, ticket);
+          ticket += THREADS / 32;
+        } else if (lead) {
+          if constexpr (OP == kSum) {
+            shared_add(cells, m, g, v);
+          } else {
+            shared_minmax<OP>(cells + g, v);
           }
-        } else if (ok && rank == 0) {
-          atomic_fold<OP>(cell, v);
         }
       });
     }
   }
-  flush(m * num_lanes, blk, scratch);
+  large_flush(lane_s, num_lanes, m, blk, scratch);
 }
 
 // out[cell] = the decoded fold of scratch[0..blocks)[cell]: one block a
@@ -567,6 +711,223 @@ fold_kernel(const __grid_constant__ LaneParams params, int num_lanes,
   }
 }
 
+// ---- domains past shared memory: one pass, partials in global memory ------
+//
+// out[m, L] holds the partials themselves (m = 100,001 x 9 lanes is 7.2 MB,
+// which stays in the 50 MB L2): integer sums take a native 64-bit global
+// atomicAdd, min/max a native 64-bit global atomicMin/atomicMax on the
+// order key. Float-sum lanes do not come here (the wrapper sends them to
+// the windows of the large kernel, whose order is fixed).
+
+constexpr int kOnePassThreads = 256;
+constexpr int kTags = 4096;   // hashed distinct-groups tags, 8 KB a block
+constexpr int kRunRows = 8;   // a group with this many of a warp's 32 rows
+                              // becomes the warp's run
+
+// Native 64-bit global atomics (REDG.E.ADD.64, REDG.E.MIN.S64, ...): a
+// min/max update is one fire-and-forget RED, so it is not read first
+// (reading first measured no faster: PERF.md)
+template <int64_t OP>
+__device__ __forceinline__ void global_fold(long long* cell, long long v) {
+  if constexpr (OP == kSum) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(cell),
+              static_cast<unsigned long long>(v));
+  } else if constexpr (OP == kMin) {
+    atomicMin(cell, v);
+  } else {
+    atomicMax(cell, v);
+  }
+}
+
+__device__ __forceinline__ void global_fold_rt(int64_t op, long long* cell,
+                                               long long v) {
+  switch (op) {
+    case kSum: global_fold<kSum>(cell, v); break;
+    case kMin: global_fold<kMin>(cell, v); break;
+    default: global_fold<kMax>(cell, v); break;
+  }
+}
+
+// the warp's run (its partials of one hot group, private to the warp) into
+// out: integer sums and min/max do not depend on the order of their terms
+__device__ __forceinline__ void flush_run(const Lane* lane_s, int num_lanes,
+                                          const long long* run, int g,
+                                          long long* out) {
+  __syncwarp();
+  for (int l = threadIdx.x & 31; l < num_lanes; l += 32) {
+    global_fold_rt(lane_s[l].op, out + static_cast<int64_t>(g) * num_lanes + l,
+                   run[l]);
+  }
+  __syncwarp();
+}
+
+constexpr int kStageLanes = 12;  // lanes a warp stages before committing
+constexpr int kStageRow = kStageLanes + 1;  // padded: rows in other banks
+
+// A warp's staged values, row by row: items (staged row r, lane
+// order[j]) of the lanes order[0, count) of one op, so that consecutive
+// threads update adjacent cells of a row with one kind of atomic.
+template <int64_t OP>
+__device__ __forceinline__ void commit_staged(const long long* stage,
+                                              const int* stage_g,
+                                              const uint8_t* order, int count,
+                                              int num_lanes, long long* out) {
+  if (count == 0) return;
+  const int lane_id = threadIdx.x & 31;
+  int r = lane_id / count, j = lane_id - r * count;
+  const int dr = 32 / count, dj = 32 - dr * count;
+  for (int i = lane_id; i < 32 * count; i += 32) {
+    const int g = stage_g[r];
+    if (g >= 0) {
+      global_fold<OP>(out + static_cast<int64_t>(g) * num_lanes + order[j],
+                      stage[r * kStageRow + j]);
+    }
+    r += dr;
+    j += dj;
+    if (j >= count) {
+      j -= count;
+      ++r;
+    }
+  }
+}
+
+// A warp takes 32 rows at a time and reads gid and each lane once. Its
+// leaders update out with global atomics, except for the warp's run: a
+// hot group (kRunRows or more of the warp's rows) whose partials the warp
+// keeps in shared memory while the group appears among its rows, so one
+// group, or one holding most rows, does not queue every warp at one L2
+// address. The leaders' values wait in shared memory, kStageLanes lanes
+// at a time, and go out row by row, one op after another: consecutive
+// threads update a row's adjacent cells, so a warp's atomics touch a few
+// sectors, not 32 (a row's atomics one at a time took 6.5 ms at
+// m = 100,001, row by row 4.4: PERF.md).
+template <bool FLOATS>
+__global__ void __launch_bounds__(kOnePassThreads)
+accumulate_one_pass_kernel(const int32_t* __restrict__ gid, int64_t n,
+                           const __grid_constant__ LaneParams params,
+                           int num_lanes, int m,
+                           long long* __restrict__ out) {
+  constexpr int kWarps = kOnePassThreads / 32;
+  __shared__ uint16_t tag[kTags];
+  __shared__ long long stage[kWarps][32 * kStageRow];
+  __shared__ int stage_g[kWarps][32];  // a staged row's group, or -1
+  // the lanes in op order (sums, mins, maxs) and where each op starts
+  __shared__ uint8_t order[kParamLanes];
+  __shared__ int op_start[4];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Lane* lane_s = reinterpret_cast<Lane*>(smem);
+  long long* runs = reinterpret_cast<long long*>(lane_s + num_lanes);
+  for (int j = threadIdx.x; j < num_lanes; j += kOnePassThreads) {
+    lane_s[j] = params.lane[j];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int op = kSum; op <= kMax; ++op) {
+      op_start[op] = k;
+      for (int l = 0; l < num_lanes; ++l) {
+        if (lane_s[l].op == op) order[k++] = static_cast<uint8_t>(l);
+      }
+    }
+    op_start[3] = k;
+  }
+  __syncthreads();
+
+  const int lane_id = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint16_t me = static_cast<uint16_t>(threadIdx.x);
+  long long* run = runs + warp * num_lanes;
+  long long* my_stage = stage[warp] + lane_id * kStageRow;
+  int run_g = -1;  // warp-uniform
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kOnePassThreads;
+  // a warp-uniform loop
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kOnePassThreads +
+                      warp * 32;
+       base < n; base += stride) {
+    const int64_t row = base + lane_id;
+    const int32_t g = row < n ? gid[row] : -1;
+    const bool ok = g >= 0 && g < m;
+    // the large kernel's distinct test over hashed tags: two groups that
+    // share a tag only send the warp down the exact path
+    const int h = g & (kTags - 1);
+    if (ok) tag[h] = me;
+    __syncwarp();
+    const bool distinct = __all_sync(kFull, !ok || tag[h] == me);
+    const WarpGroups wg = warp_groups(ok, g, distinct, lane_id);
+    if (!__any_sync(kFull, ok && g == run_g)) {
+      if (run_g >= 0) {
+        flush_run(lane_s, num_lanes, run, run_g, out);
+        run_g = -1;
+      }
+      if (wg.big >= kRunRows) {
+        const unsigned who =
+            __ballot_sync(kFull, ok && wg.rank == 0 && wg.count == wg.big);
+        run_g = __shfl_sync(kFull, g, __ffs(who) - 1);
+        for (int l = lane_id; l < num_lanes; l += 32) {
+          run[l] = lane_s[l].neutral;
+        }
+        __syncwarp();
+      }
+    }
+    const bool lead = ok && wg.rank == 0;
+    const bool to_run = lead && g == run_g;
+    stage_g[warp][lane_id] = lead && !to_run ? g : -1;
+    const bool staged = __any_sync(kFull, lead && !to_run);
+    // the lanes in op order, kStageLanes at a time
+    for (int b = 0; b < num_lanes; b += kStageLanes) {
+      const int nb = min(kStageLanes, num_lanes - b);
+      for (int j = 0; j < nb; ++j) {
+        const int l = order[b + j];
+        const Lane& lane = lane_s[l];
+        with_lane<FLOATS>(lane, [&](auto type, auto op_c) {
+          constexpr int64_t OP = decltype(op_c)::value;
+          if constexpr (OP != kSumF) {
+            const long long v =
+                warp_reduce<OP>(row_word(type, op_c, lane, ok, row), wg);
+            if (to_run) run[l] = combine<OP>(run[l], v);
+            my_stage[j] = v;
+          }
+        });
+      }
+      __syncwarp();
+      if (!staged) continue;  // every leader is in the run
+      // this batch's share of each op's lanes
+      const int e = b + nb;
+      const int s0 = max(op_start[kSum], b), s1 = min(op_start[kMin], e);
+      const int n0 = max(op_start[kMin], b), n1 = min(op_start[kMax], e);
+      const int x0 = max(op_start[kMax], b), x1 = min(op_start[3], e);
+      commit_staged<kSum>(stage[warp] + (s0 - b), stage_g[warp], order + s0,
+                          max(s1 - s0, 0), num_lanes, out);
+      commit_staged<kMin>(stage[warp] + (n0 - b), stage_g[warp], order + n0,
+                          max(n1 - n0, 0), num_lanes, out);
+      commit_staged<kMax>(stage[warp] + (x0 - b), stage_g[warp], order + x0,
+                          max(x1 - x0, 0), num_lanes, out);
+      __syncwarp();
+    }
+  }
+  if (run_g >= 0) flush_run(lane_s, num_lanes, run, run_g, out);
+}
+
+// every cell of out[m, L] to its lane's neutral key
+__global__ void __launch_bounds__(kThreads)
+init_cells_kernel(const __grid_constant__ LaneParams params, int num_lanes,
+                  int64_t cells, long long* __restrict__ out) {
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       c < cells; c += static_cast<int64_t>(gridDim.x) * kThreads) {
+    out[c] = params.lane[c % num_lanes].neutral;
+  }
+}
+
+// every cell's order key back to its value's 64-bit pattern
+__global__ void __launch_bounds__(kThreads)
+decode_cells_kernel(const __grid_constant__ LaneParams params, int num_lanes,
+                    int64_t cells, long long* __restrict__ out) {
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       c < cells; c += static_cast<int64_t>(gridDim.x) * kThreads) {
+    out[c] = decode(params.lane[c % num_lanes], out[c]);
+  }
+}
+
 size_t small_smem(int num_lanes, int m) {
   return static_cast<size_t>(num_lanes) * sizeof(Lane) +
          static_cast<size_t>(m) * num_lanes * sizeof(long long) +
@@ -574,9 +935,20 @@ size_t small_smem(int num_lanes, int m) {
 }
 
 size_t large_smem(int num_lanes, int m) {
-  return static_cast<size_t>(num_lanes) * sizeof(Lane) +
+  return kTurnBytes + static_cast<size_t>(num_lanes) * sizeof(Lane) +
          static_cast<size_t>(m) * num_lanes * sizeof(long long) +
          static_cast<size_t>(m) * sizeof(uint16_t);
+}
+
+// the lane descriptors and each warp's run
+size_t one_pass_smem(int num_lanes) {
+  return static_cast<size_t>(num_lanes) *
+         (sizeof(Lane) + kOnePassThreads / 32 * sizeof(long long));
+}
+
+const void* one_pass_kernel(bool floats) {
+  return floats ? reinterpret_cast<const void*>(accumulate_one_pass_kernel<true>)
+                : reinterpret_cast<const void*>(accumulate_one_pass_kernel<false>);
 }
 
 const void* kernel_for(int m, int threads, bool floats) {
@@ -684,5 +1056,70 @@ extern "C" int srjt_groupby_accumulate(const void* gid, int64_t n,
   const int cells = m * num_lanes;
   fold_kernel<<<cells, kThreads, 0, s>>>(params, num_lanes, cells, blocks,
                                          part, static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The one-pass kernel's block size (*threads) and how many of its blocks
+// one multiprocessor holds (*per_sm) for num_lanes lanes (floats: a float
+// min/max lane among them).
+extern "C" int srjt_groupby_accumulate_one_pass_shape(int32_t num_lanes,
+                                                      int32_t floats,
+                                                      int32_t* threads,
+                                                      int32_t* per_sm) {
+  if (num_lanes < 1 || num_lanes > kParamLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int resident_blocks = 0;
+  const int err = resident(one_pass_kernel(floats != 0), kOnePassThreads,
+                           one_pass_smem(num_lanes), &resident_blocks);
+  if (err != 0) return err;
+  *threads = kOnePassThreads;
+  *per_sm = resident_blocks < 1 ? 1 : resident_blocks;
+  return 0;
+}
+
+// One pass over the rows for any m: gid: device int32[n] in [0, m] (m: no
+// group); lanes: HOST int64[num_lanes, 5] (see Lane), no float sum among
+// them; out: device int64[m, num_lanes], each cell the 64-bit pattern of
+// its result. Three launches on ``stream``: the neutrals, the rows (blocks
+// of kOnePassThreads), and the order keys decoded where a lane has any.
+// Returns the first CUDA error.
+extern "C" int srjt_groupby_accumulate_one_pass(const void* gid, int64_t n,
+                                                const void* lanes,
+                                                int32_t num_lanes, int32_t m,
+                                                int32_t floats, int32_t blocks,
+                                                void* out, void* stream) {
+  if (num_lanes < 1 || num_lanes > kParamLanes || blocks < 1 || m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LaneParams params{};
+  memcpy(params.lane, lanes, static_cast<size_t>(num_lanes) * sizeof(Lane));
+  bool keys = false;  // a lane whose cells hold order keys
+  for (int l = 0; l < num_lanes; ++l) {
+    const Lane& lane = params.lane[l];
+    if (lane.op == kSumF) return static_cast<int>(cudaErrorInvalidValue);
+    keys |= lane.op != kSum && (lane.kind == kU64 || lane.kind == kF32 ||
+                                lane.kind == kF64);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long* o = static_cast<long long*>(out);
+  const int64_t cells = static_cast<int64_t>(m) * num_lanes;
+  const int fill = static_cast<int>(
+      cells / kThreads + 1 < 4096 ? cells / kThreads + 1 : 4096);
+  init_cells_kernel<<<fill, kThreads, 0, s>>>(params, num_lanes, cells, o);
+  if (n > 0) {
+    const void* kernel = one_pass_kernel(floats != 0);
+    const size_t smem = one_pass_smem(num_lanes);
+    const int err = allow(kernel, smem);
+    if (err != 0) return err;
+    const int32_t* g = static_cast<const int32_t*>(gid);
+    void* args[] = {&g, &n, &params, &num_lanes, &m, &o};
+    const cudaError_t e = cudaLaunchKernel(kernel, dim3(blocks),
+                                           dim3(kOnePassThreads), args, smem, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (keys) {
+    decode_cells_kernel<<<fill, kThreads, 0, s>>>(params, num_lanes, cells, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

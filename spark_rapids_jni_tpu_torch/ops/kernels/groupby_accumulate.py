@@ -8,8 +8,10 @@ groupby_accumulate.py`` (``accumulate``, body ``_make_kernel``). Source:
 no limb split, validity applied in the kernel, float and uint64 lanes)
 and how it avoids same-address atomics per row (per-thread partials in
 shared memory for m <= 16, warp-aggregated updates above). A domain too
-wide for one lane's partials in shared memory splits into windows of
-groups, a launch each (:func:`launch_plan`).
+wide for one lane's partials in shared memory takes one pass with its
+partials in global memory, except its float sums, whose order must be
+fixed: they split into windows of groups, a launch each
+(:func:`launch_plan`).
 
 A lane is ``(op, values, valid, neutral)``: ``op`` is sum, min or max;
 ``values`` a tensor[n] or None for the constant 1 (row and valid
@@ -51,6 +53,7 @@ NAME = "groupby.bounded_accumulate"
 _PARAM_LANES = 64  # lanes one launch takes in its parameters
 _MAX_SMEM = 232_448  # dynamic shared memory a block may opt in to (sm_90)
 _SMALL_M = 16  # the largest m of the per-thread kernel
+_TURN_BYTES = 16  # the large kernel's float-sum turn counter
 _TILE = 8192  # the per-thread kernel's rows per tile (one byte of gid each)
 # bytes a row of one lane is reckoned to read when windows are chosen (an
 # int64 or float64 value); gid is 4 more a launch
@@ -89,38 +92,55 @@ class Lane(NamedTuple):
 
 
 def lanes_per_launch(m: int) -> int:
-    """How many lanes one launch over ``m`` groups takes: at most
-    ``_PARAM_LANES``, and as many as fit the block's shared memory (40
-    bytes a lane and 8 a partial; the per-thread kernel's 256 private
-    columns and 8,192-row gid tile, or the large kernel's two-byte tag a
-    group). Below 1 the groups split into windows (:func:`launch_plan`)."""
+    """How many lanes one launch of a shared-memory kernel over ``m``
+    groups takes: at most ``_PARAM_LANES``, and as many as fit the block's
+    shared memory (40 bytes a lane and 8 a partial; the per-thread
+    kernel's 256 private columns and 8,192-row gid tile, or the large
+    kernel's 16-byte turn counter and two-byte tag a group). Below 1 the
+    domain takes the one-pass kernel (:func:`launch_plan`)."""
     if m <= _SMALL_M:
         per = (_MAX_SMEM - _TILE - 8 * 256 * m) // (40 + 8 * m)
     else:
-        per = (_MAX_SMEM - 2 * m) // (40 + 8 * m)
+        per = (_MAX_SMEM - _TURN_BYTES - 2 * m) // (40 + 8 * m)
     return min(_PARAM_LANES, per)
 
 
 def _widest(per: int) -> int:
     """The widest window (past ``_SMALL_M``) whose launch takes ``per``
-    lanes: (MAX_SMEM - 2w) >= per * (40 + 8w)."""
-    return (_MAX_SMEM - 40 * per) // (8 * per + 2)
+    lanes: (MAX_SMEM - 16 - 2w) >= per * (40 + 8w)."""
+    return (_MAX_SMEM - _TURN_BYTES - 40 * per) // (8 * per + 2)
 
 
-def launch_plan(m: int, num_lanes: int) -> tuple[list[tuple[int, int]], int]:
-    """(windows, lanes a launch) of one accumulate over ``m`` groups.
-    A domain that fits one launch is one window [0, m) with
-    ``lanes_per_launch(m)`` lanes a launch. A wider one splits into
-    windows ``(g0, w)`` of near-equal width, each launch covering one
-    window and ``per`` lanes; of the splits, the one that reads the fewest
-    bytes a row: windows x (4 bytes of gid a launch + 8 a lane)."""
+class LaunchPlan(NamedTuple):
+    """How one accumulate over ``m`` groups launches.
+
+    ``one_pass``: lanes the one-pass kernel takes (partials in global
+    memory, ``_PARAM_LANES`` lanes a launch): every lane but the float
+    sums when the domain is past one launch's shared memory, else 0.
+    ``windows``/``per``: the shared-memory launches, one a window
+    ``(g0, w)`` of groups and group of ``per`` lanes: every lane over the
+    one window ``[0, m)`` when the domain fits, else the float sums alone
+    over windows of near-equal width (none without float sums)."""
+
+    one_pass: int
+    windows: list
+    per: int
+
+
+def launch_plan(m: int, num_lanes: int, float_sums: int = 0) -> LaunchPlan:
+    """The :class:`LaunchPlan` of ``num_lanes`` lanes over ``m`` groups,
+    ``float_sums`` of them float sums. Past one launch's shared memory the
+    float sums split into windows; of the splits, the one that reads the
+    fewest bytes a row: windows x (4 bytes of gid a launch + 8 a lane)."""
     per = lanes_per_launch(m)
     if per >= 1:
-        return [(0, m)], per
+        return LaunchPlan(0, [(0, m)], per)
+    if not float_sums:
+        return LaunchPlan(num_lanes, [], 0)
     best = None
-    for p in range(1, min(num_lanes, _PARAM_LANES) + 1):
+    for p in range(1, min(float_sums, _PARAM_LANES) + 1):
         count = -(-m // _widest(p))
-        cost = count * (4 * -(-num_lanes // p) + _LANE_BYTES * num_lanes)
+        cost = count * (4 * -(-float_sums // p) + _LANE_BYTES * float_sums)
         if best is None or cost < best[0]:
             best = (cost, count)
     count = best[1]
@@ -131,7 +151,8 @@ def launch_plan(m: int, num_lanes: int) -> tuple[list[tuple[int, int]], int]:
         windows.append((g0, w))
         g0 += w
     # the widest window sets the lanes every launch takes
-    return windows, lanes_per_launch(base + (extra > 0))
+    return LaunchPlan(num_lanes - float_sums, windows,
+                      lanes_per_launch(base + (extra > 0)))
 
 
 def unsupported_reason(lanes: Sequence[Lane], m: int) -> str | None:
@@ -155,15 +176,24 @@ def accumulate(gid: torch.Tensor, lanes: Sequence[Lane], m: int) -> torch.Tensor
     return accumulate_plain(gid, lanes, m)
 
 
-def launches(m: int, num_lanes: int) -> int:
-    """Kernel launches of one accumulate of ``num_lanes`` lanes: a
-    launch a window and group of lanes."""
-    windows, per = launch_plan(m, num_lanes)
-    return len(windows) * -(-num_lanes // per)
+def launches(m: int, num_lanes: int, float_sums: int = 0) -> int:
+    """Kernel launches of one accumulate of ``num_lanes`` lanes over ``m``
+    groups, ``float_sums`` of them float sums: a shared-memory launch a
+    window and group of lanes, a one-pass launch a group of up to
+    ``_PARAM_LANES`` lanes. Past one launch's shared memory identical
+    lanes run once: there ``num_lanes`` counts distinct lanes."""
+    plan = launch_plan(m, num_lanes, float_sums)
+    shared = float_sums if plan.one_pass else num_lanes
+    windowed = len(plan.windows) * -(-shared // plan.per) if shared else 0
+    return windowed + -(-plan.one_pass // _PARAM_LANES)
 
 
 def _is_float(lane: Lane) -> bool:
     return lane.values is not None and lane.values.is_floating_point()
+
+
+def _is_float_sum(lane: Lane) -> bool:
+    return lane.op == "sum" and _is_float(lane)
 
 
 def _float_key(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -275,43 +305,93 @@ def _accumulate_cuda(gid: torch.Tensor, lanes: Sequence[Lane],
     if n == 0 or not lanes:
         # no rows: every cell keeps its neutral, nothing to launch
         return accumulate_plain(gid, lanes, m)
-    windows, per = launch_plan(m, len(lanes))
-    outs = [_launch(gid.contiguous(), lanes[i:i + per], m, windows, device)
-            for i in range(0, len(lanes), per)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    gid = gid.contiguous()
+    per = lanes_per_launch(m)
+    if per >= 1:  # the domain fits shared memory
+        outs = [_launch(gid, lanes[i:i + per], m, [(0, m)], device)
+                for i in range(0, len(lanes), per)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    # past shared memory, identical lanes (the planner repeats a count
+    # lane for each aggregate that needs one) run once: there a lane
+    # costs per-row work on every row
+    first: dict = {}
+    cols = [first.setdefault(_lane_key(lane), len(first)) for lane in lanes]
+    if len(first) < len(lanes):
+        distinct = [None] * len(first)
+        for lane, c in zip(lanes, cols):
+            distinct[c] = lane
+        return _accumulate_cuda(gid, distinct, m)[:, cols]
+    fsum = [i for i, lane in enumerate(lanes) if _is_float_sum(lane)]
+    plan = launch_plan(m, len(lanes), len(fsum))
+    # every lane but the float sums in one pass, the float sums in
+    # windows; each part's columns into their places
+    rest = [i for i in range(len(lanes)) if i not in fsum]
+    parts = [(rest[i:i + _PARAM_LANES],
+              _launch_one_pass(gid, [lanes[j] for j in
+                                     rest[i:i + _PARAM_LANES]], m, device))
+             for i in range(0, len(rest), _PARAM_LANES)]
+    parts += [(fsum[i:i + plan.per],
+               _launch(gid, [lanes[j] for j in fsum[i:i + plan.per]], m,
+                       plan.windows, device))
+              for i in range(0, len(fsum), max(plan.per, 1))]
+    if len(parts) == 1:
+        return parts[0][1]
+    out = torch.empty((m, len(lanes)), dtype=torch.int64, device=device)
+    for cols, part in parts:
+        out[:, cols] = part
+    return out
 
 
-_shapes: dict = {}  # (device, m, lanes, floats) -> (threads, blocks an SM)
+def _lane_key(lane: Lane) -> tuple:
+    """What decides a lane's column: its op, its neutral and the tensors
+    (by identity: a cheap test on the host) of its values and validity."""
+    return (lane.op, lane.neutral, id(lane.values), id(lane.valid))
+
+
+_shapes: dict = {}  # (device, m or None, lanes, floats) -> (threads, per SM)
+
+
+def _shape(device, m: Optional[int], num_lanes: int,
+           floats: bool) -> tuple[int, int]:
+    """(threads, blocks an SM) of a shared-memory launch over ``m``
+    groups, or of the one-pass kernel (``m`` None), from the kernel's
+    occupancy; cached. ``floats``: a float lane is among them, which
+    takes the kernels that hold the float paths."""
+    key = (device, m, num_lanes, floats)
+    if key not in _shapes:
+        threads, per_sm = ctypes.c_int32(0), ctypes.c_int32(0)
+        if m is None:
+            fn = _build.function("srjt_groupby_accumulate_one_pass_shape", [
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                ctypes.c_void_p])
+            status = fn(num_lanes, int(floats), ctypes.byref(threads),
+                        ctypes.byref(per_sm))
+        else:
+            fn = _build.function("srjt_groupby_accumulate_shape", [
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_void_p])
+            status = fn(num_lanes, m, int(floats), ctypes.byref(threads),
+                        ctypes.byref(per_sm))
+        _build.check(status, NAME)
+        _shapes[key] = (threads.value, per_sm.value)
+    return _shapes[key]
 
 
 def _grid(n: int, num_lanes: int, m: int, floats: bool,
           device) -> tuple[int, int]:
-    """(threads, blocks) of one launch: the kernel's block size and as
-    many blocks as the card holds at once, no more than there are tiles
-    (m <= 16) or blocks' worth of rows. ``floats``: a float lane is among
-    them, which takes the kernels that hold the float paths."""
-    key = (device, m, num_lanes, floats)
-    if key not in _shapes:
-        threads, per_sm = ctypes.c_int32(0), ctypes.c_int32(0)
-        fn = _build.function("srjt_groupby_accumulate_shape", [
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_void_p])
-        _build.check(fn(num_lanes, m, int(floats), ctypes.byref(threads),
-                        ctypes.byref(per_sm)), NAME)
-        _shapes[key] = (threads.value, per_sm.value)
-    threads, per_sm = _shapes[key]
+    """(threads, blocks) of one shared-memory launch: the kernel's block
+    size and as many blocks as the card holds at once, no more than there
+    are tiles (m <= 16) or blocks' worth of rows."""
+    threads, per_sm = _shape(device, m, num_lanes, floats)
     rows_per_block = _TILE if m <= _SMALL_M else threads
     work = -(-n // rows_per_block)
     return threads, max(1, min(work, _build.sm_count(device) * per_sm))
 
 
-def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
-            windows: Sequence[tuple[int, int]], device) -> torch.Tensor:
-    """int64[m, L] of these lanes (as many as a launch takes): one
-    launch a window of groups."""
-    n = gid.shape[0]
-    keep = [gid]  # every tensor the launch reads, alive until enqueued
-    rows = []
+def _descriptors(lanes: Sequence[Lane], n: int, device):
+    """(int64[L, 5] host descriptors, tensors to keep alive until the
+    launch is enqueued, any float lane) of these lanes."""
+    keep, rows = [], []
     for lane in lanes:
         vptr = 0
         if lane.values is not None:
@@ -332,16 +412,24 @@ def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
             keep.append(valid)
             mptr = valid.data_ptr()
         kind = 0 if lane.values is None else _KINDS[lane.values.dtype]
-        op = _SUM_F if _is_float(lane) and lane.op == "sum" \
-            else _OPS[lane.op]
+        op = _SUM_F if _is_float_sum(lane) else _OPS[lane.op]
         rows += [vptr, mptr, kind, op, _neutral_key(lane)]
-    floats = any(_is_float(lane) for lane in lanes)
+    # the lane descriptors go to the launch as host memory, in its
+    # parameters
+    desc = (ctypes.c_int64 * len(rows))(*rows)
+    return desc, keep, any(_is_float(lane) for lane in lanes)
+
+
+def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
+            windows: Sequence[tuple[int, int]], device) -> torch.Tensor:
+    """int64[m, L] of these lanes (as many as a launch takes) from the
+    shared-memory kernels: one launch a window of groups."""
+    n = gid.shape[0]
+    desc, keep, floats = _descriptors(lanes, n, device)
     shapes = [(g0, w, *_grid(n, len(lanes), w, floats, device))
               for g0, w in windows]
-    # the lane descriptors go to the launch as host memory, in its
-    # parameters; each block writes its window's partials to its row of
-    # scratch, which the windows take in turn (one stream orders them)
-    desc = (ctypes.c_int64 * len(rows))(*rows)
+    # each block writes its window's partials to its row of scratch,
+    # which the windows take in turn (one stream orders them)
     cells = m * len(lanes)
     scratch_cells = max(blocks * w * len(lanes)
                         for _, w, _, blocks in shapes)
@@ -358,4 +446,25 @@ def _launch(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
                     g0, int(floats), threads, scratch.data_ptr(), blocks,
                     out[g0:].data_ptr(), _build.stream_handle(device))
         _build.check(status, NAME)
+    return out
+
+
+def _launch_one_pass(gid: torch.Tensor, lanes: Sequence[Lane], m: int,
+                     device) -> torch.Tensor:
+    """int64[m, L] of these lanes (no float sum among them, at most
+    ``_PARAM_LANES``) from one launch of the one-pass kernel."""
+    n = gid.shape[0]
+    desc, keep, floats = _descriptors(lanes, n, device)
+    threads, per_sm = _shape(device, None, len(lanes), floats)
+    blocks = max(1, min(-(-n // threads), _build.sm_count(device) * per_sm))
+    out = torch.empty((m, len(lanes)), dtype=torch.int64, device=device)
+    fn = _build.function("srjt_groupby_accumulate_one_pass", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_void_p])
+    count_launch(NAME)
+    status = fn(gid.data_ptr(), n, ctypes.addressof(desc), len(lanes), m,
+                int(floats), blocks, out.data_ptr(),
+                _build.stream_handle(device))
+    _build.check(status, NAME)
     return out

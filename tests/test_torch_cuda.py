@@ -1226,9 +1226,10 @@ def test_accumulate_kernel_uint64_and_float_lanes(dev, m):
     (40_000, 3, False), (100_001, 5, True), (23_300, 1, False)])
 def test_accumulate_kernel_past_the_old_cap(dev, m, num_lanes, with_float):
     # m*L above the TPU kernel's 2048 cells; lanes past what one block's
-    # shared memory holds split over launches, each reading gid again.
+    # shared memory holds split over launches, each reading gid again,
+    # and domains past one lane's shared memory take the one-pass kernel.
     # With a float lane, every integer kind goes through the kernels that
-    # hold the float paths (batched raw loads in the large one).
+    # hold the float paths.
     n = 3 * 8192 + 77
     rng = np.random.default_rng(m + num_lanes)
     gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
@@ -1242,8 +1243,100 @@ def test_accumulate_kernel_past_the_old_cap(dev, m, num_lanes, with_float):
     kernels.reset_counts()
     _check_lanes(gid, lanes, m)
     assert kernels.launches(kga.NAME) == kga.launches(m, num_lanes)
-    # past ~23,000 slots the domain splits into windows: no reason left
+    # past ~23,000 slots the domain takes one pass: no reason left
     assert kga.unsupported_reason(lanes, 40_000) is None
+
+
+@pytest.mark.parametrize("ids", ["one_group", "hot_half", "hot_then_spread"])
+def test_accumulate_one_pass_hot_groups(dev, ids):
+    # m = 100,001 (the one-pass kernel): every row in one group, half the
+    # rows in one hot group, and a hot first half then spread rows (a
+    # warp's run of the hot group flushed when it stops appearing); the
+    # float min/max and uint64 lanes through the kernel with float paths
+    m = 100_001
+    n = 5 * 8192 + 77
+    rng = np.random.default_rng(len(ids))
+    spread = rng.integers(0, m + 1, n)
+    g = {"one_group": np.full(n, 4242),
+         "hot_half": np.where(rng.random(n) < 0.5, 4242, spread),
+         "hot_then_spread": np.where(np.arange(n) < n // 2, 77, spread)}[ids]
+    gid = torch.from_numpy(g.astype(np.int32)).to(dev)
+    lanes = _cycled_lanes(9, n, dev, rng)
+    f = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    lanes += [kga.Lane("min", f, None, float("inf")),
+              kga.Lane("max", f.to(torch.float32), None, float("-inf"))]
+    kernels.reset_counts()
+    got = kga._accumulate_cuda(gid, lanes, m)
+    assert kernels.launches(kga.NAME) == kga.launches(m, len(lanes)) == 1
+    assert torch.equal(got, kga.accumulate_plain(gid, lanes, m))
+
+
+@pytest.mark.parametrize("m", [17, 1032, 100_001])
+def test_accumulate_sum_carries(dev, m):
+    # int64 and uint64 sums whose low words sit just below 2^32 (every add
+    # carries into the high word), with negative values and the uint64
+    # top range: the shared kernel's 32-bit halves (m = 17 and 1,032,
+    # 256- and 1,024-thread blocks) and the one-pass kernel's 64-bit adds
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m)
+    gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
+    lo = (2**32 - 1 - rng.integers(0, 64, n)).astype(np.int64)
+    hi = rng.integers(-2**20, 2**20, n).astype(np.int64)
+    i64 = hi * 2**32 + lo
+    i64[::3] = -i64[::3]
+    u64 = (rng.integers(2**64 - 2**40, 2**64 - 1, n, dtype=np.uint64)
+           | np.uint64(0xFFFFFF00))
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    a = torch.from_numpy(i64).to(dev)
+    b = torch.from_numpy(u64).to(dev)
+    lanes = [kga.Lane("sum", a, None, 0), kga.Lane("sum", a, valid, 0),
+             kga.Lane("sum", b, None, 0), kga.Lane("sum", b, valid, 0),
+             kga.Lane("sum", a.to(torch.int32), None, 0)]
+    for one_group in (False, True):
+        g = torch.full_like(gid, m - 1) if one_group else gid
+        assert torch.equal(kga._accumulate_cuda(g, lanes, m),
+                           kga.accumulate_plain(g, lanes, m))
+
+
+@pytest.mark.parametrize("m", [1032, 100_001])
+def test_accumulate_identical_lanes_run_once(dev, m):
+    # the planner repeats a count lane for each aggregate that needs one:
+    # past shared memory identical lanes run once and fill every column
+    # they stand for; below it they share the one launch
+    n = 3 * 8192 + 77
+    rng = np.random.default_rng(m + 1)
+    gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(-99, 99, n)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    count = kga.Lane("sum", None, None, 0)
+    lanes = [count, kga.Lane("sum", v, valid, 0), count,
+             kga.Lane("max", v, valid, -2**63), count,
+             kga.Lane("sum", v, valid, 0)]
+    kernels.reset_counts()
+    got = kga._accumulate_cuda(gid, lanes, m)
+    assert kernels.launches(kga.NAME) == kga.launches(m, 3) == 1
+    assert torch.equal(got, kga.accumulate_plain(gid, lanes, m))
+
+
+def test_accumulate_float_sum_wide_domain_repeats(dev):
+    # a float-sum lane at m = 100,001 takes windows of the large kernel
+    # (a fixed order) beside the one pass of the others: the same bits in
+    # three runs, within FLOAT_SUM_REL * sum|x| of the plain version
+    m = 100_001
+    n = 5 * 8192 + 77
+    rng = np.random.default_rng(5)
+    gid = torch.from_numpy(rng.integers(0, m + 1, n).astype(np.int32)).to(dev)
+    x = rng.standard_normal(n) * 1e3
+    x[rng.random(n) < 0.002] = np.nan
+    f = torch.from_numpy(x).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    lanes = [kga.Lane("sum", None, valid, 0), kga.Lane("sum", f, valid, 0.0),
+             kga.Lane("max", f, None, float("-inf"))]
+    kernels.reset_counts()
+    runs = [kga._accumulate_cuda(gid, lanes, m) for _ in range(3)]
+    assert kernels.launches(kga.NAME) == 3 * kga.launches(m, 3, 1) == 3 * 6
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    _check_lanes(gid, lanes, m)
 
 
 def _refused_inputs(n, device, rng):
@@ -2171,7 +2264,7 @@ def test_segment_sum_kernel_equals_its_plain_version(dev, case):
 
 def test_bounded_plan_over_supplier_keys_on_the_card(dev):
     """A domain of 100,000 keys (m = 100,001): plan_groupby_auto grows
-    from 4,096 to the bounded plan, kernel A takes it in windows (its
+    from 4,096 to the bounded plan, kernel A takes it in one pass (its
     launches = ``launches(m, L)``), equal to the same call on the CPU
     and to the general plan's groups."""
     from spark_rapids_jni_tpu_torch.ops.groupby import bounded_lanes
@@ -2201,7 +2294,7 @@ def test_bounded_plan_over_supplier_keys_on_the_card(dev):
         out[str(d)] = (res, kernels.launches(kga.NAME))
         if d == dev:
             lanes = bounded_lanes(tbl, aggs).lanes
-            assert out[str(d)][1] == kga.launches(100_001, len(lanes)) > 5
+            assert out[str(d)][1] == kga.launches(100_001, len(lanes)) == 1
     card, cpu = out[str(dev)][0], out["cpu"][0]
     assert torch.equal(card.present.cpu(), cpu.present)
     for a, b in zip(card.table.columns, cpu.table.columns):

@@ -3,9 +3,10 @@ names, held to the JAX package on the CPU.
 
 - The bounded groupby over a wide declared domain: ``plan_groupby_auto``
   grows its budget until the domain's slots fit, then lowers to the
-  bounded plan, as the reference does; kernel A's launch plan splits a
-  domain past one launch's shared memory into windows of groups
-  (``launch_plan``, ``launches``) instead of refusing it.
+  bounded plan, as the reference does; kernel A's launch plan takes a
+  domain past one launch's shared memory in one pass, its float sums in
+  windows of groups (``launch_plan``, ``launches``), instead of refusing
+  it.
 - Rows wider than the row transpose's 128-row staging (1,632 and 16,256
   bytes) convert with no fallback, byte-equal to the reference's
   ``enforce_row_limit=False`` image.
@@ -91,25 +92,35 @@ def test_plan_groupby_auto_turns_bounded_as_the_budget_grows():
 @pytest.mark.parametrize("num_lanes", [1, 8, 9, 64])
 def test_accumulate_splits_a_wide_domain_into_windows(num_lanes):
     """m = 100,001 slots (SF10's supplier keys and the null slot): no
-    reason to refuse; windows of near-equal width tile [0, m), each
-    within one launch's shared memory, and ``launches`` counts a launch
-    a window and group of lanes. Of the splits, the windows chosen read
-    the fewest bytes a row."""
+    reason to refuse. Without float sums every lane takes the one-pass
+    kernel (one launch of up to 64 lanes, no window). Float sums, whose
+    order must be fixed, split alone into windows of near-equal width
+    that tile [0, m), each within one launch's shared memory; ``launches``
+    counts a launch a window and group of float lanes beside the one
+    pass. Of the splits, the windows chosen read the fewest bytes a row."""
     m = 100_001
     lanes = [kga.Lane("sum", torch.zeros(4, dtype=torch.int64), None, 0)
              ] * num_lanes
     assert kga.unsupported_reason(lanes, m) is None
-    windows, per = kga.launch_plan(m, num_lanes)
+    assert kga.lanes_per_launch(m) < 1
+    plan = kga.launch_plan(m, num_lanes)
+    assert plan.one_pass == num_lanes and plan.windows == []
+    assert kga.launches(m, num_lanes) == 1
+    fsum = max(1, num_lanes // 2)
+    plan = kga.launch_plan(m, num_lanes, fsum)
+    windows, per = plan.windows, plan.per
+    assert plan.one_pass == num_lanes - fsum
     assert windows[0][0] == 0 and sum(w for _, w in windows) == m
     assert all(a + w == b for (a, w), (b, _) in zip(windows, windows[1:]))
     assert max(w for _, w in windows) - min(w for _, w in windows) <= 1
     assert all(kga.lanes_per_launch(w) >= per >= 1 for _, w in windows)
-    assert kga.launches(m, num_lanes) == len(windows) * -(-num_lanes // per)
+    assert kga.launches(m, num_lanes, fsum) == \
+        len(windows) * -(-fsum // per) + (plan.one_pass > 0)
 
     def cost(count, p):
-        return count * (4 * -(-num_lanes // p) + 8 * num_lanes)
+        return count * (4 * -(-fsum // p) + 8 * fsum)
 
-    for p in range(1, min(num_lanes, 64) + 1):
+    for p in range(1, min(fsum, 64) + 1):
         fewest = -(-m // kga._widest(p))
         assert kga.lanes_per_launch(kga._widest(p)) >= p
         assert cost(len(windows), per) <= cost(fewest, p)
@@ -119,18 +130,33 @@ def test_accumulate_splits_a_wide_domain_into_windows(num_lanes):
 
 @pytest.mark.parametrize("m,num_lanes,want", [
     (3, 5, 1), (6, 3, 1), (12, 13, 1), (26, 3, 1), (1_032, 16, 1),
-    (1_032, 40, 2), (23_236, 1, 1), (23_300, 1, 2), (40_000, 2, 4)])
+    (1_032, 40, 2), (23_236, 1, 1), (23_300, 1, 1), (40_000, 2, 1)])
 def test_accumulate_launch_counts(m, num_lanes, want):
     """Domains one launch holds keep one window and their lane split
-    (planned q12, q4, q1, q5, the monthly rollup); wider ones split."""
+    (planned q12, q4, q1, q5, the monthly rollup); wider ones take one
+    pass of the one-pass kernel."""
     assert kga.launches(m, num_lanes) == want
-    windows, _ = kga.launch_plan(m, num_lanes)
-    assert (len(windows) == 1) == (kga.lanes_per_launch(m) >= 1)
+    plan = kga.launch_plan(m, num_lanes)
+    fits = kga.lanes_per_launch(m) >= 1
+    assert plan.windows == ([(0, m)] if fits else [])
+    assert plan.one_pass == (0 if fits else num_lanes)
+
+
+@pytest.mark.parametrize("m,num_lanes,float_sums,want", [
+    (1_032, 16, 1, 1), (26, 3, 3, 1), (23_236, 2, 1, 2),
+    (100_001, 9, 1, 6), (100_001, 1, 1, 5), (100_001, 70, 0, 2),
+    (40_000, 3, 2, 5)])
+def test_accumulate_launch_counts_with_float_sums(m, num_lanes, float_sums,
+                                                  want):
+    """Float sums launch with the other lanes where the domain fits; past
+    it they take windows of their own beside the one pass (64 lanes a
+    launch)."""
+    assert kga.launches(m, num_lanes, float_sums) == want
 
 
 def test_bounded_groupby_past_one_launch_counts_no_fallback():
     """40,000 slots on the CPU: the plain version, no fallback counted
-    (the kernel takes the domain in windows on the card)."""
+    (the kernel takes the domain in one pass on the card)."""
     n = 500
     rng = np.random.default_rng(7)
     tab = Table.from_pylists([
